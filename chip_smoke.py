@@ -10,16 +10,26 @@ without printing its last line:
 1. Device: the card's name and power limit (``nvidia-smi``).
 2. Build: compile every kernel from ``ray_tpu_torch/csrc`` with nvcc.
 3. Kernels against their plain PyTorch versions on the card, at the
-   slice's shapes, in bf16 and f32 (tolerances below).
+   slice's shapes, in bf16 and f32 (tolerances below); the paged decode
+   kernel also bit-equal to the contiguous one through the identity
+   table, through a scattered table, over NaN-poisoned tails.
 4. Model: a 2-layer model at Llama-3-8B widths in f32, prefill + 8
    decode steps through the kernels, against the same model on the plain
-   versions.
+   versions; then in f32 and bf16 with ``paged_decode=True``, logits
+   bit-equal to the contiguous decode kernel's.
 5. Engine: ``LLMEngine`` on full-depth Llama-3-8B in bf16 (random weights
    from a seed), 16 requests from 8 client threads; checks every request's
-   token count, prefix-cache hits, and that every kernel was launched.
+   token count, prefix-cache hits, and that every kernel of its path was
+   launched.
 6. Timing: each kernel, its plain version and (where one exists) the one
    PyTorch call that computes the same function, with CUDA events, at the
-   decode shapes of phase 3; the ``kernels`` JSON line.
+   decode shapes of phase 3; the ``kernels`` JSON line (printed last,
+   after phase 7, with phase 7a's launches for the paged kernel).
+7. Engines with the slice-2 knobs, full-depth Llama-3-8B bf16: (a) phase
+   5's configuration and traffic with ``paged_decode=True`` — the paged
+   kernel runs, the contiguous one does not; (b) paged decode,
+   speculation, chunked prefill and int8 weights all on, with repetitive,
+   long and short prompts — speculation and chunked prefill both run.
 
 The last line is ``{"ok": true, "device": {...}}``. Needs one card; exits
 non-zero at once without one.
@@ -43,6 +53,8 @@ import torch.nn.functional as F
 TOL = {
     # tests/test_decode_attention.py:52 (f32), :120 (bf16)
     "decode_attention": {torch.float32: 2e-3, torch.bfloat16: 2e-2},
+    # tests/test_paged_decode.py:83-84 (f32), :152-154 (bf16)
+    "paged_decode_attention": {torch.float32: 2e-5, torch.bfloat16: 2e-2},
     # tests/test_fused_ops.py:33-83 (f32); bf16 as test_fused_ops.py:92-94
     "rms_norm": {torch.float32: 1e-6, torch.bfloat16: 2e-2},
     "rms_norm_residual": {torch.float32: 1e-6, torch.bfloat16: 2e-2},
@@ -53,6 +65,16 @@ ROPE_TOL = {torch.float32: (1e-5, 1e-6), torch.bfloat16: (2e-2, 2e-2)}
 # Phase 4 logits: test_decode_attention.py:84-86 (kernel vs plain model).
 MODEL_TOL = 2e-3
 
+# The engines of phases 5 and 7: Llama-3-8B, 8 slots of 512 rows, 16-row
+# prefix blocks (= pages). Phase 7b's cache adds the speculative scratch
+# strip (draft_len + 1 rows) and pads to a page: 528 rows, the paged
+# kernel's S in phases 3 and 6 (checked against the engine's own cache).
+ENGINE_KW = dict(max_batch=8, max_len=512, prompt_buckets=[32, 64],
+                 decode_chunk=8, prefix_block=16, seed=0)
+SPEC_DRAFT_LEN = 4
+PAGE = ENGINE_KW["prefix_block"]
+PAGED_S = -(-(ENGINE_KW["max_len"] + SPEC_DRAFT_LEN + 1) // PAGE) * PAGE
+
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, FLOP/s.
 HBM_BYTES_S = 3.35e12
 BF16_FLOPS = 989e12      # tensor cores, bf16 inputs
@@ -61,6 +83,8 @@ F32_SIMT_FLOPS = 67e12   # elementwise f32 math outside the tensor cores
 KERNEL_META = {
     "decode_attention": ("ray_tpu_torch/csrc/decode_attention.cu",
                          "ray_tpu/ops/decode_attention.py:108"),
+    "paged_decode_attention": ("ray_tpu_torch/csrc/decode_attention.cu",
+                               "ray_tpu/ops/paged_decode.py:130"),
     "rms_norm": ("ray_tpu_torch/csrc/fused.cu", "ray_tpu/ops/fused.py:183"),
     "rms_norm_residual": ("ray_tpu_torch/csrc/fused.cu",
                           "ray_tpu/ops/fused.py:191"),
@@ -162,6 +186,88 @@ def check_decode(dtype, s, d=128, seed=0):
     return err
 
 
+def identity_table(b, s, page=PAGE):
+    return torch.arange(b * (s // page), dtype=torch.int32,
+                        device="cuda").reshape(b, s // page)
+
+
+def scatter_pages(k, v, page, seed):
+    """Every (slot, page) of k/v moved to a random page of an equally
+    sized pool; returns (pool_k, pool_v, table)."""
+    b, kh, s, d = k.shape
+    np_row = s // page
+    perm = torch.randperm(b * np_row, generator=_gen(seed), device="cuda")
+    pools = []
+    for src in (k, v):
+        pages = src.reshape(b, kh, np_row, page, d).transpose(1, 2).reshape(
+            b * np_row, kh, page, d)
+        flat = torch.empty_like(pages)
+        flat[perm] = pages
+        pools.append(flat.reshape(b, np_row, kh, page, d).transpose(1, 2)
+                     .reshape(b, kh, s, d).contiguous())
+    return pools[0], pools[1], perm.reshape(b, np_row).to(torch.int32)
+
+
+def check_paged(dtype, s, d=128, seed=50):
+    """(a) identity table bit-equal to decode_attention; (b) a scattered
+    table within tolerance of the contiguous plain version; (c) every row
+    at or past each length (whole pages included) NaN-poisoned, lengths
+    0, 1, a partial page and S among them."""
+    from ray_tpu_torch.ops import (decode_attention,
+                                   decode_attention_reference,
+                                   paged_decode_attention)
+
+    b, h, kh = 8, 32, 8
+    lengths = [0, 1, s, s // 2 + 3, 17, s - 1, 100, 257]
+    q, k, v, lens = decode_inputs(b, h, kh, d, s, dtype, seed, lengths)
+    want = decode_attention_reference(q, k, v, lens)
+    kp, vp = k.clone(), v.clone()
+    for i, n in enumerate(lengths):
+        kp[i, :, n:] = float("nan")
+        vp[i, :, n:] = float("nan")
+    got = paged_decode_attention(q, kp, vp, identity_table(b, s), lens,
+                                 page_size=PAGE)
+    if not torch.equal(got, decode_attention(q, kp, vp, lens,
+                                             layout="bksd")):
+        raise AssertionError(f"paged_decode_attention {dtype} S={s}: "
+                             "identity table not bit-equal to "
+                             "decode_attention")
+    if got[0].abs().max().item() != 0.0:
+        raise AssertionError("paged_decode_attention: length-0 slot is "
+                             "not 0")
+    tol = TOL["paged_decode_attention"][dtype]
+    err = close_enough(got, want, tol, tol,
+                       f"paged_decode_attention identity {dtype} S={s}")
+    pool_k, pool_v, table = scatter_pages(kp, vp, PAGE, seed + 3)
+    got = paged_decode_attention(q, pool_k, pool_v, table, lens,
+                                 page_size=PAGE)
+    err = max(err, close_enough(
+        got, want, tol, tol, f"paged_decode_attention scattered {dtype} "
+        f"S={s}"))
+    log(f"  paged_decode_attention {str(dtype)[6:]} B=8 H=32 KH=8 D={d} "
+        f"S={s} page {PAGE}: identity table bit-equal to decode_attention;"
+        f" identity and scattered tables, ragged+NaN-poisoned: max abs err "
+        f"{err} (tol {tol})")
+    return err
+
+
+def check_paged_refuses():
+    from ray_tpu_torch.ops import paged_decode_attention
+
+    q, k, v, lens = decode_inputs(1, 32, 8, 128, PAGED_S - 8,
+                                  torch.bfloat16, 60, [5])
+    try:
+        paged_decode_attention(q, k, v, identity_table(1, PAGED_S), lens,
+                               page_size=PAGE)
+    except ValueError as e:
+        if "multiple" not in str(e):
+            raise
+        log(f"  paged_decode_attention S={PAGED_S - 8} page {PAGE}: "
+            f"refused ({e})")
+        return
+    raise AssertionError("paged_decode_attention took S % page != 0")
+
+
 def check_fused(dtype, rows_shape, seed=10):
     from ray_tpu_torch.ops import (fused_qk_rope, fused_rms_norm,
                                    fused_rms_norm_residual, fused_swiglu,
@@ -212,8 +318,11 @@ def phase_kernels():
         for s in (512, 4096):
             check_decode(dtype, s)
         check_decode(dtype, 512, d=64)        # LLAMA3_1B head_dim
+        for s in (PAGED_S, 4096):
+            check_paged(dtype, s)
         for shape in ((8, 1), (1, 64)):
             check_fused(dtype, shape)
+    check_paged_refuses()
     torch.cuda.synchronize()
 
 
@@ -252,37 +361,72 @@ def phase_model():
         f"(tol {MODEL_TOL})")
     del params, cache_k, cache_p
     torch.cuda.empty_cache()
+    for dtype in (torch.float32, torch.bfloat16):
+        phase_model_paged(base, dtype)
+
+
+def phase_model_paged(base, dtype, b=4, t=16, steps=8):
+    """The same 2-layer model with paged_decode=True: logits bit-equal to
+    the contiguous decode kernel's at every decode step."""
+    from ray_tpu_torch.models import llama
+
+    cfg_c = dataclasses.replace(base, dtype=dtype, fused_ops=True,
+                                use_decode_kernel=True)
+    cfg_p = dataclasses.replace(cfg_c, paged_decode=True, decode_page=PAGE)
+    params = llama.init_params(cfg_c, _gen(6), device="cuda")
+    caches = [llama.init_kv_cache(c, b, 128, device="cuda")
+              for c in (cfg_c, cfg_p)]
+    prompt = torch.randint(0, cfg_c.vocab_size, (b, t), generator=_gen(7),
+                           device="cuda", dtype=torch.int32)
+    with torch.no_grad():
+        outs = [llama.forward_with_cache(params, prompt, c, 0, cfg)[0]
+                for c, cfg in zip(caches, (cfg_c, cfg_p))]
+        for i in range(steps):
+            tok = outs[0][:, -1].argmax(-1).to(torch.int32)[:, None]
+            idx = torch.full((b,), t + i, dtype=torch.int32, device="cuda")
+            outs = [llama.forward_with_cache(params, tok, c, idx, cfg)[0]
+                    for c, cfg in zip(caches, (cfg_c, cfg_p))]
+            if not torch.equal(outs[0], outs[1]):
+                raise AssertionError(f"paged model {dtype} decode step {i}: "
+                                     "logits differ from the contiguous "
+                                     "kernel's")
+            if not torch.isfinite(outs[1].float()).all():
+                raise AssertionError("paged model: non-finite logits")
+    log(f"phase 4 model: 2 layers at 8B widths {str(dtype)[6:]}, prefill "
+        f"{t} + {steps} decode steps with paged_decode=True: logits "
+        f"bit-equal to the contiguous decode kernel's")
+    del params, caches
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------- phase 5
 
-def phase_engine(smi):
-    from ray_tpu_torch import ops
+def make_engine(label, smi, **knobs):
     from ray_tpu_torch.models import llama
     from ray_tpu_torch.serve.llm import LLMEngine
 
     cfg = dataclasses.replace(llama.LLAMA3_8B, fused_ops=True,
                               use_decode_kernel=True)
     assert cfg.dtype == torch.bfloat16 and cfg.n_layers == 32
+    torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    eng = LLMEngine(cfg, max_batch=8, max_len=512, prompt_buckets=[32, 64],
-                    decode_chunk=8, prefix_block=16, seed=0)
+    eng = LLMEngine(cfg, **ENGINE_KW, **knobs)
     torch.cuda.synchronize()
-    log(f"phase 5 engine: Llama-3-8B bf16, 32 layers, "
-        f"{cfg.param_count() / 1e9:.2f}B params, built in "
-        f"{time.perf_counter() - t0:.1f} s, "
+    log(f"{label} engine: Llama-3-8B bf16, 32 layers, "
+        f"{cfg.param_count() / 1e9:.2f}B params, knobs {knobs or 'none'}, "
+        f"built in {time.perf_counter() - t0:.1f} s, "
         f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated")
-    rng = np.random.RandomState(0)
-    prefix = rng.randint(0, cfg.vocab_size, 32).tolist()
-    prompts = []
-    for i in range(16):
-        if i in (0, 1, 8, 9):       # same 32-token prefix, threads 0 and 1
-            prompts.append(prefix + rng.randint(0, cfg.vocab_size,
-                                                rng.randint(1, 17)).tolist())
-        else:
-            prompts.append(rng.randint(0, cfg.vocab_size,
-                                       rng.randint(16, 49)).tolist())
-    results = [None] * 16
+    return eng
+
+
+def serve(label, eng, prompts, warmup, smi, new_tokens=32):
+    """8 client threads, 2 requests each, streamed; after one warm-up
+    request. Every kernel count is set to 0 just before the 16 requests
+    and read just after. Returns (launches, stats)."""
+    from ray_tpu_torch import ops
+
+    vocab = eng.cfg.vocab_size
+    results = [None] * len(prompts)
     errors = []
 
     def client(i):
@@ -290,7 +434,8 @@ def phase_engine(smi):
             for j in (i, i + 8):
                 t_start = time.perf_counter()
                 toks, ttft = [], None
-                for tok in eng.generate_stream(prompts[j], max_new_tokens=32,
+                for tok in eng.generate_stream(prompts[j],
+                                               max_new_tokens=new_tokens,
                                                timeout=600):
                     if ttft is None:
                         ttft = time.perf_counter() - t_start
@@ -300,12 +445,10 @@ def phase_engine(smi):
             errors.append(e)
 
     try:
+        # Warm-up request (cuBLAS handles, first launches), then the run.
+        eng.generate(warmup, max_new_tokens=8, timeout=600)
         for fn in ops.KERNELS.values():
             fn.launches = 0
-        # Warm-up request (cuBLAS handles, first launches), then the run.
-        # It leaves the shared prefix resident in the slot that is last in
-        # LRU order, so one of the wave's 2 prefix requests must hit it.
-        eng.generate(prefix + prompts[2][:8], max_new_tokens=8, timeout=600)
         t0 = time.perf_counter()
         threads = [threading.Thread(target=client, args=(i,))
                    for i in range(8)]
@@ -321,32 +464,117 @@ def phase_engine(smi):
     if errors:
         raise errors[0]
     for j, res in enumerate(results):
-        if res is None or len(res[0]) != 32:
-            raise AssertionError(f"request {j}: {res and len(res[0])} tokens,"
-                                 " expected 32")
-        if not all(0 <= t_ < cfg.vocab_size for t_ in res[0]):
-            raise AssertionError(f"request {j}: token out of vocab")
-    if stats["prefix_hits"] < 1:
-        raise AssertionError(f"no prefix-cache hit: {stats}")
-    if stats["host_syncs"]["prefill"] != 17:
-        raise AssertionError(f"prefill syncs {stats['host_syncs']} != 17")
-    for name, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f"kernel {name} was not launched by the "
-                                 "engine run")
+        if res is None or len(res[0]) != new_tokens:
+            raise AssertionError(f"{label} request {j}: "
+                                 f"{res and len(res[0])} tokens, expected "
+                                 f"{new_tokens}")
+        if not all(0 <= t_ < vocab for t_ in res[0]):
+            raise AssertionError(f"{label} request {j}: token out of vocab")
+    admissions = len(prompts) + 1
+    if stats["host_syncs"]["prefill"] != admissions:
+        raise AssertionError(f"{label}: prefill syncs {stats['host_syncs']}"
+                             f" != {admissions} admissions")
     ttfts = sorted(r[1] for r in results)
     decode_tokens = sum(len(r[0]) - 1 for r in results)
-    log(f"  engine run: 16 requests x 32 tokens in {wall} s; "
-        f"decode tokens/s {decode_tokens / wall} "
-        f"(all tokens/s {16 * 32 / wall}); p50 TTFT "
-        f"{ttfts[len(ttfts) // 2] * 1e3} ms (client-side, streamed, "
-        f"upper median of 16); engine ttft_ms_p50 {stats['ttft_ms_p50']}, "
-        f"tpot_ms_p50 {stats['tpot_ms_p50']}; on {smi}")
-    log(f"  engine stats: prefix_hits {stats['prefix_hits']}, "
+    n = len(prompts)
+    log(f"  {label} run: {n} requests x {new_tokens} tokens in {wall} s; "
+        f"decode tokens/s {decode_tokens / wall} (all tokens/s "
+        f"{n * new_tokens / wall}); p50 TTFT {ttfts[n // 2] * 1e3} ms "
+        f"(client-side, streamed, upper median of {n}); engine ttft_ms_p50 "
+        f"{stats['ttft_ms_p50']}, tpot_ms_p50 {stats['tpot_ms_p50']}; spec "
+        f"drafted {stats['spec_drafted']}, accepted {stats['spec_accepted']}"
+        f" in {stats['spec_chunks']} verify chunks; on {smi}")
+    log(f"  {label} stats: prefix_hits {stats['prefix_hits']}, "
         f"prefix_tokens_reused {stats['prefix_tokens_reused']}, "
-        f"host_syncs {stats['host_syncs']}, decode_utilization "
+        f"host_syncs {stats['host_syncs']}, dispatches "
+        f"{stats['dispatches']}, decode_utilization "
         f"{stats['decode_utilization']}")
-    log(f"  kernel launches in the engine run: {launches}")
+    log(f"  {label} kernel launches: {launches}")
+    return launches, stats
+
+
+def phase5_prompts(vocab):
+    rng = np.random.RandomState(0)
+    prefix = rng.randint(0, vocab, 32).tolist()
+    prompts = []
+    for i in range(16):
+        if i in (0, 1, 8, 9):       # same 32-token prefix, threads 0 and 1
+            prompts.append(prefix + rng.randint(0, vocab,
+                                                rng.randint(1, 17)).tolist())
+        else:
+            prompts.append(rng.randint(0, vocab,
+                                       rng.randint(16, 49)).tolist())
+    # The warm-up leaves the shared prefix resident in the slot that is
+    # last in LRU order, so one of the wave's prefix requests must hit it.
+    return prompts, prefix + prompts[2][:8]
+
+
+def require_launches(label, launches, expect_zero):
+    for name, n in launches.items():
+        if name in expect_zero:
+            if n != 0:
+                raise AssertionError(f"{label}: {name} launched {n} times, "
+                                     "expected 0")
+        elif n <= 0:
+            raise AssertionError(f"{label}: kernel {name} was not launched")
+
+
+def phase_engine(smi):
+    eng = make_engine("phase 5", smi)
+    prompts, warmup = phase5_prompts(eng.cfg.vocab_size)
+    launches, stats = serve("phase 5", eng, prompts, warmup, smi)
+    if stats["prefix_hits"] < 1:
+        raise AssertionError(f"no prefix-cache hit: {stats}")
+    require_launches("phase 5", launches, ("paged_decode_attention",))
+    decode_breakdown(eng, smi)
+    return launches
+
+
+def phase_paged_engine(smi):
+    eng = make_engine("phase 7a", smi, paged_decode=True)
+    prompts, warmup = phase5_prompts(eng.cfg.vocab_size)
+    launches, _ = serve("phase 7a", eng, prompts, warmup, smi)
+    require_launches("phase 7a", launches, ("decode_attention",))
+    decode_breakdown(eng, smi)
+    paged_ab(eng, smi)
+    return launches
+
+
+def phase_all_knobs(smi):
+    eng = make_engine("phase 7b", smi, paged_decode=True,
+                      spec_draft_len=SPEC_DRAFT_LEN, prefill_chunk=32,
+                      quantize="int8")
+    if eng.cache["k"].shape[3] != PAGED_S:
+        raise AssertionError(f"phase 7b cache rows {eng.cache['k'].shape} "
+                             f"!= {PAGED_S}")
+    vocab = eng.cfg.vocab_size
+    rng = np.random.RandomState(1)
+    prompts = []
+    for i in range(16):
+        kind = i % 8
+        if kind < 3:      # 6 repetitive: an 8-token pattern x 6
+            prompts.append(rng.randint(0, vocab, 8).tolist() * 6)
+        elif kind < 5:    # 4 long: 130-200 tokens, 5-7 prefill chunks
+            prompts.append(rng.randint(0, vocab,
+                                       rng.randint(130, 201)).tolist())
+        else:             # 6 short: 16-48 tokens
+            prompts.append(rng.randint(0, vocab,
+                                       rng.randint(16, 49)).tolist())
+    launches, stats = serve("phase 7b", eng, prompts,
+                            rng.randint(0, vocab, 40).tolist(), smi)
+    if stats["spec_chunks"] <= 0:
+        raise AssertionError(f"phase 7b: no verify chunk ran: {stats}")
+    admissions = len(prompts) + 1
+    if stats["dispatches"]["prefill"] <= admissions:
+        raise AssertionError(f"phase 7b: {stats['dispatches']} prefill "
+                             f"dispatches for {admissions} admissions: "
+                             "chunked prefill did not run")
+    ratio = stats["weight_bytes"] / (stats["weight_bytes_f32"] / 2)
+    if not 0.45 <= ratio <= 0.6:
+        raise AssertionError(f"phase 7b: int8 weight bytes are {ratio} of "
+                             "bf16's")
+    log(f"  phase 7b int8 weights: {stats['weight_bytes']} bytes, {ratio} "
+        f"of the same tree in bf16 ({stats['weight_bytes_f32'] // 2})")
     decode_breakdown(eng, smi)
     return launches
 
@@ -413,12 +641,53 @@ def decode_breakdown(eng, smi, chunks=3):
                     f"{g} {v / k / 1e3}" for g, v in groups.items())
                 if busy > 0 else "device busy not measured (the profiler "
                 "recorded no kernel)")
-    log(f"  decode chunk breakdown, {b} live slots, K={k}, bf16: wall "
+    log(f"  decode chunk breakdown, {b} live slots, K={k}, paged "
+        f"{eng.paged_decode}, weights {eng.quantize or 'bf16'}: wall "
         f"{step_wall} ms/step, host enqueue {step_host} ms/step, "
         f"{busy_txt}; on {smi}")
     top = sorted(others.items(), key=lambda kv: -kv[1])[:6]
     log("  largest 'other' kernels, ms/step: " + "; ".join(
         f"{n} {v / k / 1e3}" for n, v in top))
+
+
+def paged_ab(eng, smi, rounds=2):
+    """The paged and the contiguous decode read on one engine, weights and
+    cache, in turns (contiguous, paged, paged, contiguous, ...): wall and
+    host-enqueue time per decode step with 8 live slots, medians per
+    variant."""
+    loop, b, k = eng.loop, eng.max_batch, eng.loop.chunk
+    variants = {"paged": loop.cfg,
+                "contiguous": dataclasses.replace(loop.cfg,
+                                                  paged_decode=False)}
+    state = [torch.randint(0, eng.cfg.vocab_size, (b, 1), generator=_gen(41),
+                           device="cuda", dtype=torch.int32),
+             (64 + 8 * torch.arange(b, device="cuda")).to(torch.int32),
+             torch.full((b,), 10_000, dtype=torch.int32, device="cuda"),
+             torch.full((b,), -1, dtype=torch.int32, device="cuda"),
+             torch.zeros(b, dtype=torch.bool, device="cuda")]
+    times = {n: ([], []) for n in variants}
+    order = ["contiguous", "paged", "paged", "contiguous"] * rounds
+    with torch.no_grad():
+        for name in ["contiguous", "paged"] + order:   # first two: warm-up
+            loop.cfg = variants[name]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = loop.decode_chunk(eng.cache, *state)
+            host = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            times[name][0].append((time.perf_counter() - t0) / k * 1e3)
+            times[name][1].append(host / k * 1e3)
+            state[:3] = out[2], out[3], out[4]
+    loop.cfg = variants["paged"]
+    def median(xs):
+        return sorted(xs)[len(xs) // 2]
+
+    # Each variant's first chunk is its warm-up.
+    med = {n: (median(w[1:]), median(h[1:])) for n, (w, h) in times.items()}
+    log("  paged vs contiguous decode read, same engine, in turns "
+        f"({', '.join(order)}), ms/step wall / host enqueue: " + "; ".join(
+            f"{n} {w} / {h} (runs {times[n][0][1:]})"
+            for n, (w, h) in med.items()) + f"; on {smi}")
 
 
 # ---------------------------------------------------------------- phase 6
@@ -464,10 +733,15 @@ def _bound(nbytes, flops, flop_rate):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def row_ms(rows, name):
+    return next(r["ms"] for r in rows if r["name"] == name)
+
+
 def phase_timing(launches):
     from ray_tpu_torch.ops import (KERNELS, apply_rope,
-                                   decode_attention_reference, rms_norm,
-                                   swiglu_reference)
+                                   decode_attention_reference,
+                                   paged_decode_attention_reference,
+                                   rms_norm, swiglu_reference)
 
     dt = torch.bfloat16
     it = 2
@@ -494,6 +768,22 @@ def phase_timing(launches):
             f"{row['library_ms']}, bound {bound} by {by}), max abs err {err}")
 
     log("phase 6 timing (bf16, decode shapes of phase 3, L2 flushed)")
+    # paged decode attention: the phase-7b engine's cache (S = PAGED_S),
+    # every slot at 512 rows, read through the identity table.
+    b, h, kh, d, s = 8, 32, 8, 128, PAGED_S
+    q, k, v, lens = decode_inputs(b, h, kh, d, s, dt, 22, [512] * b)
+    table = identity_table(b, s)
+    n_pages = (lens + PAGE - 1) // PAGE
+    kv_bytes = int(n_pages.sum().item()) * PAGE * kh * d * 2 * it
+    entry("paged_decode_attention",
+          lambda: KERNELS["paged_decode_attention"](q, k, v, table, lens,
+                                                    page_size=PAGE),
+          lambda: paged_decode_attention_reference(q, k, v, table, lens,
+                                                   PAGE),
+          None,
+          kv_bytes + 2 * q.numel() * it + lens.numel() * 4
+          + int(n_pages.sum().item()) * 4,
+          4 * int(lens.sum().item()) * h * d, BF16_FLOPS)
     # decode attention: the engine's cache, every row valid.
     b, h, kh, d, s = 8, 32, 8, 128, 512
     q, k, v, lens = decode_inputs(b, h, kh, d, s, dt, 20, [s] * b)
@@ -514,6 +804,15 @@ def phase_timing(launches):
     b4 = (8 * 4096 * kh * d * 2 * it) / HBM_BYTES_S * 1e3
     log(f"  decode_attention S=4096 all rows valid: {t4} ms, bytes bound "
         f"{b4} ms ({b4 / t4:.3f} of it)")
+    # The paged kernel on the same caches through the identity table, and
+    # at S=512 (phase 6's row is at the engine's padded S=528).
+    p4 = timer(lambda: KERNELS["paged_decode_attention"](
+        q4, k4, v4, identity_table(b, 4096), l4, page_size=PAGE))
+    p512 = timer(lambda: KERNELS["paged_decode_attention"](
+        q, k, v, identity_table(b, s), lens, page_size=PAGE))
+    log(f"  paged_decode_attention identity table, all rows valid: S=512 "
+        f"{p512} ms (decode_attention {row_ms(rows, 'decode_attention')} "
+        f"ms), S=4096 {p4} ms ({b4 / p4:.3f} of the bytes bound)")
     del q4, k4, v4
 
     n, dm = 8, 4096
@@ -559,9 +858,9 @@ def main() -> int:
     phase_kernels()
     phase_model()
     launches = phase_engine(smi)
-    for fn_name, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f"{fn_name} not launched")
+    paged = phase_paged_engine(smi)
+    launches["paged_decode_attention"] = paged["paged_decode_attention"]
+    phase_all_knobs(smi)
     rows = phase_timing(launches)
     log(f"total {time.perf_counter() - t_start:.1f} s on {smi}")
     print(json.dumps({"kernels": rows}), flush=True)

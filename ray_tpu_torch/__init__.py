@@ -6,10 +6,12 @@ same work in PyTorch, with a hand-written Hopper kernel wherever
 nothing of JAX: what it needs of ``ray_tpu``'s JAX-free modules it keeps
 as its own copies.
 
-Ported so far (slice 1): the serving engine's token loop — ``ops`` (norm,
-rotary, attention, decode attention, the fused per-layer glue),
-``models.llama``, ``serve.engine`` and the ``serve.llm.LLMEngine``
-facade. ``ROADMAP.md`` lists what is left.
+Ported so far: the serving engine's device path — ``ops`` (norm, rotary,
+attention, decode attention contiguous and paged, the fused per-layer
+glue), ``models.llama`` and ``models.quant`` (int8 weights),
+``serve.engine`` (continuous batching, prefix cache, chunked prefill,
+speculative decoding) and the ``serve.llm.LLMEngine`` facade.
+``ROADMAP.md`` lists what is left.
 
 Entry points that make tensors (``init_params``, ``init_kv_cache``,
 ``LLMEngine``) take ``device=None``, meaning the card; without one they

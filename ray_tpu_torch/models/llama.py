@@ -8,10 +8,13 @@ The layer loop is a Python loop (``ray_tpu`` scans); decode runs against a
 preallocated KV cache in the engine-native [L, B, KH, S, D] layout.
 
 ``_block`` keeps ``ray_tpu``'s dispatch: ``fused_ops`` routes the norms,
-rotary and SwiGLU through the fused ops, and ``use_decode_kernel`` routes
-single-token decode attention through ``decode_attention``. Both dispatch
-on the tensors' device (kernel on the card, plain version on the CPU).
-The paged decode branch is not ported yet (``paged_decode`` raises).
+rotary and SwiGLU through the fused ops, ``paged_decode`` routes
+single-token decode attention through ``paged_decode_attention`` (a
+slot-identity block table over the batched cache) and, without it,
+``use_decode_kernel`` through ``decode_attention``. Each dispatches on the
+tensors' device (kernel on the card, plain version on the CPU). Every
+weight product goes through ``_wdot``, which also takes the int8
+``QuantTensor`` weights of ``models/quant.py``.
 
 Difference from ``ray_tpu``: ``forward_with_cache`` writes the cache IN
 PLACE (JAX returns a new one) and also takes a per-slot ``cache_index``
@@ -29,10 +32,11 @@ import torch
 import torch.nn.functional as F
 
 from ray_tpu_torch import resolve_device
+from ray_tpu_torch.models.quant import _BLOCK_CONTRACT, QuantTensor
 from ray_tpu_torch.ops import (apply_rope, causal_attention, decode_attention,
                                fused_qk_rope, fused_rms_norm,
                                fused_rms_norm_residual, fused_swiglu,
-                               rms_norm)
+                               paged_decode_attention, rms_norm)
 
 Params = Dict[str, Any]
 CacheIndex = Union[int, torch.Tensor]
@@ -54,18 +58,16 @@ class LlamaConfig:
     # kernel on the card, its plain version on the CPU). False = the
     # generic masked-attention path.
     use_decode_kernel: bool = True
-    # Paged decode attention is slice 2 of the port (ROADMAP).
+    # Single-token decode steps read the cache in place as decode_page-row
+    # pages through a block table (ops.paged_decode_attention); takes
+    # precedence over use_decode_kernel. The cache's row extent must be a
+    # multiple of decode_page (the engine pads its allocation).
     paged_decode: bool = False
+    decode_page: int = 16
     # The per-layer glue (RMSNorm, RMSNorm+residual, q/k rotary, SwiGLU)
     # through ops.fused (kernels on the card). False = the unfused ops.
     fused_ops: bool = False
     tie_embeddings: bool = False
-
-    def __post_init__(self):
-        if self.paged_decode:
-            raise NotImplementedError(
-                "paged_decode is not ported yet (ROADMAP: port slice 2, "
-                "paged decode kernel)")
 
     @property
     def head_dim(self) -> int:
@@ -162,26 +164,42 @@ def init_params(cfg: LlamaConfig, generator: torch.Generator,
     return params
 
 
-def _to_tensor(arr, shape, name: str, cfg: LlamaConfig,
-               device: torch.device) -> torch.Tensor:
-    if hasattr(arr, "_fields"):  # ray_tpu's QuantTensor NamedTuple
-        raise NotImplementedError(
-            f"{name}: int8-quantized weights are not ported yet "
-            "(ROADMAP: port slice 2)")
+def _numpy_to_torch(arr, shape, name: str) -> torch.Tensor:
     a = np.array(arr, order="C", copy=True)  # writable, owned by torch
     if tuple(a.shape) != tuple(shape):
         raise ValueError(f"{name}: shape {a.shape}, expected {shape}")
     if a.dtype.name == "bfloat16":  # ml_dtypes bfloat16: reinterpret bits
-        t = torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
-    else:
-        t = torch.from_numpy(a)
-    return t.to(device=device, dtype=cfg.dtype)
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+def _to_tensor(arr, shape, name: str, cfg: LlamaConfig,
+               device: torch.device, contract=None):
+    """One leaf -> a tensor in ``cfg.dtype``; a (q, scale) pair (ray_tpu's
+    QuantTensor) -> this package's QuantTensor, int8 and f32 kept, for the
+    weights ``contract`` says are quantizable."""
+    if isinstance(arr, tuple):
+        if contract is None or len(arr) != 2:
+            raise ValueError(f"{name}: a quantized leaf where a dense "
+                             "weight belongs")
+        kept = tuple(n for a, n in enumerate(shape) if a not in contract)
+        q = _numpy_to_torch(arr[0], shape, f"{name}.q")
+        scale = _numpy_to_torch(arr[1], kept, f"{name}.scale")
+        if q.dtype != torch.int8 or scale.dtype != torch.float32:
+            raise ValueError(f"{name}: quantized leaf of {q.dtype} with "
+                             f"{scale.dtype} scales, expected int8/float32")
+        return QuantTensor(q.to(device), scale.to(device))
+    return _numpy_to_torch(arr, shape, name).to(device=device,
+                                                dtype=cfg.dtype)
 
 
 def from_jax_params(tree: Params, cfg: LlamaConfig, device=None) -> Params:
     """``ray_tpu``'s parameter pytree, as numpy arrays (the caller does
     ``jax.device_get``), -> this module's parameters on ``device``, in
-    ``cfg.dtype``, every axis layout unchanged."""
+    ``cfg.dtype``, every axis layout unchanged. A quantized tree
+    (``ray_tpu.models.quant.quantize_params``) carries over too: each
+    ``QuantTensor`` leaf arrives as a (q, scale) pair and stays int8 with
+    f32 scales."""
     device = resolve_device(device)
     shapes = param_shapes(cfg)
     missing = set(shapes) ^ set(tree)
@@ -194,11 +212,13 @@ def from_jax_params(tree: Params, cfg: LlamaConfig, device=None) -> Params:
             if bad:
                 raise ValueError(f"block keys differ: {sorted(bad)}")
             for bname, bshape in shape.items():
+                contract = _BLOCK_CONTRACT.get(bname)
                 out["blocks"][bname] = _to_tensor(
                     tree["blocks"][bname], bshape, f"blocks.{bname}", cfg,
-                    device)
+                    device, contract and tuple(a + 1 for a in contract))
         else:
-            out[name] = _to_tensor(tree[name], shape, name, cfg, device)
+            out[name] = _to_tensor(tree[name], shape, name, cfg, device,
+                                   (0,) if name == "lm_head" else None)
     return out
 
 
@@ -206,16 +226,35 @@ def layer_views(params: Params) -> List[Dict[str, torch.Tensor]]:
     """Per-layer views of the stacked block weights (no copies). The
     engine makes them once instead of indexing every weight every step."""
     blocks = params["blocks"]
-    n = blocks["wq"].shape[0]
-    return [{k: v[i] for k, v in blocks.items()} for i in range(n)]
+    n = len(blocks["ln_attn"])
+
+    def view(w, i):
+        if isinstance(w, QuantTensor):
+            return QuantTensor(w.q[i], w.scale[i])
+        return w[i]
+
+    return [{k: view(v, i) for k, v in blocks.items()} for i in range(n)]
 
 
 # Forward ------------------------------------------------------------------
 
-def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x [B,T,d] @ w [d, *out] -> [B,T,*out] (ray_tpu's ``bsd,dhk->bshk``)."""
-    d = w.shape[0]
-    return (x @ w.reshape(d, -1)).view(*x.shape[:-1], *w.shape[1:])
+def _wdot(x: torch.Tensor, w, n_in: int = 1) -> torch.Tensor:
+    """x [..., K] @ w [*in, *out] -> [..., *out], where ``in`` is w's first
+    ``n_in`` axes (K their product): every weight product of the model
+    (ray_tpu's ``_wdot`` einsums). ``w`` may be a ``QuantTensor``: the
+    product runs on the int8 weight widened to x's dtype (a temporary
+    copy, computed outside any kernel as ray_tpu leaves it to XLA), and
+    the per-output-channel f32 scale multiplies the result, which returns
+    in x's dtype."""
+    if isinstance(w, QuantTensor):
+        out_shape = w.q.shape[n_in:]
+        k = w.q.shape[:n_in].numel()
+        y = x @ w.q.reshape(k, -1).to(x.dtype)
+        y = (y.float() * w.scale.reshape(-1)).to(x.dtype)
+    else:
+        out_shape = w.shape[n_in:]
+        y = x @ w.reshape(w.shape[:n_in].numel(), -1)
+    return y.view(*x.shape[:-1], *out_shape)
 
 
 def _norm(x, scale, cfg: LlamaConfig):
@@ -227,9 +266,10 @@ def _norm(x, scale, cfg: LlamaConfig):
 
 
 def _head_matmul(x, params, cfg: LlamaConfig):
+    """Final LM-head product (tied embeddings are never quantized)."""
     if cfg.tie_embeddings:
         return x @ params["embed"].T
-    return x @ params["lm_head"]
+    return _wdot(x, params["lm_head"])
 
 
 def _positions(cache_index: CacheIndex, b: int, t: int,
@@ -264,14 +304,25 @@ def _write_kv(cache: torch.Tensor, new: torch.Tensor,
         cache.dtype)
 
 
+def _identity_table(b: int, s: int, page: int, device) -> torch.Tensor:
+    """The engine's block table: slot b's page p is its own rows, flat page
+    id b * np_row + p of the batched cache [B,KH,S,D] seen as a pool (a
+    table of arange(np_row) for every slot would read slot 0's rows)."""
+    np_row = s // page
+    return torch.arange(b * np_row, dtype=torch.int32,
+                        device=device).reshape(b, np_row)
+
+
 def _block(x, layer, positions, cfg: LlamaConfig, cache_kv=None,
-           cache_index: Optional[CacheIndex] = None):
-    """One transformer block. Returns (x, new_kv | None)."""
+           cache_index: Optional[CacheIndex] = None, block_table=None):
+    """One transformer block. Returns (x, new_kv | None). ``block_table``
+    is the paged decode read's table, which ``forward_with_cache`` makes
+    once per call when ``cfg.paged_decode`` and T == 1."""
     b, t, _ = x.shape
     h = _norm(x, layer["ln_attn"], cfg)
-    q = _proj(h, layer["wq"])                  # [B,T,H,hd]
-    k = _proj(h, layer["wk"])                  # [B,T,KH,hd]
-    v = _proj(h, layer["wv"])
+    q = _wdot(h, layer["wq"])                  # [B,T,H,hd]
+    k = _wdot(h, layer["wk"])                  # [B,T,KH,hd]
+    v = _wdot(h, layer["wv"])
     if cfg.fused_ops:
         q, k = fused_qk_rope(q, k, positions, cfg.rope_theta)
     else:
@@ -284,7 +335,14 @@ def _block(x, layer, positions, cfg: LlamaConfig, cache_kv=None,
         _write_kv(ck, k, cache_index)
         _write_kv(cv, v, cache_index)
         new_kv = (ck, cv)
-        if t == 1 and cfg.use_decode_kernel:
+        if t == 1 and cfg.paged_decode:
+            # Paged decode step: the cache read in place as a pool of
+            # decode_page-row pages through the slot-identity table.
+            lengths = positions[:, 0] + 1
+            attn = paged_decode_attention(
+                q[:, 0], ck, cv, block_table, lengths,
+                page_size=cfg.decode_page)[:, None]
+        elif t == 1 and cfg.use_decode_kernel:
             # Serving decode step: one query per slot over that slot's
             # first index+1 rows, streamed from the native layout.
             lengths = positions[:, 0] + 1
@@ -301,8 +359,7 @@ def _block(x, layer, positions, cfg: LlamaConfig, cache_kv=None,
     else:
         attn = causal_attention(q, k, v, q_positions=positions,
                                 kv_positions=positions)
-    attn_out = (attn.reshape(b, t, -1)
-                @ layer["wo"].reshape(-1, cfg.d_model)).to(x.dtype)
+    attn_out = _wdot(attn.reshape(b, t, -1), layer["wo"], 2).to(x.dtype)
     if cfg.fused_ops:
         # Residual add folded into the next norm: one pass emits both the
         # normed MLP input and the updated residual stream.
@@ -311,12 +368,12 @@ def _block(x, layer, positions, cfg: LlamaConfig, cache_kv=None,
     else:
         x = x + attn_out
         h = rms_norm(x, layer["ln_mlp"], cfg.norm_eps)
-    gate = h @ layer["w_gate"]
-    up = h @ layer["w_up"]
+    gate = _wdot(h, layer["w_gate"])
+    up = _wdot(h, layer["w_up"])
     # Two precisions, as in ray_tpu: the fused op computes in f32; the
     # unfused path computes silu(gate) * up in the storage dtype.
     ff = fused_swiglu(gate, up) if cfg.fused_ops else F.silu(gate) * up
-    x = x + (ff @ layer["w_down"]).to(x.dtype)
+    x = x + _wdot(ff, layer["w_down"]).to(x.dtype)
     return x, new_kv
 
 
@@ -379,9 +436,12 @@ def forward_with_cache(params: Params, tokens: torch.Tensor,
     x = _embed(params, tokens, cfg)
     if layers is None:
         layers = layer_views(params)
+    table = (_identity_table(b, cache["k"].shape[3], cfg.decode_page,
+                             tokens.device)
+             if t == 1 and cfg.paged_decode else None)
     for i, layer in enumerate(layers):
         x, _ = _block(x, layer, positions, cfg,
                       cache_kv=(cache["k"][i], cache["v"][i]),
-                      cache_index=cache_index)
+                      cache_index=cache_index, block_table=table)
     x = _norm(x, params["ln_out"], cfg)
     return _head_matmul(x, params, cfg), cache

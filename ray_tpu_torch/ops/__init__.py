@@ -13,6 +13,8 @@ op                         on the card                          replaces (ray_tp
 =========================  ===================================  ==========================
 decode_attention           CUDA split-K flash-decode            decode_attention.py
                            (csrc/decode_attention.cu)           ``_decode_kernel``
+paged_decode_attention     the same kernel through a block      paged_decode.py
+                           table (csrc/decode_attention.cu)     ``_paged_kernel``
 fused_rms_norm             CUDA one-pass norm (csrc/fused.cu)   fused.py ``_rms_kernel``
 fused_rms_norm_residual    + residual add in storage dtype      fused.py ``_rms_res_kernel``
 fused_qk_rope              CUDA, q and k in one pass            fused.py ``_rope_kernel``
@@ -21,9 +23,9 @@ causal_attention           plain torch (as in ray_tpu)          --
 rms_norm, apply_rope       plain torch (the fused ops' anchor)  --
 =========================  ===================================  ==========================
 
-Not ported yet (ROADMAP): ``paged_decode_attention``,
-``full_causal_attention``/``blockwise_attention`` (flash forward and
-backward), ``ring_attention``, and the fused ops' backward.
+Not ported yet (ROADMAP): ``full_causal_attention``/
+``blockwise_attention`` (flash forward and backward), ``ring_attention``,
+and the fused ops' backward.
 
 Each kernel wrapper counts its launches in a plain int attribute,
 ``fn.launches`` (``KERNELS`` lists them), so a run can show that the main
@@ -38,11 +40,14 @@ from ray_tpu_torch.ops.fused import (fused_qk_rope, fused_rms_norm,
                                      fused_rms_norm_residual, fused_swiglu,
                                      swiglu_reference)
 from ray_tpu_torch.ops.norms import rms_norm
+from ray_tpu_torch.ops.paged_decode import (paged_decode_attention,
+                                            paged_decode_attention_reference)
 from ray_tpu_torch.ops.rotary import apply_rope, rope_frequencies
 
 #: Kernel name -> its wrapper (each carries a ``launches`` count).
 KERNELS = {
     "decode_attention": decode_attention,
+    "paged_decode_attention": paged_decode_attention,
     "rms_norm": fused_rms_norm,
     "rms_norm_residual": fused_rms_norm_residual,
     "qk_rope": fused_qk_rope,
@@ -69,6 +74,8 @@ __all__ = [
     "fused_rms_norm",
     "fused_rms_norm_residual",
     "fused_swiglu",
+    "paged_decode_attention",
+    "paged_decode_attention_reference",
     "repeat_kv",
     "rms_norm",
     "rope_frequencies",

@@ -32,6 +32,12 @@ from ray_tpu_torch.ops import _build
 NEG_INF = -1e30
 _TARGET_CTAS = 4 * 132   # a few CTAs per H100 SM
 _MIN_SPLIT_ROWS = 64
+# Split rows are a multiple of this granule (and of the page, for the
+# paged read), so a contiguous and a paged read of one cache share a plan
+# and reduce in the same order; at most _MAX_SPLIT_ROWS rows per split
+# keeps the paged kernel's per-split page list small in shared memory.
+_ROW_GRANULE = 16
+_MAX_SPLIT_ROWS = 2048
 
 
 def decode_attention_reference(q: torch.Tensor, k: torch.Tensor,
@@ -79,13 +85,15 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 decode_attention.launches = 0
 
 
-def split_plan(b: int, kh: int, s: int):
+def split_plan(b: int, kh: int, s: int, page: int = 1):
     """(n_split, split_rows): split S until the grid has about
     ``_TARGET_CTAS`` CTAs, keeping at least ``_MIN_SPLIT_ROWS`` rows per
-    split."""
+    split; split_rows is a multiple of lcm(_ROW_GRANULE, page)."""
+    g = math.lcm(_ROW_GRANULE, page)
     want = math.ceil(_TARGET_CTAS / max(1, b * kh))
     n = max(1, min(want, math.ceil(s / _MIN_SPLIT_ROWS)))
-    rows = math.ceil(s / n)
+    rows = min(math.ceil(math.ceil(s / n) / g) * g,
+               max(g, _MAX_SPLIT_ROWS // g * g))
     return math.ceil(s / rows), rows
 
 
@@ -100,44 +108,59 @@ def _lib():
     return fn
 
 
-def _decode_attention_cuda(q, k, v, lengths):
+def check_inputs(what: str, q, k, v, lengths, batch: int):
+    """Shared checks of the decode kernels' wrappers (contiguous and
+    paged): raises on what the kernels do not take; returns (q, lengths)
+    ready for the launch."""
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (q, k, v)):
         raise NotImplementedError(
-            "decode_attention has no backward on the card yet (training "
-            "slice, ROADMAP)")
+            f"{what} has no backward on the card yet (training slice, "
+            "ROADMAP)")
     b, h, d = q.shape
     if k.device != q.device or v.device != q.device:
-        raise ValueError("decode_attention: q, k, v lie on different "
-                         "devices")
-    if k.dim() != 4 or k.shape != v.shape or k.shape[0] != b \
+        raise ValueError(f"{what}: q, k, v lie on different devices")
+    if k.dim() != 4 or k.shape != v.shape or k.shape[0] != batch \
             or k.shape[3] != d:
-        raise ValueError(f"decode_attention: q {tuple(q.shape)} vs cache "
+        raise ValueError(f"{what}: q {tuple(q.shape)} vs cache "
                          f"{tuple(k.shape)}/{tuple(v.shape)}")
-    kh, s = k.shape[1], k.shape[2]
+    kh = k.shape[1]
     if q.dtype not in _build.DTYPE_CODES or k.dtype != q.dtype \
             or v.dtype != q.dtype:
-        raise ValueError("decode_attention: q, k, v must share one dtype, "
-                         "float32 or bfloat16")
+        raise ValueError(f"{what}: q, k, v must share one dtype, float32 "
+                         "or bfloat16")
     if d not in (64, 128) or h % kh or h // kh not in (1, 2, 4, 8):
-        raise ValueError(f"decode_attention: kernel takes head_dim 64/128 "
-                         f"and 1, 2, 4 or 8 query heads per KV head; got "
-                         f"D={d}, H={h}, KH={kh}")
+        raise ValueError(f"{what}: kernel takes head_dim 64/128 and 1, 2, "
+                         f"4 or 8 query heads per KV head; got D={d}, "
+                         f"H={h}, KH={kh}")
     q = q.contiguous()
     lengths = lengths.to(device=q.device, dtype=torch.int32).contiguous()
     if lengths.shape != (b,):
-        raise ValueError(f"decode_attention: lengths {tuple(lengths.shape)}"
-                         f" for batch {b}")
+        raise ValueError(f"{what}: lengths {tuple(lengths.shape)} for "
+                         f"batch {b}")
     for t in (q, k, v):
         if t.data_ptr() % 16:
-            raise ValueError("decode_attention: tensors must be 16-byte "
-                             "aligned")
-    n_split, rows = split_plan(b, kh, s)
+            raise ValueError(f"{what}: tensors must be 16-byte aligned")
+    return q, lengths
+
+
+def split_scratch(q, kh: int, n_split: int):
+    """The f32 partials (max and sum, accumulator) the split kernel writes
+    and the merge kernel reads."""
+    b, h, d = q.shape
     g = h // kh
-    part_ml = torch.empty((b, kh, n_split, g, 2), dtype=torch.float32,
-                          device=q.device)
-    part_acc = torch.empty((b, kh, n_split, g, d), dtype=torch.float32,
-                           device=q.device)
+    return (torch.empty((b, kh, n_split, g, 2), dtype=torch.float32,
+                        device=q.device),
+            torch.empty((b, kh, n_split, g, d), dtype=torch.float32,
+                        device=q.device))
+
+
+def _decode_attention_cuda(q, k, v, lengths):
+    b, h, d = q.shape
+    q, lengths = check_inputs("decode_attention", q, k, v, lengths, b)
+    kh, s = k.shape[1], k.shape[2]
+    n_split, rows = split_plan(b, kh, s)
+    part_ml, part_acc = split_scratch(q, kh, n_split)
     out = torch.empty_like(q)
     rc = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
                 out.data_ptr(), part_ml.data_ptr(), part_acc.data_ptr(),

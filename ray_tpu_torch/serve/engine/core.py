@@ -1,20 +1,19 @@
 """InferenceEngine: the orchestration loop of the serving engine
-(``ray_tpu/serve/engine/core.py``, reduced to this slice of the port).
+(``ray_tpu/serve/engine/core.py``, the colocated engine).
 
 One background thread runs the Orca-style tick: drain the mailbox into
 the scheduler, admit waiting requests into free slots (prefix-aware,
-bucket-padded prefill), then dispatch ONE device-resident decode chunk for
-the whole roster and fetch its K tokens in a single host sync
-(decode_loop.py; with ``multi_step`` the fetch lands the PREVIOUS chunk
-while the next one runs on the card). Requests finish mid-chunk on the
-on-device EOS/budget mask; the host discards the frozen overshoot,
-recycles the slot into the prefix cache (kv_manager.py), and streams
-tokens to waiting consumers.
+bucket-padded prefill — long prompts optionally split into
+``prefill_chunk``-token pieces advanced one per tick), then dispatch ONE
+device-resident decode chunk for the whole roster and fetch its K tokens
+in a single host sync (decode_loop.py; with ``multi_step`` the fetch
+lands the PREVIOUS chunk while the next one runs on the card). Requests
+finish mid-chunk on the on-device EOS/budget mask; the host discards the
+frozen overshoot, recycles the slot into the prefix cache
+(kv_manager.py), and streams tokens to waiting consumers.
 
 Not ported yet — each raises ``NotImplementedError`` naming its ROADMAP
-item when asked for: speculative decoding (``spec_*``), int8 weights
-(``quantize``), chunked prefill (``prefill_chunk``), paged decode
-(``paged_decode``), the prefill/decode roles of disaggregated serving
+item when asked for: the prefill/decode roles of disaggregated serving
 (``role``), the fleet KV tier (``kv_fleet_*``) and priority preemption
 (``priority``). ``ray_tpu``'s debug hooks (resource witness, tracing,
 flight recorder, jax witness) are not carried over.
@@ -22,6 +21,7 @@ flight recorder, jax witness) are not carried over.
 
 from __future__ import annotations
 
+import dataclasses
 import queue
 import threading
 import time
@@ -31,8 +31,9 @@ import numpy as np
 import torch
 
 from ray_tpu_torch import resolve_device
-from ray_tpu_torch.models import llama
+from ray_tpu_torch.models import llama, quant
 from ray_tpu_torch.serve.engine.decode_loop import DecodeLoop
+from ray_tpu_torch.serve.engine.drafter import PromptLookupDrafter, SpecControl
 from ray_tpu_torch.serve.engine.kv_manager import KVCacheManager
 from ray_tpu_torch.serve.engine.metrics import EngineMetrics
 from ray_tpu_torch.serve.engine.scheduler import EngineRequest, Scheduler
@@ -68,7 +69,24 @@ class InferenceEngine:
     ``multi_step`` (default on) double-buffers decode dispatch: each tick
     enqueues chunk N+1 from chunk N's device-carried state BEFORE fetching
     chunk N's tokens, so the host sync overlaps the next chunk on the
-    card. Exactly one host sync per FETCHED chunk either way.
+    card. Exactly one host sync per FETCHED chunk either way. It is off
+    while speculation drafts: drafts come from host-visible tokens, which
+    an in-flight chunk would lag by one dispatch.
+
+    ``spec_draft_len`` > 0 turns on speculative decoding: each tick the
+    host proposes continuation tokens per request by prompt lookup
+    (drafter.py), the device verifies them in (draft_len+1)-token windows
+    (``DecodeLoop.verify_chunk``) and the host commits the accepted prefix
+    — greedy tokens identical to spec-off. A tick where no request drafts
+    dispatches the plain chunk. ``quantize="int8"`` quantizes the matmul
+    weights at construction (models/quant.py); spec-on equals spec-off
+    within the same quantized weights. ``prefill_chunk`` > 0 splits long
+    prompt suffixes into chunks dispatched one per tick, interleaved with
+    decode; only the final chunk's logits are fetched (one counted
+    prefill sync per admission). ``paged_decode`` reads the cache through
+    the paged decode kernel with a slot-identity block table, pages of
+    ``prefix_block`` rows (a cfg-level ``LlamaConfig.paged_decode`` keeps
+    its own ``decode_page``); the cache is padded to a page multiple.
     """
 
     def __init__(self, cfg=None, params=None, *, max_batch: int = 4,
@@ -90,17 +108,6 @@ class InferenceEngine:
                  kv_fleet_store: Any = None,
                  name: Optional[str] = None,
                  device=None):
-        if (spec_draft_len, spec_ngram_max, spec_adaptive, spec_chunk) != (
-                0, 3, True, 0):
-            raise _unported("speculative decoding (spec_*)",
-                            "port slice 2, speculative verify")
-        if quantize is not None:
-            raise _unported("quantize", "port slice 2, int8 weights")
-        if prefill_chunk:
-            raise _unported("prefill_chunk", "port slice 2, chunked prefill")
-        if paged_decode:
-            raise _unported("paged_decode",
-                            "port slice 2, paged decode kernel")
         if role != "colocated":
             raise _unported(f"role={role!r}",
                             "serve deployment and runtime layers")
@@ -111,6 +118,13 @@ class InferenceEngine:
         self.role = role
         self.device = resolve_device(device)
         self.cfg = cfg or llama.tiny_config(max_seq_len=max_len)
+        if paged_decode:
+            # The paged kernel's page IS the KV manager's block: one notion
+            # of "block" engine-wide.
+            self.cfg = dataclasses.replace(self.cfg, paged_decode=True,
+                                           decode_page=prefix_block)
+        # A cfg-level paged_decode counts too (with its own decode_page).
+        self.paged_decode = self.cfg.paged_decode
         if self.device.type == "cuda":
             from ray_tpu_torch.ops import build_kernels
 
@@ -118,20 +132,42 @@ class InferenceEngine:
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(seed)
             params = llama.init_params(self.cfg, gen, self.device)
+        self.quantize = quantize
+        if quantize is not None:
+            # Weight-only int8: every program (prefill, decode, verify)
+            # reads the same quantized tree through forward_with_cache.
+            params = quant.quantize_params(params, dtype=quantize)
+            self._weight_bytes = quant.quantized_weight_bytes(params)
         self.params = params
-        self.quantize = None
         self.max_batch = max_batch
         self.max_len = min(max_len, self.cfg.max_seq_len)
         self.decode_chunk = max(1, int(decode_chunk))
         self.buckets = prompt_buckets or [32, 64, 128]
+        self.spec_draft_len = max(0, int(spec_draft_len))
+        self.spec_adaptive = bool(spec_adaptive)
+        self.drafter = (PromptLookupDrafter(ngram_max=spec_ngram_max)
+                        if self.spec_draft_len else None)
         self.loop = DecodeLoop(self.cfg, self.params, max_len=self.max_len,
-                               chunk=self.decode_chunk)
-        self.cache = llama.init_kv_cache(self.cfg, max_batch, self.max_len,
+                               chunk=self.decode_chunk,
+                               spec_window=self.spec_draft_len + 1,
+                               spec_chunk=spec_chunk)
+        # Verify windows span spec_draft_len+1 rows: the scratch strip past
+        # max_len takes parked and overrunning window writes (row
+        # accounting everywhere else uses the logical max_len).
+        cache_rows = self.max_len + self.loop.scratch_rows
+        if self.paged_decode:
+            # The paged kernel reads whole pages: pad to a page multiple
+            # (padded rows are never written and lie past every length).
+            page = self.cfg.decode_page
+            cache_rows = -(-cache_rows // page) * page
+        self.cache = llama.init_kv_cache(self.cfg, max_batch, cache_rows,
                                          device=self.device)
         self.kv = KVCacheManager(max_batch, self.max_len,
                                  block_size=prefix_block)
         self.scheduler = Scheduler(self.kv, max_len=self.max_len,
-                                   prompt_buckets=self.buckets)
+                                   prompt_buckets=self.buckets,
+                                   prefill_chunk=prefill_chunk)
+        self.prefill_chunk = self.scheduler.prefill_chunk
         self.multi_step = bool(multi_step)
         self.metrics = EngineMetrics(name)
         # Counted device->host syncs by tag (the one-sync-per-admission /
@@ -199,6 +235,15 @@ class InferenceEngine:
             raise ValueError("prompt_ids must be ints in [0, vocab_size)")
         if len(req.prompt_ids) + max_new_tokens > self.max_len:
             raise ValueError("prompt + max_new_tokens exceeds max_len")
+        if self.spec_draft_len:
+            # Draft-buffer capacity at full acceptance: each window
+            # advances draft_len+1 positions (_draft_for_roster packs rows
+            # at that stride); the last window needs no bonus.
+            cap = self.loop.spec_chunk * (self.spec_draft_len + 1) - 1
+            req.spec = SpecControl(
+                allowance=self.spec_draft_len,
+                max_allowance=cap if self.spec_adaptive
+                else self.spec_draft_len)
         return req
 
     def stats(self) -> Dict[str, Any]:
@@ -210,7 +255,10 @@ class InferenceEngine:
                "prefilling": len(self._prefilling),
                "waiting": (self._queue.qsize()
                            + self.scheduler.queue_depth()),
-               "host_syncs": dict(self.host_syncs)}
+               "host_syncs": dict(self.host_syncs),
+               "dispatches": dict(self.loop.dispatches)}
+        if self.quantize is not None:
+            out["weight_bytes"], out["weight_bytes_f32"] = self._weight_bytes
         out.update(self.kv.stats())
         out.update(self.metrics.snapshot())
         return out
@@ -335,7 +383,16 @@ class InferenceEngine:
                 req.stream_queue.put(("error", e))
 
     def _decode_tick(self) -> None:
-        if self.multi_step:
+        """One device chunk for the whole roster + ONE host fetch. With
+        speculation, a tick where prompt lookup proposed at least one draft
+        dispatches the verify program; other ticks the plain chunk,
+        fetched in the same tick."""
+        if self.drafter is not None:
+            drafts = self._draft_for_roster()
+            if drafts:
+                self._spec_tick(drafts)
+                return
+        if self.multi_step and self.drafter is None:
             self._pipelined_tick()
         else:
             rec = self._dispatch_chunk()
@@ -435,6 +492,127 @@ class InferenceEngine:
                     break  # device froze the slot here; rest are repeats
         self.metrics.record_chunk(delivered, rec["live_steps"], elapsed)
         return True
+
+    # -------------------------------------------------------- speculation
+
+    def _draft_for_roster(self) -> Dict[int, List[int]]:
+        """Prompt-lookup proposals for this tick, keyed by slot. Empty =
+        nothing to verify (dispatch the plain chunk)."""
+        # A fully accepted window advances W = K+1 positions (K drafts +
+        # the model's bonus token), so a continuation that keeps all
+        # spec_chunk windows fed spans C*W - 1 positions.
+        cap = self.loop.spec_chunk * (self.spec_draft_len + 1) - 1
+        out: Dict[int, List[int]] = {}
+        for req in self.scheduler.active:
+            # At most remaining-1 drafts can be emitted (the last budgeted
+            # token is the model's own), and the row cap freezes the slot
+            # at max_len-1 rows.
+            need = min(req.spec.budget(), cap, req.remaining() - 1,
+                       self.max_len - req.length - 2)
+            if need <= 0:
+                continue
+            cont = self.drafter.draft(req.prompt_ids + req.generated, need)
+            if cont:
+                out[req.slot] = cont
+            else:
+                req.spec.miss()
+        return out
+
+    def _spec_tick(self, drafts: Dict[int, List[int]]) -> None:
+        """One speculative verify chunk: draft windows verified on the
+        card, accepted prefixes committed, rejected rows rolled back —
+        still ONE host fetch."""
+        active = self.scheduler.active
+        c, k = self.loop.spec_chunk, self.spec_draft_len
+        w = k + 1
+        tokens, lengths, remaining, eos_ids, done = \
+            self._roster_arrays(active)
+        draft_buf = np.zeros((self.max_batch, c, k), np.int32)
+        ndraft = np.zeros((self.max_batch,), np.int32)
+        for slot, cont in drafts.items():
+            # Rows packed at stride W = K+1, not K: the only way to row i
+            # is i fully accepted windows, each advancing K+1 positions
+            # (K drafts + the model's bonus token, whose prediction in the
+            # continuation is skipped).
+            packed = 0
+            for i in range(c):
+                row = cont[i * w:i * w + k]
+                if not row:
+                    break
+                draft_buf[slot, i, :len(row)] = row
+                packed += len(row)
+            ndraft[slot] = packed
+        for req in active:
+            self.kv.begin_speculation(req.slot,
+                                      min(c * w, self.max_len - req.length))
+        t0 = time.perf_counter()
+        try:
+            emits_d, counts_d, _len, _done, self.cache = \
+                self.loop.verify_chunk(
+                    self.cache, self._put(tokens), self._put(draft_buf),
+                    self._put(ndraft), self._put(lengths),
+                    self._put(remaining), self._put(eos_ids),
+                    self._put(done))
+            # [B, C*W + C]: emits and counts in one device->host copy.
+            outs = self._fetch(torch.cat(
+                [emits_d.flatten(1), counts_d], dim=1), tag="decode")
+        except BaseException as e:  # noqa: BLE001 — fail all waiters
+            self._fail_roster(e)
+            return
+        emits = outs[:, :c * w].reshape(self.max_batch, c, w)
+        counts = outs[:, c * w:]
+        elapsed = time.perf_counter() - t0
+        delivered = accepted_total = 0
+        for req in list(active):
+            s = req.slot
+            n = int(counts[s].sum())
+            # Commit the verified rows and roll back the rest BEFORE
+            # delivery: _maybe_finish may release the slot, and a released
+            # slot must carry no reservation into the free pool.
+            self.kv.commit_speculation(s, n)
+            delivered += n
+            accepted_total += int(np.maximum(counts[s] - 1, 0).sum())
+            finished = False
+            for i in range(c):
+                for j in range(int(counts[s, i])):
+                    tok = int(emits[s, i, j])
+                    req.length += 1
+                    req.generated.append(tok)
+                    if req.stream_queue is not None:
+                        req.stream_queue.put(("token", tok))
+                    if self._maybe_finish(req, tok):
+                        finished = True
+                        break
+                if finished:
+                    break
+            if self.spec_adaptive and not finished and s in drafts:
+                consumed, acc = self._spec_outcome(counts[s], int(ndraft[s]),
+                                                   k, w)
+                if consumed:
+                    req.spec.observe(consumed, acc)
+        self.metrics.record_chunk(delivered, len(active) * c * w, elapsed)
+        self.metrics.record_spec(int(ndraft.sum()), accepted_total)
+
+    @staticmethod
+    def _spec_outcome(counts_row, drafted: int, k: int, w: int):
+        """(verified, accepted) draft tokens of one non-finished slot's
+        chunk — the adaptive controller's signal. Only drafts the device
+        checked count: windows after a divergence run draft-free."""
+        consumed = accepted = 0
+        nd_rem = drafted
+        for m in (int(x) for x in counts_row):
+            if m == 0:
+                break
+            k_i = min(nd_rem, k)
+            if m == w:  # full window: all K drafts accepted
+                consumed += k_i
+                accepted += k_i
+                nd_rem -= k_i
+            else:
+                consumed += k_i
+                accepted += m - 1
+                nd_rem = 0
+        return consumed, accepted
 
     def _engine_loop(self) -> None:
         # Grad mode is per thread: the engine thread never records

@@ -1,4 +1,5 @@
-"""Per-engine serving metrics: TTFT, TPOT, host syncs, decode utilization.
+"""Per-engine serving metrics: TTFT, TPOT, host syncs, decode utilization,
+speculation (drafted, accepted, verify chunks).
 
 ``ray_tpu/serve/engine/metrics.py`` feeds both a process-wide Prometheus
 registry and ``EngineMetrics.snapshot()``; the port keeps only the
@@ -28,6 +29,9 @@ class EngineMetrics:
         self.prefill_tokens = 0
         self.host_syncs = 0        # decode-loop device fetches
         self.decode_steps = 0      # live slot-steps advanced on device
+        self.spec_drafted = 0      # draft tokens proposed
+        self.spec_accepted = 0     # draft tokens verified + accepted
+        self.spec_chunks = 0       # chunks through the verify program
         self._ttfts = collections.deque(maxlen=256)   # seconds
         self._tpots = collections.deque(maxlen=1024)  # seconds/token
         self._ewma_ttft_s: Optional[float] = None
@@ -53,6 +57,14 @@ class EngineMetrics:
             if tokens:
                 self._tpots.append(elapsed_s / tokens)
 
+    def record_spec(self, drafted: int, accepted: int) -> None:
+        """One speculative verify chunk: ``drafted`` tokens proposed
+        across the roster, ``accepted`` of them verified correct."""
+        with self._lock:
+            self.spec_chunks += 1
+            self.spec_drafted += drafted
+            self.spec_accepted += accepted
+
     @staticmethod
     def _p50(values) -> float:
         vals = sorted(values)
@@ -69,10 +81,17 @@ class EngineMetrics:
                 "decode_steps": self.decode_steps,
                 # decode tokens delivered per device token-position
                 # scanned (first tokens come from prefill): < 1.0 when
-                # slots freeze mid-chunk.
+                # slots freeze mid-chunk or drafted window positions are
+                # rejected.
                 "decode_utilization": round(
                     (self.tokens_generated - self.requests)
                     / self.decode_steps, 4) if self.decode_steps else 0.0,
+                "spec_chunks": self.spec_chunks,
+                "spec_drafted": self.spec_drafted,
+                "spec_accepted": self.spec_accepted,
+                "spec_accept_rate": round(
+                    self.spec_accepted / self.spec_drafted, 4)
+                    if self.spec_drafted else 0.0,
                 "ttft_ms_p50": round(self._p50(self._ttfts) * 1e3, 3),
                 "ttft_ms_ewma": round((self._ewma_ttft_s or 0.0) * 1e3, 3),
                 "tpot_ms_p50": round(self._p50(self._tpots) * 1e3, 3),

@@ -2,7 +2,11 @@
 ``LLMEngine`` facade only).
 
 - ``LLMEngine``         — the engine: continuous batching, prefix caching,
-  device-resident K-step decode, multi-step ticks.
+  device-resident K-step decode, multi-step ticks, and the knobs
+  ``paged_decode``, ``spec_draft_len`` / ``spec_chunk`` /
+  ``spec_ngram_max`` / ``spec_adaptive``, ``prefill_chunk`` and
+  ``quantize="int8"``, alone or together (the constructor passes them
+  through to ``InferenceEngine``).
 - ``GenerationRequest`` — the request record (``scheduler.EngineRequest``).
 
 ``build_llm_deployment`` and the prefill/decode servers need the serve

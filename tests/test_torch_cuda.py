@@ -8,6 +8,7 @@ it runs on a machine with the card and without JAX:
 
 The tolerances are those of ray_tpu's own kernel tests:
 test_decode_attention.py:52 (f32 2e-3) and :120 (bf16 2e-2),
+test_paged_decode.py:83-84 (f32 2e-5) and :152-154 (bf16 2e-2),
 test_fused_ops.py:33-83 (f32 1e-6; rope rtol 1e-5, atol 1e-6) and :93
 (bf16 2e-2).
 """
@@ -20,6 +21,7 @@ import torch
 pytestmark = pytest.mark.cuda
 
 TOL = {torch.float32: 2e-3, torch.bfloat16: 2e-2}
+PAGED_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 ELEM_TOL = {torch.float32: 1e-6, torch.bfloat16: 2e-2}
 
 
@@ -88,6 +90,84 @@ def test_decode_attention_refuses_what_it_cannot_run(card):
         decode_attention(q, kv, kv, lens, layout="bksd")
     with pytest.raises(ValueError):
         decode_attention(q.detach(), kv.cpu(), kv, lens, layout="bksd")
+
+
+def _scatter(k, v, page, seed):
+    """Every (slot, page) of k/v moved to a random page of an equally
+    sized pool; returns (pool_k, pool_v, table)."""
+    b, kh, s, d = k.shape
+    np_row = s // page
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    perm = torch.randperm(b * np_row, generator=g, device="cuda")
+    table = perm.reshape(b, np_row).to(torch.int32)
+    pool_k, pool_v = torch.zeros_like(k), torch.zeros_like(v)
+    for src, dst in ((k, pool_k), (v, pool_v)):
+        pages = src.reshape(b, kh, np_row, page, d).transpose(1, 2).reshape(
+            b * np_row, kh, page, d)
+        flat = torch.empty_like(pages)
+        flat[perm] = pages
+        dst.copy_(flat.reshape(b, np_row, kh, page, d).transpose(1, 2)
+                  .reshape(b, kh, s, d))
+    return pool_k, pool_v, table
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("h,kh", [(8, 8), (32, 8), (16, 2)])
+@pytest.mark.parametrize("page", [16, 8, 48])
+def test_paged_decode_kernel(card, dtype, d, h, kh, page):
+    """Identity table: bit-equal to the contiguous kernel. Scattered
+    table: within tolerance of the contiguous plain version. Rows at or
+    past each length poisoned with NaN never reach the output."""
+    from ray_tpu_torch.ops import (decode_attention,
+                                   decode_attention_reference,
+                                   paged_decode_attention)
+
+    s = 336
+    lengths = [0, 1, s, 77, page, 129]
+    b = len(lengths)
+    q, k, v = (_randn((b, h, d), dtype, 0), _randn((b, kh, s, d), dtype, 1),
+               _randn((b, kh, s, d), dtype, 2))
+    lens = torch.tensor(lengths, dtype=torch.int32, device=card)
+    want = decode_attention_reference(q, k, v, lens)
+    ident = torch.arange(b * (s // page), dtype=torch.int32,
+                         device=card).reshape(b, -1)
+    kp, vp = k.clone(), v.clone()
+    for i, n in enumerate(lengths):
+        kp[i, :, n:] = float("nan")
+        vp[i, :, n:] = float("nan")
+    n0 = paged_decode_attention.launches
+    got = paged_decode_attention(q, kp, vp, ident, lens, page_size=page)
+    torch.cuda.synchronize()
+    assert paged_decode_attention.launches == n0 + 1
+    assert got.dtype == dtype and torch.isfinite(got).all()
+    assert got[0].abs().max().item() == 0.0
+    if page in (8, 16):   # the contiguous kernel's split plan
+        assert torch.equal(got, decode_attention(q, kp, vp, lens,
+                                                 layout="bksd"))
+    tol = PAGED_TOL[dtype] if dtype == torch.float32 else TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                               atol=tol)
+    pool_k, pool_v, table = _scatter(kp, vp, page, seed=3)
+    got = paged_decode_attention(q, pool_k, pool_v, table, lens,
+                                 page_size=page)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                               atol=tol)
+
+
+def test_paged_decode_refuses_what_it_cannot_run(card):
+    from ray_tpu_torch.ops import paged_decode_attention
+
+    q = _randn((1, 4, 64), torch.float32, 0)
+    kv = _randn((1, 4, 60, 64), torch.float32, 1)
+    lens = torch.tensor([3], dtype=torch.int32, device=card)
+    table = torch.zeros((1, 4), dtype=torch.int32, device=card)
+    with pytest.raises(ValueError, match="multiple"):
+        paged_decode_attention(q, kv, kv, table, lens, page_size=16)
+    with pytest.raises(ValueError):
+        paged_decode_attention(q, kv[:, :, :48], kv[:, :, :48],
+                               table[:, :2].reshape(2, 1), lens,
+                               page_size=16)
 
 
 def test_fused_ops_refuse_what_they_cannot_run(card):
@@ -180,6 +260,29 @@ def test_tiny_model_kernels_match_plain(card):
             nxt = lk[:, -1].argmax(-1)[:, None]
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_tiny_model_paged_logits_bit_equal_contiguous(card, dtype):
+    from ray_tpu_torch.models import llama
+
+    cfg_c = llama.tiny_config(d_model=256, n_heads=4, n_kv_heads=2,
+                              d_ff=512, fused_ops=True, dtype=dtype)
+    cfg_p = dataclasses.replace(cfg_c, paged_decode=True, decode_page=16)
+    params = llama.init_params(cfg_c, torch.Generator("cuda").manual_seed(0))
+    cc, cp = (llama.init_kv_cache(c, 2, 64) for c in (cfg_c, cfg_p))
+    tok = torch.tensor([[5, 9, 3, 7], [2, 8, 1, 4]], device=card)
+    with torch.no_grad():
+        lc, _ = llama.forward_with_cache(params, tok, cc, 0, cfg_c)
+        llama.forward_with_cache(params, tok, cp, 0, cfg_p)
+        nxt = lc[:, -1].argmax(-1)[:, None]
+        for step in range(8):
+            idx = torch.tensor([4 + step, 4 + step], device=card,
+                               dtype=torch.int32)
+            lc, _ = llama.forward_with_cache(params, nxt, cc, idx, cfg_c)
+            lp, _ = llama.forward_with_cache(params, nxt, cp, idx, cfg_p)
+            assert torch.equal(lc, lp)
+            nxt = lc[:, -1].argmax(-1)[:, None]
+
+
 def test_engine_on_the_card_counts_kernel_launches(card):
     from ray_tpu_torch import ops
     from ray_tpu_torch.models import llama
@@ -188,15 +291,47 @@ def test_engine_on_the_card_counts_kernel_launches(card):
     cfg = llama.tiny_config(d_model=256, n_heads=4, n_kv_heads=2,
                             d_ff=512, max_seq_len=64, fused_ops=True,
                             use_decode_kernel=True)
-    eng = LLMEngine(cfg, max_batch=2, max_len=64, prompt_buckets=[8, 16],
-                    decode_chunk=4)
-    try:
-        for fn in ops.KERNELS.values():
-            fn.launches = 0
-        out = eng.generate([1, 2, 3, 4, 5], max_new_tokens=9)
-        launches = {n: fn.launches for n, fn in ops.KERNELS.items()}
-    finally:
-        eng.close()
-    assert out["num_generated"] == 9
-    assert eng.stats()["device"].startswith("cuda")
-    assert all(n > 0 for n in launches.values()), launches
+    runs = {}
+    for paged in (False, True):
+        eng = LLMEngine(cfg, max_batch=2, max_len=64, prompt_buckets=[8, 16],
+                        decode_chunk=4, paged_decode=paged)
+        try:
+            for fn in ops.KERNELS.values():
+                fn.launches = 0
+            out = eng.generate([1, 2, 3, 4, 5], max_new_tokens=9)
+            runs[paged] = {n: fn.launches for n, fn in ops.KERNELS.items()}
+        finally:
+            eng.close()
+        assert out["num_generated"] == 9
+        assert eng.stats()["device"].startswith("cuda")
+    contiguous, paged = runs[False], runs[True]
+    assert contiguous.pop("paged_decode_attention") == 0
+    assert all(n > 0 for n in contiguous.values()), contiguous
+    assert paged.pop("decode_attention") == 0
+    assert all(n > 0 for n in paged.values()), paged
+
+
+def test_engine_on_the_card_with_every_knob(card):
+    """Paged decode, speculation, chunked prefill and int8 together:
+    spec-on gives the tokens of spec-off on the same quantized weights."""
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.serve.llm import LLMEngine
+
+    cfg = llama.tiny_config(d_model=256, n_heads=4, n_kv_heads=2,
+                            d_ff=512, max_seq_len=64, fused_ops=True)
+    params = llama.init_params(cfg, torch.Generator("cuda").manual_seed(1))
+    kw = dict(max_batch=2, max_len=64, prompt_buckets=[8, 16],
+              decode_chunk=4, paged_decode=True, prefill_chunk=8,
+              quantize="int8")
+    outs = {}
+    for spec in (0, 3):
+        eng = LLMEngine(cfg, params, spec_draft_len=spec, **kw)
+        try:
+            outs[spec] = [eng.generate(p, max_new_tokens=12)["token_ids"]
+                          for p in ([7] * 20, list(range(2, 30)), [1, 2])]
+            stats = eng.stats()
+        finally:
+            eng.close()
+    assert outs[0] == outs[3]
+    assert stats["spec_chunks"] > 0
+    assert stats["dispatches"]["prefill"] > 3

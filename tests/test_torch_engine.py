@@ -249,10 +249,8 @@ def test_host_sync_cadence_matches_jax(tiny):
 
 
 @pytest.mark.parametrize("knob", [
-    dict(spec_draft_len=2), dict(spec_chunk=2), dict(quantize="int8"),
-    dict(prefill_chunk=8), dict(paged_decode=True), dict(role="prefill"),
-    dict(role="decode"), dict(kv_fleet_min_prefix_blocks=0),
-    dict(kv_fleet_store=object()),
+    dict(role="prefill"), dict(role="decode"),
+    dict(kv_fleet_min_prefix_blocks=0), dict(kv_fleet_store=object()),
 ])
 def test_unported_knobs_raise(tiny, knob):
     _, _, tcfg, tparams = tiny

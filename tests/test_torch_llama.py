@@ -87,7 +87,9 @@ def test_from_jax_params_rejects_mismatched_trees(tiny):
     from ray_tpu.models.quant import quantize_params
 
     quant = _numpy_tree(quantize_params(jparams))
-    with pytest.raises(NotImplementedError):
+    wq = quant["blocks"]["wq"]
+    quant["blocks"]["wq"] = type(wq)(wq.q, wq.scale[:, :1])
+    with pytest.raises(ValueError):
         tllama.from_jax_params(quant, tcfg, device="cpu")
 
 
@@ -242,5 +244,9 @@ def test_cache_rows_past_the_end_raise_instead_of_truncating(tiny):
     with pytest.raises(RuntimeError):
         tllama.forward_with_cache(tparams, torch.zeros(2, 1, dtype=torch.long),
                                   cache, torch.tensor([3, 16]), tcfg)
-    with pytest.raises(NotImplementedError):
-        tllama.tiny_config(paged_decode=True)
+    # The paged read takes whole pages: a cache of 16 rows in pages of 24
+    # is refused at the first decode step, not read past its end.
+    paged = dataclasses.replace(tcfg, paged_decode=True, decode_page=24)
+    with pytest.raises(ValueError, match="multiple"):
+        tllama.forward_with_cache(tparams, torch.zeros(2, 1, dtype=torch.long),
+                                  cache, torch.tensor([3, 4]), paged)

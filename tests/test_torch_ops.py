@@ -325,9 +325,14 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     tops.decode_attention(torch.randn(2, 4, 16), torch.randn(2, 2, 8, 16),
                           torch.randn(2, 2, 8, 16), torch.tensor([3, 8]),
                           layout="bksd")
+    tops.paged_decode_attention(
+        torch.randn(2, 4, 16), torch.randn(2, 2, 8, 16),
+        torch.randn(2, 2, 8, 16), torch.arange(4).reshape(2, 2),
+        torch.tensor([3, 8]), page_size=4)
     assert {n: fn.launches for n, fn in tops.KERNELS.items()} == before
-    assert set(tops.KERNELS) == {"decode_attention", "rms_norm",
-                                 "rms_norm_residual", "qk_rope", "swiglu"}
+    assert set(tops.KERNELS) == {"decode_attention", "paged_decode_attention",
+                                 "rms_norm", "rms_norm_residual", "qk_rope",
+                                 "swiglu"}
 
 
 def test_non_cpu_non_cuda_tensors_raise_instead_of_falling_back():
@@ -343,3 +348,10 @@ def test_non_cpu_non_cuda_tensors_raise_instead_of_falling_back():
                               torch.empty(2, 2, 8, 16, device="meta"),
                               torch.empty(2, 2, 8, 16, device="meta"),
                               torch.tensor([3, 8]), layout="bksd")
+    with pytest.raises(ValueError):
+        tops.paged_decode_attention(
+            torch.empty(2, 4, 16, device="meta"),
+            torch.empty(2, 2, 8, 16, device="meta"),
+            torch.empty(2, 2, 8, 16, device="meta"),
+            torch.arange(4).reshape(2, 2), torch.tensor([3, 8]),
+            page_size=4)

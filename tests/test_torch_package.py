@@ -36,7 +36,9 @@ def test_source_imports_neither_jax_nor_ray_tpu(path):
 
 def test_importing_and_serving_loads_no_jax_module():
     """In a fresh interpreter: import the package, build a CPU engine and
-    serve a request; no jax* and no ray_tpu / ray_tpu.* module may load."""
+    serve a request, then one with every engine knob on (paged decode,
+    speculation, chunked prefill, int8); no jax* and no ray_tpu /
+    ray_tpu.* module may load."""
     code = (
         "import sys, torch\n"
         "import ray_tpu_torch, ray_tpu_torch.ops\n"
@@ -49,6 +51,15 @@ def test_importing_and_serving_loads_no_jax_module():
         "out = e.generate([1, 2, 3], max_new_tokens=5)\n"
         "e.close()\n"
         "assert out['num_generated'] == 5, out\n"
+        "e = LLMEngine(cfg, p, max_batch=2, max_len=64,\n"
+        "              prompt_buckets=[8, 16], device='cpu',\n"
+        "              paged_decode=True, spec_draft_len=2, spec_chunk=2,\n"
+        "              prefill_chunk=8, quantize='int8')\n"
+        "out = e.generate([7] * 20, max_new_tokens=12)\n"
+        "stats = e.stats()\n"
+        "e.close()\n"
+        "assert out['num_generated'] == 12, out\n"
+        "assert stats['spec_chunks'] > 0, stats\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'ray_tpu'))\n"
         "print('BAD', bad)\n")
