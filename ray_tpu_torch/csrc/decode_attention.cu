@@ -76,8 +76,10 @@ struct Args {
   int S;      // rows of one pool slot (the cache's third axis)
   int S_log;  // logical rows a sequence can hold: S, or NP * page
   int NP, page, np_row;
-  // r / page == (r * page_magic) >> page_magic_shift for every r < 2^32
-  // (a multiply in place of an integer division, exact by construction).
+  // r / page == (r * page_magic) >> page_magic_shift for 0 <= r < 2^31
+  // (a multiply in place of an integer division). page_magic <= 2^33, so
+  // the 64-bit product cannot wrap there; the kernel's r is a row offset
+  // inside one split, below split_rows, an int.
   unsigned long long page_magic;
   int page_magic_shift;
   int split_rows, n_split;
@@ -372,8 +374,9 @@ extern "C" int rtt_paged_decode_attention(
     int n_split, float scale, int dtype, void* stream) {
   if (page <= 0 || S % page != 0 || split_rows % page != 0) return -1;
   // Round-up reciprocal: with l = ceil(log2(page)) and magic =
-  // ceil(2^(32+l) / page), (r * magic) >> (32+l) == r / page for every
-  // 32-bit r (Granlund and Montgomery, PLDI 1994).
+  // ceil(2^(32+l) / page) <= 2^33, (r * magic) >> (32+l) == r / page for
+  // every r < 2^32 (Granlund and Montgomery, PLDI 1994) as long as the
+  // product fits 64 bits: r < 2^31, which holds for r < split_rows.
   int l = 0;
   while ((1ll << l) < page) ++l;
   const unsigned long long magic =

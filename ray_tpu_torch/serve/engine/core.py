@@ -619,20 +619,43 @@ class InferenceEngine:
         # autograd history.
         with torch.no_grad():
             while not self._shutdown:
-                self._admit()
-                self._prefill_tick()
-                if not self.scheduler.active:
-                    if self._prefilling:
-                        continue
-                    # A burst just drained: a multi-step trailing chunk
-                    # delivers nothing by construction — drop it
-                    # unfetched (its cache writes already landed).
-                    self._inflight = None
-                    try:
-                        # Straight into the waiting line (FIFO admission
-                        # on the next tick).
-                        self.scheduler.submit(self._queue.get(timeout=0.1))
-                    except queue.Empty:
-                        pass
-                    continue
-                self._decode_tick()
+                try:
+                    self._tick()
+                except BaseException as e:  # noqa: BLE001 — a host-side
+                    # fault outside the per-dispatch guards must fail the
+                    # requests it touched, not kill this thread and leave
+                    # every caller waiting out its timeout.
+                    self._fail_in_flight(e)
+
+    def _tick(self) -> None:
+        self._admit()
+        self._prefill_tick()
+        if not self.scheduler.active:
+            if self._prefilling:
+                return
+            # A burst just drained: a multi-step trailing chunk delivers
+            # nothing by construction — drop it unfetched (its cache
+            # writes already landed).
+            self._inflight = None
+            try:
+                # Straight into the waiting line (FIFO admission on the
+                # next tick).
+                self.scheduler.submit(self._queue.get(timeout=0.1))
+            except queue.Empty:
+                pass
+            return
+        self._decode_tick()
+
+    def _fail_in_flight(self, e: BaseException) -> None:
+        """Fail the roster and every admission still prefilling; their
+        slots return to the pool with nothing resident."""
+        self._inflight = None
+        self._fail_roster(e)
+        for job in self._prefilling:
+            req = job.adm.request
+            self.scheduler.abort_admission(req)
+            if not req.future.done():
+                req.future.set_exception(e)
+            if req.stream_queue is not None:
+                req.stream_queue.put(("error", e))
+        self._prefilling = []

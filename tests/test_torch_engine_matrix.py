@@ -30,6 +30,9 @@ PROMPTS = [
     list(range(2, 32)),       # repeat: prefix reuse mid-run
 ]
 N_NEW = 16
+# A request of this tiny model takes well under a second; a wait this long
+# means the engine stopped, and fails the test instead of stalling the run.
+WAIT_S = 60
 
 FAST_COMBOS = [
     (2, None, 8, True),       # spec + chunked + paged, f32
@@ -57,7 +60,8 @@ def _kw(**kw):
 
 def _run(engine):
     try:
-        outs = [engine.generate(p, max_new_tokens=N_NEW)["token_ids"]
+        outs = [engine.generate(p, max_new_tokens=N_NEW,
+                                timeout=WAIT_S)["token_ids"]
                 for p in PROMPTS]
         return outs, engine.stats()
     finally:
@@ -143,26 +147,29 @@ def test_chunked_prefill_prefix_reuse_and_streaming(tiny):
                   decode_chunk=4, **_kw())
     long_prompt = list(range(2, 32))
     try:
-        cold = eng.generate(long_prompt, max_new_tokens=8)
+        cold = eng.generate(long_prompt, max_new_tokens=8, timeout=WAIT_S)
         assert cold["cached_prefix_len"] == 0
-        warm = eng.generate(long_prompt, max_new_tokens=8)
+        warm = eng.generate(long_prompt, max_new_tokens=8, timeout=WAIT_S)
         assert warm["cached_prefix_len"] == 24
         assert warm["token_ids"] == cold["token_ids"]
-        alone = {"decode": eng.generate([5, 4, 3], 20)["token_ids"],
-                 "long": eng.generate(list(range(32, 60)), 6)["token_ids"]}
+        alone = {"decode": eng.generate([5, 4, 3], 20,
+                                        timeout=WAIT_S)["token_ids"],
+                 "long": eng.generate(list(range(32, 60)), 6,
+                                      timeout=WAIT_S)["token_ids"]}
         got = {}
 
         def consume(name, prompt, n):
-            got[name] = list(eng.generate_stream(prompt, max_new_tokens=n))
+            got[name] = list(eng.generate_stream(prompt, max_new_tokens=n,
+                                                  timeout=WAIT_S))
 
         t1 = threading.Thread(target=consume,
                               args=("decode", [5, 4, 3], 20))
         t1.start()
-        deadline = time.monotonic() + 120
+        deadline = time.monotonic() + WAIT_S
         while eng.metrics.requests < 5 and time.monotonic() < deadline:
             time.sleep(0.001)
         consume("long", list(range(32, 60)), 6)
-        t1.join(timeout=300)
+        t1.join(timeout=WAIT_S)
         stats = eng.stats()
     finally:
         eng.close()

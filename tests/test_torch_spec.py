@@ -246,3 +246,32 @@ def test_oracle_drafts_fill_every_window(tiny):
     assert drafted > 0 and m1["spec_accepted"] - m0["spec_accepted"] == \
         drafted
     assert m1["decode_host_syncs"] - m0["decode_host_syncs"] <= 6
+
+
+def test_host_fault_in_a_tick_fails_its_request_and_serving_goes_on(tiny):
+    """A fault on the host side of a tick (here the drafter) fails the
+    requests in flight at once instead of killing the engine thread and
+    leaving callers to wait out their timeout; the next request is
+    served and no slot stays held."""
+    _, _, tcfg, tparams = tiny
+    eng = TEngine(tcfg, tparams, device="cpu", max_batch=2, max_len=64,
+                  prompt_buckets=[8, 16], decode_chunk=4, spec_draft_len=2,
+                  spec_chunk=2)
+
+    class Broken:
+        def draft(self, context, need):
+            raise RuntimeError("drafter fault")
+
+    try:
+        want = eng.generate([1, 2, 3], max_new_tokens=6, timeout=60)
+        real, eng.drafter = eng.drafter, Broken()
+        with pytest.raises(RuntimeError, match="drafter fault"):
+            eng.generate([1, 2, 3], max_new_tokens=6, timeout=60)
+        with pytest.raises(RuntimeError, match="drafter fault"):
+            list(eng.generate_stream([4, 5], max_new_tokens=6, timeout=60))
+        eng.drafter = real
+        got = eng.generate([1, 2, 3], max_new_tokens=6, timeout=60)
+        assert eng.scheduler.active == [] and eng.kv.used_blocks() == 0
+    finally:
+        eng.close()
+    assert got["token_ids"] == want["token_ids"]
