@@ -2,7 +2,7 @@
 """Run the PyTorch/CUDA port (``ray_tpu_torch``) end to end on one CUDA
 card and check it.
 
-    python3 chip_smoke.py              # phases 1-7, the smoke
+    python3 chip_smoke.py              # phases 1-8, the smoke
     python3 chip_smoke.py --spec-ab    # phases 1-2, then speculation off
                                        # against on (bf16), no result line
 
@@ -14,24 +14,34 @@ without printing its last line:
 3. Kernels against their plain PyTorch versions on the card, at the
    slice's shapes, in bf16 and f32 (tolerances below); the paged decode
    kernel also bit-equal to the contiguous one through the identity
-   table, through a scattered table, over NaN-poisoned tails.
+   table, through a scattered table, over NaN-poisoned tails; the flash
+   attention forward and backward at the training shape.
 4. Model: a 2-layer model at Llama-3-8B widths in f32, prefill + 8
    decode steps through the kernels, against the same model on the plain
    versions; then in f32 and bf16 with ``paged_decode=True``, logits
-   bit-equal to the contiguous decode kernel's.
+   bit-equal to the contiguous decode kernel's; then the loss and every
+   gradient through the flash and fused kernels under remat against the
+   plain route.
 5. Engine: ``LLMEngine`` on full-depth Llama-3-8B in bf16 (random weights
    from a seed), 16 requests from 8 client threads; checks every request's
    token count, prefix-cache hits, and that every kernel of its path was
    launched.
 6. Timing: each kernel, its plain version and (where one exists) the one
    PyTorch call that computes the same function, with CUDA events, at the
-   decode shapes of phase 3; the ``kernels`` JSON line (printed last,
-   after phase 7, with phase 7a's launches for the paged kernel).
+   decode shapes of phase 3 (the flash kernels at phase 8's training
+   shape); the ``kernels`` JSON line (printed last, with phase 7a's
+   launches for the paged kernel and phase 8's for the flash kernels).
 7. Engines with the slice-2 knobs, full-depth Llama-3-8B bf16: (a) phase
    5's configuration and traffic with ``paged_decode=True`` — the paged
    kernel runs, the contiguous one does not; (b) paged decode,
    speculation, chunked prefill and int8 weights all on, with repetitive,
    long and short prompts — speculation and chunked prefill both run.
+8. Training, after the engines are gone: full-depth Llama-3-8B in bf16
+   (random weights from a seed), ``spmd.init_train_state`` ->
+   ``make_train_step(default_optimizer(lr=1e-4, warmup=1))``, 5 steps on
+   one batch of B=1, S=2048 from a numpy seed; finite losses and gradient
+   norms, a falling loss, the kernels' launch counts per step, step time,
+   tokens/s, MFU, peak memory and the device time by group.
 
 The last line is ``{"ok": true, "device": {...}}``. Needs one card; exits
 non-zero at once without one.
@@ -61,10 +71,13 @@ TOL = {
     "rms_norm": {torch.float32: 1e-6, torch.bfloat16: 2e-2},
     "rms_norm_residual": {torch.float32: 1e-6, torch.bfloat16: 2e-2},
     "swiglu": {torch.float32: 1e-6, torch.bfloat16: 2e-2},
+    # attention kernels: test_decode_attention.py:52 (f32), :120 (bf16)
+    "flash_attention": {torch.float32: 2e-3, torch.bfloat16: 2e-2},
 }
 # fused_qk_rope f32: rtol 1e-5, atol 1e-6 (test_fused_ops.py:53-58).
 ROPE_TOL = {torch.float32: (1e-5, 1e-6), torch.bfloat16: (2e-2, 2e-2)}
-# Phase 4 logits: test_decode_attention.py:84-86 (kernel vs plain model).
+# Phase 4 logits: test_decode_attention.py:84-86 (kernel vs plain model);
+# phase 4's loss and gradients: the same, of each tensor's largest value.
 MODEL_TOL = 2e-3
 
 # The engines of phases 5 and 7: Llama-3-8B, 8 slots of 512 rows, 16-row
@@ -76,6 +89,8 @@ ENGINE_KW = dict(max_batch=8, max_len=512, prompt_buckets=[32, 64],
 SPEC_DRAFT_LEN = 4
 PAGE = ENGINE_KW["prefix_block"]
 PAGED_S = -(-(ENGINE_KW["max_len"] + SPEC_DRAFT_LEN + 1) // PAGE) * PAGE
+# Phase 8, the training cell (bench.py's 8B training shape at batch 1).
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 1, 2048, 5
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, FLOP/s.
 HBM_BYTES_S = 3.35e12
@@ -92,6 +107,10 @@ KERNEL_META = {
                           "ray_tpu/ops/fused.py:191"),
     "qk_rope": ("ray_tpu_torch/csrc/fused.cu", "ray_tpu/ops/fused.py:266"),
     "swiglu": ("ray_tpu_torch/csrc/fused.cu", "ray_tpu/ops/fused.py:337"),
+    "flash_attention": ("ray_tpu_torch/csrc/flash_attention.cu",
+                        "ray_tpu/ops/attention.py:162"),
+    "flash_attention_bwd": ("ray_tpu_torch/csrc/flash_attention.cu",
+                            "ray_tpu/ops/attention.py:162"),
 }
 
 
@@ -314,6 +333,35 @@ def check_fused(dtype, rows_shape, seed=10):
     return errs
 
 
+def flash_inputs(b, s, h, kh, d, dtype, seed):
+    return (_randn((b, s, h, d), dtype, seed),
+            _randn((b, s, kh, d), dtype, seed + 1),
+            _randn((b, s, kh, d), dtype, seed + 2),
+            _randn((b, s, h, d), dtype, seed + 3))
+
+
+def check_flash(dtype, b, s, h, kh, d, seed=70):
+    """Forward (out, lse) and backward (dq, dk, dv from the kernel's own
+    out and lse) against the plain versions."""
+    from ray_tpu_torch.ops import (flash_attention, flash_attention_bwd,
+                                   flash_attention_bwd_reference,
+                                   flash_attention_reference)
+
+    q, k, v, dout = flash_inputs(b, s, h, kh, d, dtype, seed)
+    tol = TOL["flash_attention"][dtype]
+    tag = f"{str(dtype)[6:]} B={b} S={s} H={h} KH={kh} D={d}"
+    out, lse = flash_attention(q, k, v)
+    want_out, want_lse = flash_attention_reference(q, k, v)
+    err = max(close_enough(out, want_out, tol, tol, f"flash out {tag}"),
+              close_enough(lse, want_lse, tol, tol, f"flash lse {tag}"))
+    grads = flash_attention_bwd(q, k, v, out, lse, dout)
+    want = flash_attention_bwd_reference(q, k, v, out, lse, dout)
+    err_b = max(close_enough(g, w, tol, tol, f"flash {n} {tag}")
+                for n, g, w in zip(("dq", "dk", "dv"), grads, want))
+    log(f"  flash_attention {tag}: forward max abs err {err}, backward "
+        f"{err_b} (tol {tol})")
+
+
 def phase_kernels():
     log("phase 3 kernels against their plain versions")
     for dtype in (torch.float32, torch.bfloat16):
@@ -324,6 +372,8 @@ def phase_kernels():
             check_paged(dtype, s)
         for shape in ((8, 1), (1, 64)):
             check_fused(dtype, shape)
+        check_flash(dtype, TRAIN_B, TRAIN_S, 32, 8, 128)
+        check_flash(dtype, 2, 384, 4, 2, 64)
     check_paged_refuses()
     torch.cuda.synchronize()
 
@@ -365,6 +415,7 @@ def phase_model():
     torch.cuda.empty_cache()
     for dtype in (torch.float32, torch.bfloat16):
         phase_model_paged(base, dtype)
+    phase_model_train(base)
 
 
 def phase_model_paged(base, dtype, b=4, t=16, steps=8):
@@ -398,6 +449,60 @@ def phase_model_paged(base, dtype, b=4, t=16, steps=8):
         f"{t} + {steps} decode steps with paged_decode=True: logits "
         f"bit-equal to the contiguous decode kernel's")
     del params, caches
+    torch.cuda.empty_cache()
+
+
+def phase_model_train(base, b=2, s=256, chunk=128):
+    """The 2-layer model's loss and every gradient through the flash and
+    fused kernels under remat (``loss_fn``), against the plain route
+    (``fused_ops`` off, no remat, and explicit positions, which keep
+    attention position-masked and off the flash gate), f32; S=256 is the
+    flash gate's smallest length, the CE in chunks of 128."""
+    from ray_tpu_torch import ops
+    from ray_tpu_torch.models import llama
+
+    cfg_k = dataclasses.replace(base, fused_ops=True, remat=True)
+    cfg_p = dataclasses.replace(base, fused_ops=False, remat=False)
+    positions = torch.arange(s, device="cuda").expand(b, s)
+    params = llama.init_params(cfg_k, _gen(9), device="cuda")
+    tokens = torch.randint(0, base.vocab_size, (b, s), generator=_gen(10),
+                           device="cuda")
+    runs = []
+    for cfg in (cfg_k, cfg_p):
+        p = {n: (v.clone().requires_grad_() if n != "blocks" else
+                 {k_: w.clone().requires_grad_() for k_, w in v.items()})
+             for n, v in params.items()}
+        for fn in ops.KERNELS.values():
+            fn.launches = 0
+        if cfg is cfg_k:
+            loss, _ = llama.loss_fn(p, tokens, cfg, logits_chunk=chunk)
+        else:
+            x = llama.forward_hidden(p, tokens, cfg, positions=positions)
+            loss, _ = llama.loss_from_hidden(p, x, tokens, cfg,
+                                             logits_chunk=chunk)
+        loss.backward()
+        runs.append((loss.detach(), p,
+                     {n: fn.launches for n, fn in ops.KERNELS.items()}))
+        del loss
+    (lk, pk, nk), (lp, pp, n_plain) = runs
+    if (nk["flash_attention"], nk["flash_attention_bwd"], nk["qk_rope"]) \
+            != (4, 2, 6) or n_plain["flash_attention"] != 0:
+        raise AssertionError(f"phase 4 train launches: kernels {nk}, plain "
+                             f"{n_plain}")
+    worst = close_enough(lk, lp, MODEL_TOL, MODEL_TOL, "model loss")
+    pairs = [(n, pk[n], pp[n]) for n in ("embed", "ln_out", "lm_head")] + [
+        (n, pk["blocks"][n], pp["blocks"][n]) for n in pk["blocks"]]
+    for name, got, want in pairs:
+        top = want.grad.abs().max().item()
+        err = close_enough(got.grad, want.grad, MODEL_TOL, MODEL_TOL * top,
+                           f"model grad {name}")
+        worst = max(worst, err / max(top, 1e-30))
+    log(f"phase 4 model: 2 layers at 8B widths f32, B={b} S={s}, loss "
+        f"{lk.item()} (plain {lp.item()}) and every gradient through the "
+        f"flash and fused kernels under remat vs the plain route: worst "
+        f"error {worst} of the tensor's largest value (tol {MODEL_TOL}); "
+        f"launches {nk}")
+    del params, runs, pk, pp
     torch.cuda.empty_cache()
 
 
@@ -512,6 +617,10 @@ def phase5_prompts(vocab):
     return prompts, prefix + prompts[2][:8]
 
 
+# Kernels of the training path only: a serving phase launches them 0 times.
+TRAIN_ONLY = ("flash_attention", "flash_attention_bwd")
+
+
 def require_launches(label, launches, expect_zero, may_be_zero=()):
     """Every kernel launched at least once, except those expected not to
     run at all and those the traffic may or may not reach."""
@@ -533,7 +642,8 @@ def phase_engine(smi):
     launches, stats = serve("phase 5", eng, prompts, warmup, smi)
     if stats["prefix_hits"] < 1:
         raise AssertionError(f"no prefix-cache hit: {stats}")
-    require_launches("phase 5", launches, ("paged_decode_attention",))
+    require_launches("phase 5", launches,
+                     ("paged_decode_attention",) + TRAIN_ONLY)
     decode_breakdown(eng, smi)
     return launches
 
@@ -542,7 +652,7 @@ def phase_paged_engine(smi):
     eng = make_engine("phase 7a", smi, paged_decode=True)
     prompts, warmup = phase5_prompts(eng.cfg.vocab_size)
     launches, _ = serve("phase 7a", eng, prompts, warmup, smi)
-    require_launches("phase 7a", launches, ("decode_attention",))
+    require_launches("phase 7a", launches, ("decode_attention",) + TRAIN_ONLY)
     decode_breakdown(eng, smi)
     return launches
 
@@ -575,7 +685,7 @@ def phase_all_knobs(smi):
     launches, stats = serve("phase 7b", eng, prompts, warmup, smi)
     # The paged kernel runs on the plain ticks only; a tick that drafts
     # verifies through causal attention, so it may launch 0 times here.
-    require_launches("phase 7b", launches, ("decode_attention",),
+    require_launches("phase 7b", launches, ("decode_attention",) + TRAIN_ONLY,
                      may_be_zero=("paged_decode_attention",))
     if stats["spec_chunks"] <= 0:
         raise AssertionError(f"phase 7b: no verify chunk ran: {stats}")
@@ -687,6 +797,136 @@ def decode_breakdown(eng, smi, chunks=3):
     top = sorted(others.items(), key=lambda kv: -kv[1])[:6]
     log("  largest 'other' kernels, ms/step: " + "; ".join(
         f"{n} {v / k / 1e3}" for n, v in top))
+
+
+# ---------------------------------------------------------------- phase 8
+
+# Device kernels by group, matched on the profiler's kernel names.
+TRAIN_GROUPS = (
+    ("flash forward", ("::fwd_kernel<",)),
+    ("flash backward", ("::dkdv_kernel<", "::dq_kernel<", "::delta_kernel<")),
+    ("fused kernels", ("rms_kernel", "rope_kernel", "swiglu_kernel")),
+    ("optimizer", ("multi_tensor_apply", "fused_adam", "FusedAdam")),
+    ("matmul", ("nvjet", "gemm", "gemv", "cutlass", "xmma", "cublas")),
+)
+
+
+def train_breakdown(prof):
+    """Device microseconds by group over the profiled step, and the
+    largest kernels of the remainder. User-annotated ranges on the device
+    timeline (``Optimizer.step#AdamW.step``) span other kernels and are
+    skipped."""
+    from torch.autograd import DeviceType
+
+    groups = {g: 0.0 for g, _ in TRAIN_GROUPS}
+    groups["other"] = 0.0
+    others = {}
+    for ev in prof.events():
+        if ev.device_type != DeviceType.CUDA or ev.is_user_annotation:
+            continue
+        us = ev.time_range.elapsed_us()
+        group = next((g for g, keys in TRAIN_GROUPS
+                      if any(k_ in ev.name for k_ in keys)), "other")
+        groups[group] += us
+        if group == "other":
+            others[ev.name[:60]] = others.get(ev.name[:60], 0.0) + us
+    return groups, others
+
+
+def phase_train(smi):
+    """Phase 8, the training cell: full-depth Llama-3-8B bf16 through the
+    port's training entry points, every kernel count set to 0 just before
+    the 5 steps and read just after. Returns the launch counts."""
+    import gc
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from ray_tpu_torch import ops
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.parallel import spmd
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    if held >= 2 * 2**30:
+        raise AssertionError(f"phase 8: {held} bytes still allocated after "
+                             "the engines")
+    cfg = dataclasses.replace(llama.LLAMA3_8B, fused_ops=True)
+    assert (cfg.n_layers, cfg.d_model, cfg.dtype, cfg.remat,
+            cfg.remat_policy) == (32, 4096, torch.bfloat16, True, "nothing")
+    tx = spmd.default_optimizer(lr=1e-4, warmup=1)
+    t0 = time.perf_counter()
+    state = spmd.init_train_state(cfg, _gen(11), tx)
+    torch.cuda.synchronize()
+    log(f"phase 8 train: Llama-3-8B bf16, 32 layers, "
+        f"{cfg.param_count() / 1e9:.2f}B params, B={TRAIN_B} S={TRAIN_S}, "
+        f"remat {cfg.remat_policy}, fused AdamW; init {time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated "
+        f"({held} bytes before)")
+    tokens = torch.from_numpy(np.random.RandomState(8).randint(
+        0, cfg.vocab_size, (TRAIN_B, TRAIN_S))).to("cuda")
+    step = spmd.make_train_step(cfg, tx)
+    torch.cuda.reset_peak_memory_stats()
+    for fn in ops.KERNELS.values():
+        fn.launches = 0
+    losses, gnorms, walls = [], [], []
+    prof = None
+    for i in range(TRAIN_STEPS):
+        t = time.perf_counter()
+        if i == TRAIN_STEPS - 1:   # the last step under the profiler
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                state, metrics = step(state, tokens)
+                torch.cuda.synchronize()
+        else:
+            state, metrics = step(state, tokens)
+            torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+        losses.append(metrics["loss"].item())
+        gnorms.append(metrics["grad_norm"].item())
+    launches = {name: fn.launches for name, fn in ops.KERNELS.items()}
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  losses {losses}; grad norms {gnorms}; step wall s {walls}")
+    if not all(np.isfinite(losses + gnorms)):
+        raise AssertionError("phase 8: a non-finite loss or grad norm")
+    if not losses[-1] < losses[1]:
+        raise AssertionError(f"phase 8: the loss did not fall: {losses}")
+    per_step = {"flash_attention": 64, "flash_attention_bwd": 32,
+                "qk_rope": 96, "rms_norm": 65, "rms_norm_residual": 64,
+                "swiglu": 64, "decode_attention": 0,
+                "paged_decode_attention": 0}
+    want = {n: c * TRAIN_STEPS for n, c in per_step.items()}
+    if launches != want:
+        raise AssertionError(f"phase 8 launches {launches}, expected {want}")
+    log(f"  phase 8 launch check passed: per step {per_step}")
+    steady = sorted(walls[1:-1])[len(walls[1:-1]) // 2]
+    tokens_s = TRAIN_B * TRAIN_S / steady
+    flops = cfg.flops_per_token(TRAIN_S) * TRAIN_B * TRAIN_S
+    groups, others = train_breakdown(prof)
+    busy = sum(groups.values()) / 1e3
+    log(f"  phase 8 step: {steady * 1e3} ms (median of steps 1-"
+        f"{TRAIN_STEPS - 2}, unprofiled; step 0 {walls[0] * 1e3} ms with "
+        f"AdamW's state made), {tokens_s} tokens/s, MFU {flops / steady / BF16_FLOPS} "
+        f"({flops / 1e12} TFLOP a step by flops_per_token), peak memory "
+        f"{peak / 1e9} GB ({peak / 2**30} GiB); on {smi}")
+    log(f"  phase 8 device time of the profiled step: busy {busy} ms "
+        f"(idle share against the unprofiled step {1 - busy / (steady * 1e3)}); "
+        "by group ms: " + ", ".join(f"{g} {v / 1e3}"
+                                    for g, v in groups.items()))
+    top = sorted(others.items(), key=lambda kv: -kv[1])[:8]
+    log("  largest 'other' kernels, ms: " + "; ".join(
+        f"{n} {v / 1e3}" for n, v in top))
+    ops_ = sorted((e for e in prof.key_averages()
+                   if e.key.startswith("aten::") or e.key.endswith("Backward")),
+                  key=lambda e: -e.self_device_time_total)
+    log("  largest ops (aten ops and autograd backward nodes) by their own "
+        "device time, ms (calls): " + "; ".join(
+            f"{e.key} {e.self_device_time_total / 1e3} ({e.count})"
+            for e in ops_[:12]))
+    del state, metrics, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
 
 
 # ---------------------------------------------------------------- phase 6
@@ -841,7 +1081,50 @@ def phase_timing(launches):
     entry("swiglu", lambda: KERNELS["swiglu"](g, up),
           lambda: swiglu_reference(g, up), None,
           3 * g.numel() * it, 5 * g.numel(), F32_SIMT_FLOPS)
+    del x, r, g, up
+    flash_timing(entry, launches)
     return rows
+
+
+def flash_timing(entry, launches):
+    """The flash rows at phase 8's shape (B=1, S=2048, H=32, KH=8, D=128,
+    bf16). Operations: 4*D per causal (query, key) pair forward (QK^T and
+    PV), 10*D backward (QK^T recomputed, dV, dP, dQ, dK); bytes: each
+    input read once and each output written once. The library call is
+    F.scaled_dot_product_attention (is_causal, enable_gqa) on the same
+    values laid out [B,H,S,D], forward, and forward + backward."""
+    from ray_tpu_torch.ops import (KERNELS, flash_attention_bwd_reference,
+                                   flash_attention_reference)
+
+    b, s, h, kh, d = TRAIN_B, TRAIN_S, 32, 8, 128
+    q, k, v, dout = flash_inputs(b, s, h, kh, d, torch.bfloat16, 80)
+    pairs = b * h * s * (s + 1) // 2
+    qo_bytes, kv_bytes, lse_bytes = q.numel() * 2, k.numel() * 2, b * h * s * 4
+    out, lse = KERNELS["flash_attention"](q, k, v)
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
+                  for x in (q, k, v))
+    dt_ = dout.transpose(1, 2).contiguous()
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                              enable_gqa=True)
+
+    def sdpa_fwd():
+        with torch.no_grad():
+            return sdpa()
+
+    def sdpa_fwd_bwd():
+        return torch.autograd.grad(sdpa(), (qt, kt, vt), dt_)
+
+    entry("flash_attention", lambda: KERNELS["flash_attention"](q, k, v),
+          lambda: flash_attention_reference(q, k, v), sdpa_fwd,
+          2 * qo_bytes + 2 * kv_bytes + lse_bytes, 4 * d * pairs,
+          BF16_FLOPS)
+    entry("flash_attention_bwd",
+          lambda: KERNELS["flash_attention_bwd"](q, k, v, out, lse, dout),
+          lambda: flash_attention_bwd_reference(q, k, v, out, lse, dout),
+          sdpa_fwd_bwd, 4 * qo_bytes + 4 * kv_bytes + lse_bytes,
+          10 * d * pairs, BF16_FLOPS)
 
 
 def main() -> int:
@@ -864,6 +1147,9 @@ def main() -> int:
     paged = phase_paged_engine(smi)
     launches["paged_decode_attention"] = paged["paged_decode_attention"]
     phase_all_knobs(smi)
+    train = phase_train(smi)
+    for kernel in TRAIN_ONLY:
+        launches[kernel] = train[kernel]
     rows = phase_timing(launches)
     log(f"total {time.perf_counter() - t_start:.1f} s on {smi}")
     print(json.dumps({"kernels": rows}), flush=True)

@@ -10,12 +10,17 @@ Ported so far: the serving engine's device path — ``ops`` (norm, rotary,
 attention, decode attention contiguous and paged, the fused per-layer
 glue), ``models.llama`` and ``models.quant`` (int8 weights),
 ``serve.engine`` (continuous batching, prefix cache, chunked prefill,
-speculative decoding) and the ``serve.llm.LLMEngine`` facade.
-``ROADMAP.md`` lists what is left.
+speculative decoding) and the ``serve.llm.LLMEngine`` facade — and the
+single-card training step: ``parallel.spmd`` (``init_train_state``,
+``make_train_step``, ``default_optimizer``) over ``models.llama.loss_fn``
+(remat, chunked cross-entropy), causal flash attention forward and
+backward, and the fused ops' backward. ``ROADMAP.md`` lists what is left
+(among it every multi-chip path).
 
 Entry points that make tensors (``init_params``, ``init_kv_cache``,
-``LLMEngine``) take ``device=None``, meaning the card; without one they
-raise. Pass ``device="cpu"`` to run the plain versions on the CPU.
+``LLMEngine``, ``spmd.init_train_state``) take ``device=None``, meaning
+the card; without one they raise. Pass ``device="cpu"`` to run the plain
+versions on the CPU.
 """
 
 from __future__ import annotations

@@ -7,6 +7,13 @@ carry across with ``from_jax_params`` and the tests compare like with like.
 The layer loop is a Python loop (``ray_tpu`` scans); decode runs against a
 preallocated KV cache in the engine-native [L, B, KH, S, D] layout.
 
+Training: ``loss_fn`` runs ``forward_hidden`` (each block under
+activation checkpointing when ``cfg.remat``) and the chunked
+cross-entropy of ``loss_from_hidden``; full-sequence attention with
+standard positions goes to ``ops.full_causal_attention`` (the CUDA flash
+kernels on the card), as ``ray_tpu``'s ``_attention_dispatch`` does
+without its multi-chip ring branch.
+
 ``_block`` keeps ``ray_tpu``'s dispatch: ``fused_ops`` routes the norms,
 rotary and SwiGLU through the fused ops, ``paged_decode`` routes
 single-token decode attention through ``paged_decode_attention`` (a
@@ -25,18 +32,22 @@ index per slot.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts,
+                                    noop_context_fn)
 
 from ray_tpu_torch import resolve_device
 from ray_tpu_torch.models.quant import _BLOCK_CONTRACT, QuantTensor
 from ray_tpu_torch.ops import (apply_rope, causal_attention, decode_attention,
-                               fused_qk_rope, fused_rms_norm,
-                               fused_rms_norm_residual, fused_swiglu,
-                               paged_decode_attention, rms_norm)
+                               full_causal_attention, fused_qk_rope,
+                               fused_rms_norm, fused_rms_norm_residual,
+                               fused_swiglu, paged_decode_attention, rms_norm)
 
 Params = Dict[str, Any]
 CacheIndex = Union[int, torch.Tensor]
@@ -54,6 +65,8 @@ class LlamaConfig:
     rope_theta: float = 500000.0
     norm_eps: float = 1e-5
     dtype: torch.dtype = torch.bfloat16
+    # Activation checkpointing of each block when gradients are on.
+    remat: bool = True
     # Single-token decode steps go through ops.decode_attention (the CUDA
     # kernel on the card, its plain version on the CPU). False = the
     # generic masked-attention path.
@@ -67,6 +80,10 @@ class LlamaConfig:
     # The per-layer glue (RMSNorm, RMSNorm+residual, q/k rotary, SwiGLU)
     # through ops.fused (kernels on the card). False = the unfused ops.
     fused_ops: bool = False
+    # Checkpoint policy: "nothing" = full per-block recompute (the backward
+    # reruns the block from its input), "dots" = keep the weight products'
+    # outputs (ray_tpu's dots_with_no_batch_dims_saveable).
+    remat_policy: str = "nothing"
     tie_embeddings: bool = False
 
     @property
@@ -81,6 +98,16 @@ class LlamaConfig:
         head = 0 if self.tie_embeddings else d * v
         return v * d + l * per_layer + d + head
 
+    def flops_per_token(self, seq_len: Optional[int] = None) -> float:
+        """Training FLOPs per token: 6 * N_matmul plus attention's
+        quadratic term (the embedding gather is no product unless tied)."""
+        s = seq_len or self.max_seq_len
+        gather_only = 0 if self.tie_embeddings else self.vocab_size * \
+            self.d_model
+        n_matmul = self.param_count() - gather_only
+        attn_flops = 12 * self.n_layers * self.d_model * s
+        return 6 * n_matmul + attn_flops
+
 
 # Presets (Meta's published widths) ---------------------------------------
 
@@ -91,7 +118,8 @@ LLAMA3_1B = LlamaConfig(vocab_size=128256, d_model=2048, n_layers=16,
 
 def tiny_config(**kw) -> LlamaConfig:
     base = dict(vocab_size=256, d_model=64, n_layers=2, n_heads=4,
-                n_kv_heads=2, d_ff=128, max_seq_len=128, dtype=torch.float32)
+                n_kv_heads=2, d_ff=128, max_seq_len=128, dtype=torch.float32,
+                remat=False)
     base.update(kw)
     return LlamaConfig(**base)
 
@@ -257,6 +285,28 @@ def _wdot(x: torch.Tensor, w, n_in: int = 1) -> torch.Tensor:
     return y.view(*x.shape[:-1], *out_shape)
 
 
+# The products "dots" keeps: every weight product reaches aten.mm (a 3-D
+# activation times a 2-D weight folds to one mm); attention's batched
+# einsums (bmm) are recomputed, as JAX's policy keeps no batch-dim dot.
+_SAVED_PRODUCTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _SAVED_PRODUCTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat_context(cfg: LlamaConfig):
+    """``checkpoint``'s context_fn for ``cfg.remat_policy``."""
+    if cfg.remat_policy == "dots":
+        return functools.partial(create_selective_checkpoint_contexts,
+                                 _dots_policy)
+    if cfg.remat_policy != "nothing":
+        raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}; "
+                         "expected 'nothing' or 'dots'")
+    return noop_context_fn
+
+
 def _norm(x, scale, cfg: LlamaConfig):
     """RMSNorm with the ``cfg.fused_ops`` dispatch (the single decode
     point for the flag)."""
@@ -313,8 +363,22 @@ def _identity_table(b: int, s: int, page: int, device) -> torch.Tensor:
                         device=device).reshape(b, np_row)
 
 
+def _attention_dispatch(q, k, v, q_pos, kv_pos, cfg: LlamaConfig,
+                        standard_positions: bool = False):
+    """Full-sequence attention. ``standard_positions`` (set by the caller
+    when positions are the plain [0..S) arange) unlocks the flash kernels'
+    built-in causal mask; custom positions keep position-based masking.
+    ``ray_tpu``'s ring branch (the ``sp`` mesh axis) waits for the
+    multi-chip slice."""
+    if standard_positions:
+        return full_causal_attention(q, k, v)
+    return full_causal_attention(q, k, v, q_positions=q_pos,
+                                 kv_positions=kv_pos)
+
+
 def _block(x, layer, positions, cfg: LlamaConfig, cache_kv=None,
-           cache_index: Optional[CacheIndex] = None, block_table=None):
+           cache_index: Optional[CacheIndex] = None, block_table=None,
+           standard_positions: bool = False):
     """One transformer block. Returns (x, new_kv | None). ``block_table``
     is the paged decode read's table, which ``forward_with_cache`` makes
     once per call when ``cfg.paged_decode`` and T == 1."""
@@ -357,8 +421,8 @@ def _block(x, layer, positions, cfg: LlamaConfig, cache_kv=None,
                                     q_positions=positions,
                                     kv_positions=kv_pos, kv_mask=kv_mask)
     else:
-        attn = causal_attention(q, k, v, q_positions=positions,
-                                kv_positions=positions)
+        attn = _attention_dispatch(q, k, v, positions, positions, cfg,
+                                   standard_positions)
     attn_out = _wdot(attn.reshape(b, t, -1), layer["wo"], 2).to(x.dtype)
     if cfg.fused_ops:
         # Residual add folded into the next norm: one pass emits both the
@@ -388,17 +452,98 @@ def forward(params: Params, tokens: torch.Tensor, cfg: LlamaConfig, *,
     return _head_matmul(x, params, cfg)
 
 
+def _block_hidden(x, layer, positions, cfg: LlamaConfig, standard: bool):
+    return _block(x, layer, positions, cfg, standard_positions=standard)[0]
+
+
 def forward_hidden(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
-                   *, positions: Optional[torch.Tensor] = None
+                   *, positions: Optional[torch.Tensor] = None,
+                   layers: Optional[List[Dict[str, torch.Tensor]]] = None
                    ) -> torch.Tensor:
-    """Tokens [B,S] -> final normed hidden states [B,S,D] (no LM head)."""
+    """Tokens [B,S] -> final normed hidden states [B,S,D] (no LM head).
+
+    With ``cfg.remat`` and gradients on, each block runs under
+    ``torch.utils.checkpoint`` (``cfg.remat_policy``): the backward
+    recomputes it from its input. ``layers`` are per-layer weights in
+    place of ``layer_views(params)`` (the train step passes leaf views,
+    so each layer's gradient lands in its own tensor)."""
     b, s = tokens.shape
+    standard = positions is None
     if positions is None:
         positions = _positions(0, b, s, tokens.device)
     x = _embed(params, tokens, cfg)
-    for layer in layer_views(params):
-        x, _ = _block(x, layer, positions, cfg)
+    if layers is None:
+        layers = layer_views(params)
+    remat = cfg.remat and torch.is_grad_enabled()
+    context_fn = _remat_context(cfg) if remat else None
+    for layer in layers:
+        if remat:
+            x = checkpoint(_block_hidden, x, layer, positions, cfg, standard,
+                           use_reentrant=False, preserve_rng_state=False,
+                           context_fn=context_fn)
+        else:
+            x = _block_hidden(x, layer, positions, cfg, standard)
     return _norm(x, params["ln_out"], cfg)
+
+
+def loss_fn(params: Params, tokens: torch.Tensor, cfg: LlamaConfig, *,
+            loss_mask: Optional[torch.Tensor] = None,
+            logits_chunk: int = 512,
+            layers: Optional[List[Dict[str, torch.Tensor]]] = None
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Next-token cross entropy over tokens [B,S]: targets are the tokens
+    rolled left by one with the last position masked, so shapes stay
+    [B,S]. The [B,S,V] logits never exist whole (``loss_from_hidden``).
+    Returns (loss, {"loss", "ppl_log"})."""
+    x = forward_hidden(params, tokens, cfg, layers=layers)
+    return loss_from_hidden(params, x, tokens, cfg, loss_mask=loss_mask,
+                            logits_chunk=logits_chunk)
+
+
+def _chunk_nll(xc, tc, head, tied: bool):
+    """Per-token NLL of one [B,C] chunk: f32 logsumexp minus the gold
+    logit, the logits computed in the storage dtype then widened."""
+    logits = (xc @ head if tied else _wdot(xc, head)).float()
+    gold = logits.gather(-1, tc[..., None])[..., 0]
+    return torch.logsumexp(logits, dim=-1) - gold
+
+
+def loss_from_hidden(params: Params, x: torch.Tensor, tokens: torch.Tensor,
+                     cfg: LlamaConfig, *,
+                     loss_mask: Optional[torch.Tensor] = None,
+                     logits_chunk: int = 512
+                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Chunked next-token CE given final hidden states [B,S,D].
+
+    Above ``logits_chunk`` positions the CE runs in chunks of that many,
+    each under ``torch.utils.checkpoint`` (its logits are recomputed in
+    the backward), so one [B,C,V] chunk is the most that lives at once;
+    the ragged tail is padded (its positions are invalid) rather than
+    falling back to whole logits."""
+    b, s = tokens.shape
+    targets = torch.roll(tokens, -1, dims=1).long()
+    valid = (torch.arange(s, device=x.device) < s - 1).float()[None, :]
+    if loss_mask is not None:
+        valid = valid * torch.roll(loss_mask, -1, dims=1).float()
+    tied = cfg.tie_embeddings
+    head = params["embed"].T if tied else params["lm_head"]
+    if s > logits_chunk:
+        pad = (-s) % logits_chunk
+        xs = F.pad(x, (0, 0, 0, pad)) if pad else x
+        ts = F.pad(targets, (0, pad)) if pad else targets
+        remat = torch.is_grad_enabled()
+        pieces = []
+        for lo in range(0, s + pad, logits_chunk):
+            args = (xs[:, lo:lo + logits_chunk], ts[:, lo:lo + logits_chunk],
+                    head, tied)
+            pieces.append(checkpoint(_chunk_nll, *args, use_reentrant=False,
+                                     preserve_rng_state=False)
+                          if remat else _chunk_nll(*args))
+        nll = torch.cat(pieces, dim=1)[:, :s]
+    else:
+        nll = _chunk_nll(x, targets, head, tied)
+    loss = (nll * valid).sum() / valid.sum().clamp(min=1.0)
+    return loss, {"loss": loss.detach(), "ppl_log": loss.detach()}
 
 
 # KV-cache decode (serving path) ------------------------------------------

@@ -115,8 +115,8 @@ def check_inputs(what: str, q, k, v, lengths, batch: int):
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (q, k, v)):
         raise NotImplementedError(
-            f"{what} has no backward on the card yet (training slice, "
-            "ROADMAP)")
+            f"{what} has no backward: decode is inference only (ray_tpu's "
+            "decode kernels have none either)")
     b, h, d = q.shape
     if k.device != q.device or v.device != q.device:
         raise ValueError(f"{what}: q, k, v lie on different devices")

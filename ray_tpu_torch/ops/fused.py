@@ -24,8 +24,15 @@ row-reduction passes between the matrix products. Each op here has
 
 Each op dispatches on its tensors' device: the plain version for CPU
 tensors, the kernel for CUDA tensors (raising on what the kernel does not
-take, never falling back). The kernels are forward only: a CUDA input that
-requires grad raises until the training slice brings their backward.
+take, never falling back). With gradients on, each op is a
+``torch.autograd.Function`` on both devices, mirroring ``ray_tpu``'s
+``custom_vjp``: the forward as above, and the backward of ``ray_tpu``'s
+own rule. RMSNorm, RMSNorm+residual and SwiGLU differentiate in plain
+torch (``ray_tpu`` computes those in jnp, outside any kernel); the RoPE
+backward is the RoPE kernel at negated positions (rotation is orthogonal,
+and ``ray_tpu`` reuses its Pallas kernel the same way), so it counts as a
+launch of ``fused_qk_rope``. Under activation checkpointing the forwards
+run again in the recompute.
 """
 
 from __future__ import annotations
@@ -48,10 +55,6 @@ def _on_card(name: str, *tensors: torch.Tensor) -> bool:
         return False
     if dev != "cuda":
         raise ValueError(f"{name}: no kernel for {tensors[0].device}")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            f"{name} has no backward on the card yet (training slice, "
-            "ROADMAP)")
     if any(t.device != tensors[0].device for t in tensors):
         raise ValueError(f"{name}: operands lie on different devices")
     dtype = tensors[0].dtype
@@ -60,6 +63,13 @@ def _on_card(name: str, *tensors: torch.Tensor) -> bool:
         raise ValueError(f"{name}: operands must share one dtype, float32 "
                          "or bfloat16")
     return True
+
+
+def _needs_grad(*tensors: torch.Tensor) -> bool:
+    """Whether an op goes through its autograd Function. Without gradients
+    it calls the forward directly: the serving decode step is host-bound,
+    and each ``Function.apply`` costs host time."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
 def _prepared(name: str, *tensors: torch.Tensor):
@@ -92,9 +102,7 @@ def _row_width_ok(name: str, x: torch.Tensor, scale: torch.Tensor) -> None:
 
 # ---------------------------------------------------------------- RMSNorm
 
-def fused_rms_norm(x: torch.Tensor, scale: torch.Tensor,
-                   eps: float = 1e-5) -> torch.Tensor:
-    """One-pass RMSNorm (f32 compute), x [..., d], scale [d]."""
+def _rms_norm_fwd(x, scale, eps):
     if not _on_card("fused_rms_norm", x, scale):
         return rms_norm_reference(x, scale, eps)
     d = x.shape[-1]
@@ -109,13 +117,7 @@ def fused_rms_norm(x: torch.Tensor, scale: torch.Tensor,
     return out
 
 
-fused_rms_norm.launches = 0
-
-
-def fused_rms_norm_residual(x: torch.Tensor, residual: torch.Tensor,
-                            scale: torch.Tensor, eps: float = 1e-5):
-    """Residual add folded into the norm: returns ``(rms_norm(u), u)`` with
-    ``u = x + residual`` added in the storage dtype."""
+def _rms_res_fwd(x, residual, scale, eps):
     if not _on_card("fused_rms_norm_residual", x, residual, scale):
         u = x + residual
         return rms_norm_reference(u, scale, eps), u
@@ -137,6 +139,70 @@ def fused_rms_norm_residual(x: torch.Tensor, residual: torch.Tensor,
     return out, summed
 
 
+def rms_norm_bwd(u: torch.Tensor, scale: torch.Tensor, gy: torch.Tensor,
+                 eps: float):
+    """Backward of ``y = rms_norm(u) * (1 + scale)`` w.r.t. (u, scale), in
+    f32 (``ray_tpu/ops/fused.py::_rms_bwd_math``)."""
+    uf, gf = u.float(), gy.float()
+    r = torch.rsqrt(uf.square().mean(dim=-1, keepdim=True) + eps)
+    n = uf * r
+    dn = gf * (1.0 + scale.float())
+    du = r * (dn - n * (dn * n).mean(dim=-1, keepdim=True))
+    ds = (gf * n).reshape(-1, u.shape[-1]).sum(dim=0)
+    return du, ds
+
+
+class _RmsNorm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, scale, eps):
+        ctx.save_for_backward(x, scale)
+        ctx.eps = eps
+        return _rms_norm_fwd(x, scale, eps)
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, scale = ctx.saved_tensors
+        du, ds = rms_norm_bwd(x, scale, gy, ctx.eps)
+        return du.to(x.dtype), ds.to(scale.dtype), None
+
+
+class _RmsNormResidual(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, residual, scale, eps):
+        y, u = _rms_res_fwd(x, residual, scale, eps)
+        ctx.save_for_backward(u, scale)
+        ctx.eps = eps
+        return y, u
+
+    @staticmethod
+    def backward(ctx, gy, gsum):
+        # ray_tpu/ops/fused.py::_rms_res_bwd: both inputs get du + gsum.
+        u, scale = ctx.saved_tensors
+        du, ds = rms_norm_bwd(u, scale, gy, ctx.eps)
+        du = (du + gsum.float()).to(u.dtype)
+        return du, du, ds.to(scale.dtype), None
+
+
+def fused_rms_norm(x: torch.Tensor, scale: torch.Tensor,
+                   eps: float = 1e-5) -> torch.Tensor:
+    """One-pass RMSNorm (f32 compute), x [..., d], scale [d]."""
+    if _needs_grad(x, scale):
+        return _RmsNorm.apply(x, scale, float(eps))
+    return _rms_norm_fwd(x, scale, eps)
+
+
+fused_rms_norm.launches = 0
+
+
+def fused_rms_norm_residual(x: torch.Tensor, residual: torch.Tensor,
+                            scale: torch.Tensor, eps: float = 1e-5):
+    """Residual add folded into the norm: returns ``(rms_norm(u), u)`` with
+    ``u = x + residual`` added in the storage dtype."""
+    if _needs_grad(x, residual, scale):
+        return _RmsNormResidual.apply(x, residual, scale, float(eps))
+    return _rms_res_fwd(x, residual, scale, eps)
+
+
 fused_rms_norm_residual.launches = 0
 
 
@@ -156,10 +222,7 @@ def _inv_freq(d: int, theta: float, device: torch.device) -> torch.Tensor:
     return inv
 
 
-def fused_qk_rope(q: torch.Tensor, k: torch.Tensor, positions: torch.Tensor,
-                  theta: float = 500000.0):
-    """Rotate q [B,S,H,D] and k [B,S,KH,D] by ``positions`` [B,S] in one
-    pass; matches two ``apply_rope`` calls. Returns ``(q_rot, k_rot)``."""
+def _rope_fwd(q, k, positions, theta):
     if not _on_card("fused_qk_rope", q, k):
         return (apply_rope_reference(q, positions, theta),
                 apply_rope_reference(k, positions, theta))
@@ -182,6 +245,31 @@ def fused_qk_rope(q: torch.Tensor, k: torch.Tensor, positions: torch.Tensor,
     return oq, ok
 
 
+class _QkRope(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, positions, theta):
+        ctx.save_for_backward(positions)
+        ctx.theta = theta
+        return _rope_fwd(q, k, positions, theta)
+
+    @staticmethod
+    def backward(ctx, gq, gk):
+        # Rotation is orthogonal: its VJP rotates the cotangents by the
+        # negated angles, the same kernel at -positions.
+        (positions,) = ctx.saved_tensors
+        dq, dk = _rope_fwd(gq, gk, -positions, ctx.theta)
+        return dq, dk, None, None
+
+
+def fused_qk_rope(q: torch.Tensor, k: torch.Tensor, positions: torch.Tensor,
+                  theta: float = 500000.0):
+    """Rotate q [B,S,H,D] and k [B,S,KH,D] by ``positions`` [B,S] in one
+    pass; matches two ``apply_rope`` calls. Returns ``(q_rot, k_rot)``."""
+    if _needs_grad(q, k):
+        return _QkRope.apply(q, k, positions, float(theta))
+    return _rope_fwd(q, k, positions, theta)
+
+
 fused_qk_rope.launches = 0
 
 
@@ -193,8 +281,7 @@ def swiglu_reference(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
     return out.to(gate.dtype)
 
 
-def fused_swiglu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
-    """``silu(gate) * up`` in one pass (f32 compute, no intermediate)."""
+def _swiglu_fwd(gate, up):
     if not _on_card("fused_swiglu", gate, up):
         return swiglu_reference(gate, up)
     if gate.shape != up.shape:
@@ -207,6 +294,30 @@ def fused_swiglu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
     _build.check(rc, "fused_swiglu")
     fused_swiglu.launches += 1
     return out
+
+
+class _SwiGLU(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, gate, up):
+        ctx.save_for_backward(gate, up)
+        return _swiglu_fwd(gate, up)
+
+    @staticmethod
+    def backward(ctx, g):
+        # ray_tpu/ops/fused.py::_swiglu_bwd, in f32.
+        gate, up = ctx.saved_tensors
+        gf, uf, cot = gate.float(), up.float(), g.float()
+        sig = torch.sigmoid(gf)
+        dgate = cot * uf * sig * (1.0 + gf * (1.0 - sig))
+        dup = cot * gf * sig
+        return dgate.to(gate.dtype), dup.to(up.dtype)
+
+
+def fused_swiglu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
+    """``silu(gate) * up`` in one pass (f32 compute, no intermediate)."""
+    if _needs_grad(gate, up):
+        return _SwiGLU.apply(gate, up)
+    return _swiglu_fwd(gate, up)
 
 
 fused_swiglu.launches = 0

@@ -171,6 +171,9 @@ def test_paged_decode_refuses_what_it_cannot_run(card):
 
 
 def test_fused_ops_refuse_what_they_cannot_run(card):
+    """Operands on two devices, mixed dtypes and float16 raise; so they do
+    when gradients are on (the ops are differentiable since the training
+    slice: the autograd Function's forward runs the same checks)."""
     from ray_tpu_torch.ops import fused_rms_norm, fused_swiglu
 
     x = _randn((2, 1, 64), torch.bfloat16, 0)
@@ -178,8 +181,10 @@ def test_fused_ops_refuse_what_they_cannot_run(card):
         fused_rms_norm(x, torch.zeros(64, dtype=torch.bfloat16))
     with pytest.raises(ValueError):
         fused_rms_norm(x, torch.zeros(64, device=card))
-    with pytest.raises(NotImplementedError):
-        fused_swiglu(x.float().requires_grad_(), x.float())
+    with pytest.raises(ValueError):
+        fused_swiglu(x.half().requires_grad_(), x.half())
+    with pytest.raises(ValueError):
+        fused_swiglu(x.float().requires_grad_(), x)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -305,6 +310,9 @@ def test_engine_on_the_card_counts_kernel_launches(card):
         assert out["num_generated"] == 9
         assert eng.stats()["device"].startswith("cuda")
     contiguous, paged = runs[False], runs[True]
+    for counts in (contiguous, paged):   # the training path's kernels
+        assert counts.pop("flash_attention") == 0
+        assert counts.pop("flash_attention_bwd") == 0
     assert contiguous.pop("paged_decode_attention") == 0
     assert all(n > 0 for n in contiguous.values()), contiguous
     assert paged.pop("decode_attention") == 0
@@ -335,3 +343,168 @@ def test_engine_on_the_card_with_every_knob(card):
     assert outs[0] == outs[3]
     assert stats["spec_chunks"] > 0
     assert stats["dispatches"]["prefill"] > 3
+
+
+# ------------------------------------------------------------- training
+
+
+def _flash_inputs(s, h, kh, d, dtype, seed):
+    b = 1 if s >= 2048 else 2
+    return (_randn((b, s, h, d), dtype, seed),
+            _randn((b, s, kh, d), dtype, seed + 1),
+            _randn((b, s, kh, d), dtype, seed + 2),
+            _randn((b, s, h, d), dtype, seed + 3))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s", [256, 384, 2048])
+@pytest.mark.parametrize("h,kh,d", [(32, 8, 128), (4, 2, 64), (4, 2, 128)])
+def test_flash_attention_kernels(card, dtype, s, h, kh, d):
+    """Forward (out, lse) and backward (dq, dk, dv, from the same out and
+    lse) against the plain versions: bf16 2e-2, f32 2e-3."""
+    from ray_tpu_torch.ops import (flash_attention, flash_attention_bwd,
+                                   flash_attention_bwd_reference,
+                                   flash_attention_reference)
+
+    q, k, v, dout = _flash_inputs(s, h, kh, d, dtype, s + h + d)
+    n0 = (flash_attention.launches, flash_attention_bwd.launches)
+    out, lse = flash_attention(q, k, v)
+    grads = flash_attention_bwd(q, k, v, out, lse, dout)
+    torch.cuda.synchronize()
+    assert (flash_attention.launches, flash_attention_bwd.launches) == (
+        n0[0] + 1, n0[1] + 1)
+    want_out, want_lse = flash_attention_reference(q, k, v)
+    tol = TOL[dtype]
+    assert out.dtype == dtype and lse.dtype == torch.float32
+    torch.testing.assert_close(out.float(), want_out.float(), rtol=tol,
+                               atol=tol)
+    torch.testing.assert_close(lse, want_lse, rtol=tol, atol=tol)
+    want = flash_attention_bwd_reference(q, k, v, out, lse, dout)
+    for name, g, w in zip(("dq", "dk", "dv"), grads, want):
+        assert g.dtype == dtype and torch.isfinite(g).all(), name
+        torch.testing.assert_close(g.float(), w.float(), rtol=tol, atol=tol,
+                                   msg=name)
+
+
+def test_flash_attention_refuses_what_it_cannot_run(card):
+    from ray_tpu_torch.ops import flash_attention
+
+    def qkv(s=256, h=4, kh=2, d=64, dtype=torch.bfloat16, sk=None):
+        return (_randn((1, s, h, d), dtype, 0),
+                _randn((1, sk or s, kh, d), dtype, 1),
+                _randn((1, sk or s, kh, d), dtype, 2))
+
+    for bad in (dict(d=96), dict(d=256), dict(h=6, kh=4),
+                dict(dtype=torch.float16), dict(sk=384)):
+        with pytest.raises(ValueError):
+            flash_attention(*qkv(**bad))
+    q, k, v = qkv()
+    with pytest.raises(ValueError):
+        flash_attention(q, k.cpu(), v)
+    with pytest.raises(ValueError):
+        flash_attention(q, k.float(), v)
+
+
+def test_full_causal_attention_pads_narrow_heads_on_the_card(card):
+    """head_dim 16 takes the kernels through zero padding to 64."""
+    from ray_tpu_torch.ops import flash_attention, full_causal_attention
+    from ray_tpu_torch.ops.flash_attention import flash_attention_reference
+
+    q, k, v, dout = _flash_inputs(256, 4, 2, 16, torch.float32, 7)
+    q.requires_grad_()
+    n0 = flash_attention.launches
+    out = full_causal_attention(q, k, v)
+    out.backward(dout)
+    assert flash_attention.launches == n0 + 1
+    qr = q.detach().clone().requires_grad_()
+    want, _ = flash_attention_reference(qr, k, v)
+    want.backward(dout)
+    torch.testing.assert_close(out, want, rtol=2e-3, atol=2e-3)
+    torch.testing.assert_close(q.grad, qr.grad, rtol=2e-3, atol=2e-3)
+
+
+def test_rope_backward_runs_the_kernel(card):
+    from ray_tpu_torch.ops import apply_rope, fused_qk_rope
+
+    q = _randn((2, 64, 8, 128), torch.float32, 3).requires_grad_()
+    k = _randn((2, 64, 2, 128), torch.float32, 4).requires_grad_()
+    pos = torch.arange(64, device=card).expand(2, 64)
+    gq, gk = _randn(q.shape, torch.float32, 5), _randn(k.shape,
+                                                       torch.float32, 6)
+    n0 = fused_qk_rope.launches
+    qr, kr = fused_qk_rope(q, k, pos, 500000.0)
+    torch.autograd.backward((qr, kr), (gq, gk))
+    assert fused_qk_rope.launches == n0 + 2
+    qp = q.detach().clone().requires_grad_()
+    kp = k.detach().clone().requires_grad_()
+    torch.autograd.backward((apply_rope(qp, pos, 500000.0),
+                             apply_rope(kp, pos, 500000.0)), (gq, gk))
+    torch.testing.assert_close(q.grad, qp.grad, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(k.grad, kp.grad, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("policy", ["nothing", "dots"])
+def test_tiny_model_loss_and_grads_kernels_match_plain(card, policy):
+    """f32 loss and every gradient through the flash and fused kernels
+    (remat on) against the plain route on the card (fused_ops off, and
+    explicit positions, which keep attention off the flash gate): 2e-3 of
+    each tensor's largest value."""
+    from ray_tpu_torch import ops
+    from ray_tpu_torch.models import llama
+
+    cfg_k = llama.tiny_config(d_model=256, n_heads=4, n_kv_heads=2,
+                              d_ff=512, max_seq_len=256, fused_ops=True,
+                              remat=True, remat_policy=policy)
+    cfg_p = dataclasses.replace(cfg_k, fused_ops=False, remat=False)
+    positions = torch.arange(256, device=card).expand(2, 256)
+    params = llama.init_params(cfg_k, torch.Generator("cuda").manual_seed(2))
+    tokens = torch.randint(0, cfg_k.vocab_size, (2, 256), device=card,
+                           generator=torch.Generator("cuda").manual_seed(3))
+    runs = []
+    for cfg in (cfg_k, cfg_p):
+        p = {n: (v.clone().requires_grad_() if n != "blocks" else
+                 {b: w.clone().requires_grad_() for b, w in v.items()})
+             for n, v in params.items()}
+        for fn in ops.KERNELS.values():
+            fn.launches = 0
+        if cfg is cfg_k:
+            loss, _ = llama.loss_fn(p, tokens, cfg, logits_chunk=96)
+        else:
+            x = llama.forward_hidden(p, tokens, cfg, positions=positions)
+            loss, _ = llama.loss_from_hidden(p, x, tokens, cfg,
+                                             logits_chunk=96)
+        loss.backward()
+        runs.append((loss, p, {n: fn.launches
+                               for n, fn in ops.KERNELS.items()}))
+    (lk, pk, nk), (lp, pp, np_) = runs
+    assert nk["flash_attention"] == 4 and nk["flash_attention_bwd"] == 2
+    assert nk["qk_rope"] == 6 and nk["swiglu"] == 4
+    assert np_["flash_attention"] == 0 and np_["qk_rope"] == 0
+    torch.testing.assert_close(lk, lp, rtol=2e-3, atol=2e-3)
+    pairs = [(pk[n], pp[n]) for n in ("embed", "ln_out", "lm_head")] + [
+        (pk["blocks"][n], pp["blocks"][n]) for n in pk["blocks"]]
+    for got, want in pairs:
+        tol = 2e-3 * want.grad.abs().max().item()
+        torch.testing.assert_close(got.grad, want.grad, rtol=2e-3, atol=tol)
+
+
+def test_train_step_on_the_card_lowers_the_loss(card):
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.parallel import spmd
+
+    cfg = llama.tiny_config(d_model=256, n_heads=4, n_kv_heads=2, d_ff=512,
+                            max_seq_len=256, fused_ops=True, remat=True,
+                            dtype=torch.bfloat16)
+    tx = spmd.default_optimizer(lr=1e-2, warmup=1, decay_steps=20)
+    state = spmd.init_train_state(cfg, torch.Generator("cuda").manual_seed(0),
+                                  tx)
+    assert state.opt_state.adamw.defaults["fused"]
+    step = spmd.make_train_step(cfg, tx)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 256), device=card,
+                           generator=torch.Generator("cuda").manual_seed(1))
+    losses = []
+    for _ in range(6):
+        state, metrics = step(state, tokens)
+        losses.append(metrics["loss"].item())
+        assert torch.isfinite(metrics["grad_norm"])
+    assert losses[-1] < losses[1]

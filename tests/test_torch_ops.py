@@ -329,8 +329,12 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
         torch.randn(2, 4, 16), torch.randn(2, 2, 8, 16),
         torch.randn(2, 2, 8, 16), torch.arange(4).reshape(2, 2),
         torch.tensor([3, 8]), page_size=4)
+    q, kv = torch.randn(1, 8, 4, 16), torch.randn(1, 8, 2, 16)
+    out, lse = tops.flash_attention(q, kv, kv)
+    tops.flash_attention_bwd(q, kv, kv, out, lse, out)
     assert {n: fn.launches for n, fn in tops.KERNELS.items()} == before
     assert set(tops.KERNELS) == {"decode_attention", "paged_decode_attention",
+                                 "flash_attention", "flash_attention_bwd",
                                  "rms_norm", "rms_norm_residual", "qk_rope",
                                  "swiglu"}
 

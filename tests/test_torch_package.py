@@ -37,8 +37,9 @@ def test_source_imports_neither_jax_nor_ray_tpu(path):
 def test_importing_and_serving_loads_no_jax_module():
     """In a fresh interpreter: import the package, build a CPU engine and
     serve a request, then one with every engine knob on (paged decode,
-    speculation, chunked prefill, int8); no jax* and no ray_tpu /
-    ray_tpu.* module may load."""
+    speculation, chunked prefill, int8), then take two training steps with
+    remat and the fused ops; no jax* and no ray_tpu / ray_tpu.* module may
+    load."""
     code = (
         "import sys, torch\n"
         "import ray_tpu_torch, ray_tpu_torch.ops\n"
@@ -60,6 +61,16 @@ def test_importing_and_serving_loads_no_jax_module():
         "e.close()\n"
         "assert out['num_generated'] == 12, out\n"
         "assert stats['spec_chunks'] > 0, stats\n"
+        "from ray_tpu_torch.parallel import spmd\n"
+        "tcfg = llama.tiny_config(fused_ops=True, remat=True)\n"
+        "tx = spmd.default_optimizer(lr=1e-2, warmup=1)\n"
+        "st = spmd.init_train_state(tcfg, torch.Generator().manual_seed(0),\n"
+        "                           tx, device='cpu')\n"
+        "step = spmd.make_train_step(tcfg, tx)\n"
+        "tok = torch.randint(0, 256, (2, 16))\n"
+        "for _ in range(2):\n"
+        "    st, m = step(st, tok)\n"
+        "assert st.step == 2 and torch.isfinite(m['grad_norm']), m\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'ray_tpu'))\n"
         "print('BAD', bad)\n")
@@ -88,6 +99,11 @@ def test_device_none_means_the_card():
 
     with pytest.raises(RuntimeError):
         LLMEngine(cfg, max_batch=1, max_len=32, prompt_buckets=[8])
+    from ray_tpu_torch.parallel import spmd
+
+    with pytest.raises(RuntimeError):
+        spmd.init_train_state(cfg, torch.Generator().manual_seed(0),
+                              spmd.default_optimizer())
     assert resolve_device("cpu") == torch.device("cpu")
 
 
