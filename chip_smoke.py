@@ -333,6 +333,30 @@ def check_fused(dtype, rows_shape, seed=10):
     return errs
 
 
+def check_rope_bwd(dtype, seed=20):
+    """The RoPE backward as the training path runs it: the kernel at the
+    negated positions 0..-(S-1), reached through the autograd Function,
+    against ``apply_rope`` of the cotangents at the same positions, at
+    phase 8's q and k shapes."""
+    from ray_tpu_torch.ops import apply_rope, fused_qk_rope
+
+    b, s = TRAIN_B, TRAIN_S
+    tag = f"{str(dtype)[6:]} q [{b},{s},32,128] k [{b},{s},8,128]"
+    q = _randn((b, s, 32, 128), dtype, seed).requires_grad_()
+    k = _randn((b, s, 8, 128), dtype, seed + 1).requires_grad_()
+    gq, gk = _randn(q.shape, dtype, seed + 2), _randn(k.shape, dtype, seed + 3)
+    pos = torch.arange(s, device="cuda", dtype=torch.int32).expand(b, s)
+    dq, dk = torch.autograd.grad(fused_qk_rope(q, k, pos, 500000.0), (q, k),
+                                 (gq, gk))
+    rtol, atol = ROPE_TOL[dtype]
+    err = max(close_enough(dq, apply_rope(gq, -pos, 500000.0), rtol, atol,
+                           f"qk_rope backward dq {tag}"),
+              close_enough(dk, apply_rope(gk, -pos, 500000.0), rtol, atol,
+                           f"qk_rope backward dk {tag}"))
+    log(f"  qk_rope backward {tag}, the kernel at positions 0..-{s - 1}: "
+        f"max abs err {err} (rtol {rtol}, atol {atol})")
+
+
 def flash_inputs(b, s, h, kh, d, dtype, seed):
     return (_randn((b, s, h, d), dtype, seed),
             _randn((b, s, kh, d), dtype, seed + 1),
@@ -370,8 +394,9 @@ def phase_kernels():
         check_decode(dtype, 512, d=64)        # LLAMA3_1B head_dim
         for s in (PAGED_S, 4096):
             check_paged(dtype, s)
-        for shape in ((8, 1), (1, 64)):
+        for shape in ((8, 1), (1, 64), (TRAIN_B, TRAIN_S)):
             check_fused(dtype, shape)
+        check_rope_bwd(dtype)
         check_flash(dtype, TRAIN_B, TRAIN_S, 32, 8, 128)
         check_flash(dtype, 2, 384, 4, 2, 64)
     check_paged_refuses()
@@ -1082,17 +1107,18 @@ def phase_timing(launches):
           lambda: swiglu_reference(g, up), None,
           3 * g.numel() * it, 5 * g.numel(), F32_SIMT_FLOPS)
     del x, r, g, up
-    flash_timing(entry, launches)
+    flash_timing(entry, timer)
     return rows
 
 
-def flash_timing(entry, launches):
+def flash_timing(entry, timer):
     """The flash rows at phase 8's shape (B=1, S=2048, H=32, KH=8, D=128,
     bf16). Operations: 4*D per causal (query, key) pair forward (QK^T and
     PV), 10*D backward (QK^T recomputed, dV, dP, dQ, dK); bytes: each
     input read once and each output written once. The library call is
     F.scaled_dot_product_attention (is_causal, enable_gqa) on the same
-    values laid out [B,H,S,D], forward, and forward + backward."""
+    values laid out [B,H,S,D]: its forward, and its backward alone (from
+    one forward's graph, kept); its forward + backward is printed."""
     from ray_tpu_torch.ops import (KERNELS, flash_attention_bwd_reference,
                                    flash_attention_reference)
 
@@ -1116,6 +1142,12 @@ def flash_timing(entry, launches):
     def sdpa_fwd_bwd():
         return torch.autograd.grad(sdpa(), (qt, kt, vt), dt_)
 
+    sdpa_out = sdpa()
+
+    def sdpa_bwd():
+        return torch.autograd.grad(sdpa_out, (qt, kt, vt), dt_,
+                                   retain_graph=True)
+
     entry("flash_attention", lambda: KERNELS["flash_attention"](q, k, v),
           lambda: flash_attention_reference(q, k, v), sdpa_fwd,
           2 * qo_bytes + 2 * kv_bytes + lse_bytes, 4 * d * pairs,
@@ -1123,8 +1155,62 @@ def flash_timing(entry, launches):
     entry("flash_attention_bwd",
           lambda: KERNELS["flash_attention_bwd"](q, k, v, out, lse, dout),
           lambda: flash_attention_bwd_reference(q, k, v, out, lse, dout),
-          sdpa_fwd_bwd, 4 * qo_bytes + 4 * kv_bytes + lse_bytes,
+          sdpa_bwd, 4 * qo_bytes + 4 * kv_bytes + lse_bytes,
           10 * d * pairs, BF16_FLOPS)
+    log(f"  SDPA forward + backward: {timer(sdpa_fwd_bwd)} ms")
+
+
+def fused_apply_cost(smi, calls=500, rounds=5):
+    """What the fused ops' autograd Functions cost the serving step's host
+    with gradients off: per call, each op's ``Function.apply`` against its
+    bare forward at the decode shapes (the two alternate, ``calls`` calls
+    each, median of ``rounds``), summed over one decode step's 129 fused
+    calls (33 RMSNorm, 32 of each other op)."""
+    from ray_tpu_torch.ops import fused as fz
+
+    dt = torch.bfloat16
+    x, r = _randn((8, 1, 4096), dt, 90), _randn((8, 1, 4096), dt, 91)
+    sc = _randn((4096,), dt, 92, scale=0.2)
+    qd, kd = _randn((8, 1, 32, 128), dt, 93), _randn((8, 1, 8, 128), dt, 94)
+    pos = torch.arange(8, device="cuda", dtype=torch.int32)[:, None]
+    g, up = _randn((8, 1, 14336), dt, 95), _randn((8, 1, 14336), dt, 96)
+    arms = {
+        "rms_norm": (33, lambda: fz._RmsNorm.apply(x, sc, 1e-5),
+                     lambda: fz._rms_norm_fwd(x, sc, 1e-5)),
+        "rms_norm_residual": (
+            32, lambda: fz._RmsNormResidual.apply(x, r, sc, 1e-5),
+            lambda: fz._rms_res_fwd(x, r, sc, 1e-5)),
+        "qk_rope": (32, lambda: fz._QkRope.apply(qd, kd, pos, 500000.0),
+                    lambda: fz._rope_fwd(qd, kd, pos, 500000.0)),
+        "swiglu": (32, lambda: fz._SwiGLU.apply(g, up),
+                   lambda: fz._swiglu_fwd(g, up)),
+    }
+
+    def host_us(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        us = (time.perf_counter() - t0) / calls * 1e6
+        torch.cuda.synchronize()
+        return us
+
+    extra_ms, parts = 0.0, []
+    with torch.no_grad():
+        for name, (per_step, apply, bare) in arms.items():
+            host_us(apply), host_us(bare)          # warm-up
+            t_apply, t_bare = [], []
+            for _ in range(rounds):
+                t_apply.append(host_us(apply))
+                t_bare.append(host_us(bare))
+            a = sorted(t_apply)[rounds // 2]
+            b = sorted(t_bare)[rounds // 2]
+            extra_ms += per_step * (a - b) / 1e3
+            parts.append(f"{name} {a} vs {b}")
+    log("fused ops with gradients off, host us per call, Function.apply "
+        f"vs the bare forward (median of {rounds} x {calls} calls): "
+        + "; ".join(parts) + f"; over a decode step's 129 fused calls "
+        f"{extra_ms} ms of host time; on {smi}")
 
 
 def main() -> int:
@@ -1151,6 +1237,7 @@ def main() -> int:
     for kernel in TRAIN_ONLY:
         launches[kernel] = train[kernel]
     rows = phase_timing(launches)
+    fused_apply_cost(smi)
     log(f"total {time.perf_counter() - t_start:.1f} s on {smi}")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

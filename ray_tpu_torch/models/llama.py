@@ -363,7 +363,7 @@ def _identity_table(b: int, s: int, page: int, device) -> torch.Tensor:
                         device=device).reshape(b, np_row)
 
 
-def _attention_dispatch(q, k, v, q_pos, kv_pos, cfg: LlamaConfig,
+def _attention_dispatch(q, k, v, q_pos, kv_pos,
                         standard_positions: bool = False):
     """Full-sequence attention. ``standard_positions`` (set by the caller
     when positions are the plain [0..S) arange) unlocks the flash kernels'
@@ -421,7 +421,7 @@ def _block(x, layer, positions, cfg: LlamaConfig, cache_kv=None,
                                     q_positions=positions,
                                     kv_positions=kv_pos, kv_mask=kv_mask)
     else:
-        attn = _attention_dispatch(q, k, v, positions, positions, cfg,
+        attn = _attention_dispatch(q, k, v, positions, positions,
                                    standard_positions)
     attn_out = _wdot(attn.reshape(b, t, -1), layer["wo"], 2).to(x.dtype)
     if cfg.fused_ops:

@@ -124,10 +124,12 @@ def _default_positions(q_positions, kv_positions, b, sq, sk) -> bool:
 
 def use_fused_kernel(on_card: bool, standard: bool, sq: int, d: int) -> bool:
     """The flash dispatch gate, ``ray_tpu``'s with the card in the TPU's
-    place: standard positions, sq >= 256 with sq % 128 == 0, head_dim
-    <= 128 (padded to the kernels' 64 or 128) or a multiple of 128."""
+    place: standard positions, sq >= 256 with sq % 128 == 0, and head_dim
+    <= 128 (padded to the kernels' 64 or 128). ``ray_tpu`` also admits a
+    multiple of 128; the card's kernels hold at most 128 columns, so wider
+    heads take the blockwise or dense route instead."""
     return (on_card and standard and sq >= 256 and sq % 128 == 0
-            and (d <= 128 or d % 128 == 0))
+            and d <= 128)
 
 
 def full_causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

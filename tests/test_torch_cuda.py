@@ -423,6 +423,26 @@ def test_full_causal_attention_pads_narrow_heads_on_the_card(card):
     torch.testing.assert_close(q.grad, qr.grad, rtol=2e-3, atol=2e-3)
 
 
+@pytest.mark.parametrize("s", [256, 1024])
+def test_full_causal_attention_wide_heads_take_the_plain_routes(card, s):
+    """head_dim 256 (wider than the kernels take) runs on the card through
+    the dense (S=256) or blockwise (S=1024) route, with no flash launch."""
+    from ray_tpu_torch.ops import flash_attention, full_causal_attention
+    from ray_tpu_torch.ops.flash_attention import flash_attention_reference
+
+    q, k, v, dout = _flash_inputs(s, 4, 2, 256, torch.float32, 9)
+    q.requires_grad_()
+    n0 = flash_attention.launches
+    out = full_causal_attention(q, k, v)
+    out.backward(dout)
+    assert flash_attention.launches == n0
+    qr = q.detach().clone().requires_grad_()
+    want, _ = flash_attention_reference(qr, k, v)
+    want.backward(dout)
+    torch.testing.assert_close(out, want, rtol=2e-3, atol=2e-3)
+    torch.testing.assert_close(q.grad, qr.grad, rtol=2e-3, atol=2e-3)
+
+
 def test_rope_backward_runs_the_kernel(card):
     from ray_tpu_torch.ops import apply_rope, fused_qk_rope
 
