@@ -5,17 +5,32 @@ card and check it.
     python3 chip_smoke.py              # phases 1-8, the smoke
     python3 chip_smoke.py --spec-ab    # phases 1-2, then speculation off
                                        # against on (bf16), no result line
+    python3 chip_smoke.py --flash [DIR]     # phases 1-2, the flash kernels
+                                            # and phase 8, no result line
+    python3 chip_smoke.py --flash-ab DIR    # --flash on the checkout at DIR
+                                            # and on this one, in turns
 
-Phases, in order; any failure raises and the script exits non-zero
-without printing its last line:
+``--flash`` runs against the package of the checkout at DIR (default:
+this one): the flash kernels against their plain versions at phase 3's
+flash shapes, their times at phase 8's shape (phase 6's L2-flushed
+medians and 20 back-to-back calls with L2 warm, SDPA's beside them), the
+backward's device time by kernel, then phase 8. ``--flash-ab DIR`` runs
+it for DIR, this checkout, this checkout and DIR, one process each, so
+two versions of the kernels are compared on one card in one call.
+
+Phases, in the order ``main()`` runs them; any failure raises and the
+script exits non-zero without printing its last line:
 
 1. Device: the card's name and power limit (``nvidia-smi``).
-2. Build: compile every kernel from ``ray_tpu_torch/csrc`` with nvcc.
+2. Build: compile every kernel from ``ray_tpu_torch/csrc`` with nvcc; for
+   every flash kernel, ptxas' registers and spills and the dynamic shared
+   memory of its launch.
 3. Kernels against their plain PyTorch versions on the card, at the
    slice's shapes, in bf16 and f32 (tolerances below); the paged decode
    kernel also bit-equal to the contiguous one through the identity
    table, through a scattered table, over NaN-poisoned tails; the flash
-   attention forward and backward at the training shape.
+   attention forward and backward at the training shape, at S=384, and
+   at ragged S with B > 1.
 4. Model: a 2-layer model at Llama-3-8B widths in f32, prefill + 8
    decode steps through the kernels, against the same model on the plain
    versions; then in f32 and bf16 with ``paged_decode=True``, logits
@@ -26,11 +41,6 @@ without printing its last line:
    from a seed), 16 requests from 8 client threads; checks every request's
    token count, prefix-cache hits, and that every kernel of its path was
    launched.
-6. Timing: each kernel, its plain version and (where one exists) the one
-   PyTorch call that computes the same function, with CUDA events, at the
-   decode shapes of phase 3 (the flash kernels at phase 8's training
-   shape); the ``kernels`` JSON line (printed last, with phase 7a's
-   launches for the paged kernel and phase 8's for the flash kernels).
 7. Engines with the slice-2 knobs, full-depth Llama-3-8B bf16: (a) phase
    5's configuration and traffic with ``paged_decode=True`` — the paged
    kernel runs, the contiguous one does not; (b) paged decode,
@@ -42,6 +52,14 @@ without printing its last line:
    one batch of B=1, S=2048 from a numpy seed; finite losses and gradient
    norms, a falling loss, the kernels' launch counts per step, step time,
    tokens/s, MFU, peak memory and the device time by group.
+6. Timing, last: each kernel, its plain version and (where one exists)
+   the one PyTorch call that computes the same function, with CUDA
+   events, at the decode shapes of phase 3 (the flash kernels at phase
+   8's training shape, with their TFLOP/s, share of the bound and, for
+   the backward, each of its three kernels' device time); then the host
+   cost of the fused ops' autograd ``Function``. The ``kernels`` JSON
+   line (phase 7a's launches for the paged kernel, phase 8's for the
+   flash kernels) is printed just before the last line.
 
 The last line is ``{"ok": true, "device": {...}}``. Needs one card; exits
 non-zero at once without one.
@@ -52,6 +70,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import threading
@@ -161,9 +180,53 @@ def phase_build():
     log(f"phase 2 build: {time.perf_counter() - t0:.3f} s "
         f"({', '.join(_build.SOURCES)})")
     for name in _build.SOURCES:
+        if name == "flash_attention":
+            flash_ptxas_report()
+            continue
         for line in _build.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {name}: {line.strip()}")
+
+
+# A flash kernel in ptxas' report: (name, dtype, head_dim) from the
+# mangled name.
+FLASH_ENTRY = re.compile(r"(fwd_sm90|dkdv_sm90|dq_sm90|fwd_kernel|"
+                         r"dkdv_kernel|dq_kernel|delta_kernel)"
+                         r"I(13__nv_bfloat16|f)?Li(\d+)E")
+
+
+def flash_ptxas_report():
+    """One line per flash kernel: ptxas' registers and spills and the
+    dynamic shared memory a CTA of it asks for (the TMA + wgmma kernels
+    then move registers with setmaxnreg: 24 for the producer, 240 for
+    each consumer warpgroup)."""
+    import ctypes
+
+    from ray_tpu_torch.ops import _build
+
+    smem = getattr(_build.load("flash_attention"),
+                   "rtt_flash_attention_smem", None)  # older checkouts lack it
+    if smem is not None:
+        smem.argtypes = [ctypes.c_int] * 3
+    which = {"fwd": 0, "dkdv": 1, "dq": 2}
+    entry = spill = None
+    for line in _build.build_log("flash_attention").splitlines():
+        m = FLASH_ENTRY.search(line)
+        if "Compiling entry" in line and m:
+            entry, spill = m.groups(), ""
+        elif entry and "spill" in line:
+            spill = line.strip()
+        elif entry and "Used" in line:
+            kind, dt, d = entry
+            dtype = 1 if kind.endswith("sm90") or dt == "13__nv_bfloat16" \
+                else 0
+            base = kind.split("_")[0]
+            dyn = (f"{smem(which[base], int(d), dtype)} bytes"
+                   if base in which and smem is not None else "none")
+            log(f"  ptxas flash_attention {kind}<{('f32', 'bf16')[dtype]}, "
+                f"D={d}>: {line.split(':', 1)[-1].strip()}; {spill}; "
+                f"dynamic smem {dyn}")
+            entry = None
 
 
 # ---------------------------------------------------------------- phase 3
@@ -364,6 +427,12 @@ def flash_inputs(b, s, h, kh, d, dtype, seed):
             _randn((b, s, h, d), dtype, seed + 3))
 
 
+# (B, S, H, KH, D) of phase 3's flash checks: phase 8's shape, S=384 (three
+# 128-row tiles), ragged S with B > 1 and GQA groups of 8 and 1.
+FLASH_SHAPES = ((TRAIN_B, TRAIN_S, 32, 8, 128), (2, 384, 4, 2, 64),
+                (3, 200, 16, 2, 128), (2, 320, 8, 8, 64))
+
+
 def check_flash(dtype, b, s, h, kh, d, seed=70):
     """Forward (out, lse) and backward (dq, dk, dv from the kernel's own
     out and lse) against the plain versions."""
@@ -397,8 +466,8 @@ def phase_kernels():
         for shape in ((8, 1), (1, 64), (TRAIN_B, TRAIN_S)):
             check_fused(dtype, shape)
         check_rope_bwd(dtype)
-        check_flash(dtype, TRAIN_B, TRAIN_S, 32, 8, 128)
-        check_flash(dtype, 2, 384, 4, 2, 64)
+        for shape in FLASH_SHAPES:
+            check_flash(dtype, *shape)
     check_paged_refuses()
     torch.cuda.synchronize()
 
@@ -828,8 +897,9 @@ def decode_breakdown(eng, smi, chunks=3):
 
 # Device kernels by group, matched on the profiler's kernel names.
 TRAIN_GROUPS = (
-    ("flash forward", ("::fwd_kernel<",)),
-    ("flash backward", ("::dkdv_kernel<", "::dq_kernel<", "::delta_kernel<")),
+    ("flash forward", ("::fwd_sm90<", "::fwd_kernel<")),
+    ("flash backward", ("::dkdv_sm90<", "::dq_sm90<", "::delta_kernel<",
+                        "::dkdv_kernel<", "::dq_kernel<")),
     ("fused kernels", ("rms_kernel", "rope_kernel", "swiglu_kernel")),
     ("optimizer", ("multi_tensor_apply", "fused_adam", "FusedAdam")),
     ("matmul", ("nvjet", "gemm", "gemv", "cutlass", "xmma", "cublas")),
@@ -1030,6 +1100,7 @@ def phase_timing(launches):
         rows.append(row)
         log(f"  {name}: {row['ms']} ms (plain {row['plain_ms']}, library "
             f"{row['library_ms']}, bound {bound} by {by}), max abs err {err}")
+        return row
 
     log("phase 6 timing (bf16, decode shapes of phase 3, L2 flushed)")
     # paged decode attention: the phase-7b engine's cache (S = PAGED_S),
@@ -1111,6 +1182,29 @@ def phase_timing(launches):
     return rows
 
 
+def sdpa_calls(q, k, v, dout):
+    """F.scaled_dot_product_attention (is_causal, enable_gqa) on the same
+    values laid out [B,H,S,D]: (its forward, its backward alone from one
+    forward's graph, kept, and its forward + backward)."""
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
+                  for x in (q, k, v))
+    dt_ = dout.transpose(1, 2).contiguous()
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                              enable_gqa=True)
+
+    def sdpa_fwd():
+        with torch.no_grad():
+            return sdpa()
+
+    sdpa_out = sdpa()
+    return (sdpa_fwd,
+            lambda: torch.autograd.grad(sdpa_out, (qt, kt, vt), dt_,
+                                        retain_graph=True),
+            lambda: torch.autograd.grad(sdpa(), (qt, kt, vt), dt_))
+
+
 def flash_timing(entry, timer):
     """The flash rows at phase 8's shape (B=1, S=2048, H=32, KH=8, D=128,
     bf16). Operations: 4*D per causal (query, key) pair forward (QK^T and
@@ -1127,37 +1221,96 @@ def flash_timing(entry, timer):
     pairs = b * h * s * (s + 1) // 2
     qo_bytes, kv_bytes, lse_bytes = q.numel() * 2, k.numel() * 2, b * h * s * 4
     out, lse = KERNELS["flash_attention"](q, k, v)
-    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
-                  for x in (q, k, v))
-    dt_ = dout.transpose(1, 2).contiguous()
+    sdpa_fwd, sdpa_bwd, sdpa_fwd_bwd = sdpa_calls(q, k, v, dout)
 
-    def sdpa():
-        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                              enable_gqa=True)
-
-    def sdpa_fwd():
-        with torch.no_grad():
-            return sdpa()
-
-    def sdpa_fwd_bwd():
-        return torch.autograd.grad(sdpa(), (qt, kt, vt), dt_)
-
-    sdpa_out = sdpa()
-
-    def sdpa_bwd():
-        return torch.autograd.grad(sdpa_out, (qt, kt, vt), dt_,
-                                   retain_graph=True)
-
-    entry("flash_attention", lambda: KERNELS["flash_attention"](q, k, v),
-          lambda: flash_attention_reference(q, k, v), sdpa_fwd,
-          2 * qo_bytes + 2 * kv_bytes + lse_bytes, 4 * d * pairs,
-          BF16_FLOPS)
-    entry("flash_attention_bwd",
-          lambda: KERNELS["flash_attention_bwd"](q, k, v, out, lse, dout),
-          lambda: flash_attention_bwd_reference(q, k, v, out, lse, dout),
-          sdpa_bwd, 4 * qo_bytes + 4 * kv_bytes + lse_bytes,
-          10 * d * pairs, BF16_FLOPS)
+    fwd = entry("flash_attention", lambda: KERNELS["flash_attention"](q, k, v),
+                lambda: flash_attention_reference(q, k, v), sdpa_fwd,
+                2 * qo_bytes + 2 * kv_bytes + lse_bytes, 4 * d * pairs,
+                BF16_FLOPS)
+    log(f"  flash_attention: {4 * d * pairs / fwd['ms'] / 1e9} TFLOP/s, "
+        f"{fwd['bound_ms'] / fwd['ms']} of its bound; SDPA "
+        f"{4 * d * pairs / fwd['library_ms'] / 1e9} TFLOP/s")
+    bwd = entry("flash_attention_bwd",
+                lambda: KERNELS["flash_attention_bwd"](q, k, v, out, lse,
+                                                       dout),
+                lambda: flash_attention_bwd_reference(q, k, v, out, lse,
+                                                      dout),
+                sdpa_bwd, 4 * qo_bytes + 4 * kv_bytes + lse_bytes,
+                10 * d * pairs, BF16_FLOPS)
+    log(f"  flash_attention_bwd: {10 * d * pairs / bwd['ms'] / 1e9} TFLOP/s "
+        f"counted at 10*D a pair ({14 * d * pairs / bwd['ms'] / 1e9} "
+        f"executed, 14*D), {bwd['bound_ms'] / bwd['ms']} of its bound; SDPA "
+        f"{10 * d * pairs / bwd['library_ms'] / 1e9} TFLOP/s at 10*D")
+    flash_bwd_parts(lambda: KERNELS["flash_attention_bwd"](q, k, v, out, lse,
+                                                           dout))
     log(f"  SDPA forward + backward: {timer(sdpa_fwd_bwd)} ms")
+
+
+def flash_bwd_parts(bwd, calls=10):
+    """The backward's device time by kernel (delta, dK/dV, dQ), mean of
+    ``calls`` back-to-back calls under torch.profiler (L2 warm)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    bwd()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            bwd()
+        torch.cuda.synchronize()
+    parts = {}
+    for ev in prof.events():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        m = re.search(r"(delta_kernel|dkdv_sm90|dq_sm90|dkdv_kernel|"
+                      r"dq_kernel)", ev.name)
+        key = m.group(1) if m else ev.name[:40]
+        parts[key] = parts.get(key, 0.0) + ev.time_range.elapsed_us()
+    log("  flash_attention_bwd device ms per call by kernel (profiler, L2 "
+        "warm): " + ", ".join(f"{k_} {v_ / calls / 1e3}"
+                              for k_, v_ in parts.items()))
+
+
+def back_to_back(fn, calls=20, warmup=3):
+    """Mean ms of ``calls`` launches in a row, L2 warm, CUDA events."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    s.record()
+    for _ in range(calls):
+        fn()
+    e.record()
+    torch.cuda.synchronize()
+    return s.elapsed_time(e) / calls
+
+
+def flash_probe(smi, root):
+    """``--flash``: the flash kernels of the package at ``root`` against
+    their plain versions, their times at phase 8's shape, then phase 8."""
+    from ray_tpu_torch.ops import KERNELS
+
+    log(f"flash probe of {root}: kernels against their plain versions")
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape in FLASH_SHAPES:
+            check_flash(dtype, *shape)
+    q, k, v, dout = flash_inputs(TRAIN_B, TRAIN_S, 32, 8, 128,
+                                 torch.bfloat16, 80)
+    out, lse = KERNELS["flash_attention"](q, k, v)
+    sdpa_fwd, sdpa_bwd, _ = sdpa_calls(q, k, v, dout)
+    timer = Timer()
+    for name, fn in (
+            ("flash_attention", lambda: KERNELS["flash_attention"](q, k, v)),
+            ("flash_attention_bwd",
+             lambda: KERNELS["flash_attention_bwd"](q, k, v, out, lse, dout)),
+            ("SDPA forward", sdpa_fwd), ("SDPA backward alone", sdpa_bwd)):
+        log(f"  {name} B={TRAIN_B} S={TRAIN_S} H=32 KH=8 D=128 bf16: "
+            f"{timer(fn)} ms (median, L2 flushed), {back_to_back(fn)} ms "
+            f"(20 back to back, L2 warm); on {smi}")
+    flash_bwd_parts(lambda: KERNELS["flash_attention_bwd"](q, k, v, out, lse,
+                                                           dout))
+    del q, k, v, dout, out, lse, timer, sdpa_fwd, sdpa_bwd
+    phase_train(smi)
 
 
 def fused_apply_cost(smi, calls=500, rounds=5):
@@ -1217,14 +1370,29 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    args = sys.argv[1:]
+    here = os.path.dirname(os.path.abspath(__file__))
+    if args[:1] == ["--flash-ab"] and len(args) == 2:
+        other = os.path.abspath(args[1])
+        for root in (other, here, here, other):
+            log(f"flash A/B arm: {root}")
+            subprocess.run([sys.executable, os.path.abspath(__file__),
+                            "--flash", root], check=True, timeout=900)
+        return 0
+    root = os.path.abspath(args[1]) if args[:1] == ["--flash"] and \
+        len(args) == 2 else here
+    sys.path.insert(0, root)
     import ray_tpu_torch  # noqa: F401 — fails outside a checkout
 
     t_start = time.perf_counter()
     smi, name = phase_device()
     phase_build()
-    if sys.argv[1:] == ["--spec-ab"]:
+    if args == ["--spec-ab"]:
         spec_ab(smi)
+        log(f"total {time.perf_counter() - t_start:.1f} s on {smi}")
+        return 0
+    if args[:1] == ["--flash"]:
+        flash_probe(smi, root)
         log(f"total {time.perf_counter() - t_start:.1f} s on {smi}")
         return 0
     phase_kernels()

@@ -127,9 +127,14 @@ def build_log(name: str) -> str:
 
 def check(rc: int, what: str) -> None:
     """Raise on a C entry point's return code: -1 = shapes or dtype the
-    kernel does not take, otherwise a CUDA error from the launch."""
+    kernel does not take, -2 = no TMA descriptor could be built (the
+    driver's ``cuTensorMapEncodeTiled`` missing or refusing the tensor),
+    otherwise a CUDA error from the launch."""
     if rc == -1:
         raise ValueError(f"{what}: unsupported shape or dtype")
+    if rc == -2:
+        raise RuntimeError(f"{what}: the driver could not build a TMA "
+                           "descriptor for the operands")
     if rc != 0:
         raise RuntimeError(f"{what}: kernel launch failed with CUDA error "
                            f"{rc}")

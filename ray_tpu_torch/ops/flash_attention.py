@@ -9,8 +9,10 @@ function, q [B,S,H,D], k/v [B,S,KH,D] (BSHD), query i attending to keys
   plain PyTorch versions: dense causal attention with f32 logits (the
   tests, and the yardstick each kernel is held against on the card);
 - the CUDA kernels in ``ray_tpu_torch/csrc/flash_attention.cu`` (forward;
-  backward as delta, dK/dV and dQ kernels). Their source note says what
-  bounds them on the H100 (operations) and what the design does about it.
+  backward as delta, dK/dV and dQ kernels): bf16 on warp-specialised TMA
+  + wgmma kernels, f32 on mma.sync kernels over bf16 hi/lo pairs. Their
+  source note says what bounds them on the H100 (operations) and what
+  the design does about it.
 
 ``flash_attention`` and ``flash_attention_bwd`` dispatch on the tensors'
 device: the plain version for CPU tensors, the kernels for CUDA tensors

@@ -348,8 +348,8 @@ def test_engine_on_the_card_with_every_knob(card):
 # ------------------------------------------------------------- training
 
 
-def _flash_inputs(s, h, kh, d, dtype, seed):
-    b = 1 if s >= 2048 else 2
+def _flash_inputs(s, h, kh, d, dtype, seed, b=None):
+    b = b or (1 if s >= 2048 else 2)
     return (_randn((b, s, h, d), dtype, seed),
             _randn((b, s, kh, d), dtype, seed + 1),
             _randn((b, s, kh, d), dtype, seed + 2),
@@ -357,16 +357,19 @@ def _flash_inputs(s, h, kh, d, dtype, seed):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("s", [256, 384, 2048])
-@pytest.mark.parametrize("h,kh,d", [(32, 8, 128), (4, 2, 64), (4, 2, 128)])
-def test_flash_attention_kernels(card, dtype, s, h, kh, d):
+@pytest.mark.parametrize("b,s", [(2, 256), (2, 384), (1, 2048), (3, 200),
+                                 (2, 320)])
+@pytest.mark.parametrize("h,kh,d", [(32, 8, 128), (4, 2, 64), (4, 2, 128),
+                                    (8, 8, 64), (16, 2, 128)])
+def test_flash_attention_kernels(card, dtype, b, s, h, kh, d):
     """Forward (out, lse) and backward (dq, dk, dv, from the same out and
-    lse) against the plain versions: bf16 2e-2, f32 2e-3."""
+    lse) against the plain versions: bf16 2e-2, f32 2e-3. S=200 and 320
+    are ragged against the 64- and 128-row tiles; GQA groups of 1 to 8."""
     from ray_tpu_torch.ops import (flash_attention, flash_attention_bwd,
                                    flash_attention_bwd_reference,
                                    flash_attention_reference)
 
-    q, k, v, dout = _flash_inputs(s, h, kh, d, dtype, s + h + d)
+    q, k, v, dout = _flash_inputs(s, h, kh, d, dtype, s + h + d, b)
     n0 = (flash_attention.launches, flash_attention_bwd.launches)
     out, lse = flash_attention(q, k, v)
     grads = flash_attention_bwd(q, k, v, out, lse, dout)
@@ -384,6 +387,23 @@ def test_flash_attention_kernels(card, dtype, s, h, kh, d):
         assert g.dtype == dtype and torch.isfinite(g).all(), name
         torch.testing.assert_close(g.float(), w.float(), rtol=tol, atol=tol,
                                    msg=name)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernels_are_deterministic(card, dtype):
+    """The forward twice and the backward twice on the same inputs give
+    bit-equal out, lse, dq, dk and dv: remat recomputes the forward and
+    the backward must read the lse it saved."""
+    from ray_tpu_torch.ops import flash_attention, flash_attention_bwd
+
+    q, k, v, dout = _flash_inputs(320, 16, 2, 128, dtype, 5, b=3)
+    runs = []
+    for _ in range(2):
+        out, lse = flash_attention(q, k, v)
+        runs.append((out, lse) + flash_attention_bwd(q, k, v, out, lse, dout))
+    torch.cuda.synchronize()
+    for name, a, b in zip(("out", "lse", "dq", "dk", "dv"), *runs):
+        assert torch.equal(a, b), name
 
 
 def test_flash_attention_refuses_what_it_cannot_run(card):

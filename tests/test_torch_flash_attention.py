@@ -162,3 +162,19 @@ def test_default_positions_matches_jax(sq, sk):
     for qp, kp in ((None, None), (pos, None), (None, pos), (pos, pos)):
         assert tatt._default_positions(qp, kp, 1, sq, sk) == \
             jatt._default_positions(qp, kp, 1, sq, sk)
+
+
+@pytest.mark.parametrize("rc,exc,says", [
+    (-1, ValueError, "unsupported shape"),
+    (-2, RuntimeError, "TMA descriptor"),
+    (700, RuntimeError, "CUDA error 700")])
+def test_kernel_return_codes_raise(rc, exc, says):
+    """The C entry points' return codes as the wrappers report them: -1 a
+    shape or dtype the kernels do not take, -2 no TMA descriptor (the bf16
+    flash kernels build one per operand at every call), else the CUDA
+    error of a launch; 0 passes."""
+    from ray_tpu_torch.ops import _build
+
+    _build.check(0, "flash_attention")
+    with pytest.raises(exc, match=says):
+        _build.check(rc, "flash_attention")
