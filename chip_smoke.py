@@ -9,6 +9,9 @@ card and check it.
                                             # and phase 8, no result line
     python3 chip_smoke.py --flash-ab DIR    # --flash on the checkout at DIR
                                             # and on this one, in turns
+    python3 chip_smoke.py --decode [DIR]    # phases 1-2, the decode and
+                                            # RoPE kernels, no result line
+    python3 chip_smoke.py --decode-ab DIR   # --decode for DIR and this one
 
 ``--flash`` runs against the package of the checkout at DIR (default:
 this one): the flash kernels against their plain versions at phase 3's
@@ -17,14 +20,18 @@ medians and 20 back-to-back calls with L2 warm, SDPA's beside them), the
 backward's device time by kernel, then phase 8. ``--flash-ab DIR`` runs
 it for DIR, this checkout, this checkout and DIR, one process each, so
 two versions of the kernels are compared on one card in one call.
+``--decode [DIR]`` and ``--decode-ab DIR`` do the same for the decode
+kernels (contiguous and paged) and RoPE: their checks at phase 3's shapes,
+the launch floor, and their times at the shapes of ``decode_rope_times``.
 
 Phases, in the order ``main()`` runs them; any failure raises and the
 script exits non-zero without printing its last line:
 
 1. Device: the card's name and power limit (``nvidia-smi``).
 2. Build: compile every kernel from ``ray_tpu_torch/csrc`` with nvcc; for
-   every flash kernel, ptxas' registers and spills and the dynamic shared
-   memory of its launch.
+   every kernel instantiation, by name and template arguments, ptxas'
+   registers and spills and (decode, flash) the dynamic shared memory of
+   its launch.
 3. Kernels against their plain PyTorch versions on the card, at the
    slice's shapes, in bf16 and f32 (tolerances below); the paged decode
    kernel also bit-equal to the contiguous one through the identity
@@ -40,7 +47,8 @@ script exits non-zero without printing its last line:
 5. Engine: ``LLMEngine`` on full-depth Llama-3-8B in bf16 (random weights
    from a seed), 16 requests from 8 client threads; checks every request's
    token count, prefix-cache hits, and that every kernel of its path was
-   launched.
+   launched; a profiled decode chunk shows one decode launch a layer and
+   step and no merge kernel.
 7. Engines with the slice-2 knobs, full-depth Llama-3-8B bf16: (a) phase
    5's configuration and traffic with ``paged_decode=True`` — the paged
    kernel runs, the contiguous one does not; (b) paged decode,
@@ -52,11 +60,13 @@ script exits non-zero without printing its last line:
    one batch of B=1, S=2048 from a numpy seed; finite losses and gradient
    norms, a falling loss, the kernels' launch counts per step, step time,
    tokens/s, MFU, peak memory and the device time by group.
-6. Timing, last: each kernel, its plain version and (where one exists)
-   the one PyTorch call that computes the same function, with CUDA
-   events, at the decode shapes of phase 3 (the flash kernels at phase
-   8's training shape, with their TFLOP/s, share of the bound and, for
-   the backward, each of its three kernels' device time); then the host
+6. Timing, last: an empty kernel (the launch floor), then each kernel,
+   its plain version and (where one exists) the one PyTorch call that
+   computes the same function, with CUDA events, at the decode shapes of
+   phase 3 (the flash kernels at phase 8's training shape, with their
+   TFLOP/s, share of the bound and, for the backward, each of its three
+   kernels' device time); the decode kernels also at S=4096 and at phase
+   5's slot lengths, RoPE also at phase 8's shape; then the host
    cost of the fused ops' autograd ``Function``. The ``kernels`` JSON
    line (phase 7a's launches for the paged kernel, phase 8's for the
    flash kernels) is printed just before the last line.
@@ -182,10 +192,66 @@ def phase_build():
     for name in _build.SOURCES:
         if name == "flash_attention":
             flash_ptxas_report()
-            continue
-        for line in _build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  ptxas {name}: {line.strip()}")
+        else:
+            kernel_ptxas_report(name)
+
+
+def template_args(mangled):
+    """A mangled kernel name's template arguments, readable:
+    ``...decode_kernelI13__nv_bfloat16Li128ELi4ELb0EE...`` -> ('bf16',
+    '128', '4', '0')."""
+    m = re.search(r"\d+\w+?_kernelI", mangled)
+    if not m:
+        return ()
+    args, rest = [], mangled[m.end():]
+    while True:
+        t = re.match(r"13__nv_bfloat16|f|L[ib](-?\d+)E", rest)
+        if not t:
+            return tuple(args)
+        args.append(t.group(1) or ("f32" if t.group(0) == "f" else "bf16"))
+        rest = rest[t.end():]
+
+
+def kernel_ptxas_report(lib):
+    """One line per kernel instantiation of ``csrc/<lib>.cu``: its name and
+    template arguments, ptxas' registers and spills, and (decode) the
+    dynamic shared memory a CTA asks for."""
+    import ctypes
+
+    from ray_tpu_torch.ops import _build
+
+    smem = getattr(_build.load(lib), "rtt_decode_attention_smem", None)
+    if smem is not None:
+        smem.argtypes = [ctypes.c_int] * 3
+    entry = spill = None
+    for line in _build.build_log(lib).splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            entry, spill = m.group(1), ""
+        elif entry and "spill" in line:
+            spill = line.strip()
+        elif entry and "Used" in line:
+            kind = re.search(r"\d+([a-z]\w*?_kernel)", entry)
+            args = template_args(entry)
+            dyn = ""
+            if smem is not None and kind and kind.group(1) == "decode_kernel":
+                dt, d, g, paged = args
+                dyn = (f"; dynamic smem {smem(int(dt == 'bf16'), int(d), int(g))}"
+                       f" bytes{' + 4 a page' if paged == '1' else ''}")
+            log(f"  ptxas {lib} {kind.group(1) if kind else entry}"
+                f"<{', '.join(args)}>: {line.split(':', 1)[-1].strip()}; "
+                f"{spill}{dyn}")
+            entry = None
+    clusters = getattr(_build.load(lib), "rtt_decode_attention_clusters",
+                       None)
+    if clusters is not None:
+        # What split_plan's one-wave rule rests on, at the engine's B=8,
+        # H=32, KH=8, D=128, bf16.
+        clusters.argtypes = [ctypes.c_int] * 9
+        fit = {n: clusters(8, 32, 8, 4096, 128, 4096 // n, n, 16, 1)
+               for n in (1, 2, 4, 8)}
+        log(f"  decode_kernel clusters resident at once by cluster size "
+            f"(cudaOccupancyMaxActiveClusters): {fit}")
 
 
 # A flash kernel in ptxas' report: (name, dtype, head_dim) from the
@@ -861,15 +927,19 @@ def decode_breakdown(eng, smi, chunks=3):
             torch.cuda.synchronize()
     groups = {"port kernels": 0.0, "matmul": 0.0, "other": 0.0}
     others = {}
-    ours = ("decode_split", "decode_merge", "rms_kernel", "rope_kernel",
-            "swiglu_kernel")
+    ours = ("decode_kernel", "rms_kernel", "rope_kernel", "swiglu_kernel")
+    counts = dict.fromkeys(ours, 0)
+    merges = 0
     for ev in prof.events():
         if ev.device_type != DeviceType.CUDA:
             continue
         us = ev.time_range.elapsed_us()
         name = ev.name.lower()
-        if any(o in name for o in ours):
+        merges += "merge" in name
+        mine = next((o for o in ours if o in name), None)
+        if mine:
             groups["port kernels"] += us
+            counts[mine] += 1
         elif any(g in name for g in ("nvjet", "gemm", "gemv", "cutlass",
                                      "xmma", "cublas")):
             groups["matmul"] += us
@@ -891,6 +961,17 @@ def decode_breakdown(eng, smi, chunks=3):
     top = sorted(others.items(), key=lambda kv: -kv[1])[:6]
     log("  largest 'other' kernels, ms/step: " + "; ".join(
         f"{n} {v / k / 1e3}" for n, v in top))
+    per_step = {n: c / k for n, c in counts.items()}
+    log(f"  port kernel launches per step (profiler): {per_step}; kernels "
+        f"named *merge*: {merges}")
+    # One decode launch a layer (the splits merge inside it), no merge
+    # kernel; a profiler that recorded nothing proves nothing either way.
+    if busy > 0 and (per_step["decode_kernel"] != eng.cfg.n_layers
+                     or merges):
+        raise AssertionError(f"decode step: {per_step['decode_kernel']} "
+                             f"decode launches a step for "
+                             f"{eng.cfg.n_layers} layers, {merges} merge "
+                             "kernels")
 
 
 # ---------------------------------------------------------------- phase 8
@@ -1028,11 +1109,13 @@ def phase_train(smi):
 
 class Timer:
     """Per-call device time with CUDA events. Before each timed call a
-    256 MB buffer is overwritten so the call finds the 50 MB L2 cold (as a
-    decode step does: the other layers' weights pass through L2 between
-    two calls of one layer); a sleep kernel first lets the host queue all
-    calls ahead of the card, so host overhead does not show in the
-    device timeline."""
+    256 MB buffer is read so the call finds the 50 MB L2 cold (as a decode
+    step does: the other layers' weights pass through L2 between two
+    calls of one layer) and clean: overwriting the buffer instead left up
+    to 50 MB of dirty lines whose write-back shared the card's bandwidth
+    with the timed call, which slowed memory-bound calls and not the empty
+    kernel. A sleep kernel first lets the host queue all calls ahead of
+    the card, so host overhead does not show in the device timeline."""
 
     def __init__(self):
         self.flush_buf = torch.empty(256 * 2**20, dtype=torch.uint8,
@@ -1052,13 +1135,87 @@ class Timer:
                 torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
         torch.cuda._sleep(int(self.cycles_per_ms * 50))
         for s, e in evs:
-            self.flush_buf.zero_()
+            self.flush_buf.max()
             s.record()
             fn()
             e.record()
         torch.cuda.synchronize()
         times = sorted(s.elapsed_time(e) for s, e in evs)
         return times[len(times) // 2]
+
+
+# Phase 5's slot lengths while it decodes: prompts of 16-48 tokens plus up
+# to 32 new ones, in a 512-row cache.
+REAL_LENGTHS = [16, 25, 34, 43, 52, 61, 70, 80]
+
+
+def launch_floor(timer):
+    """The empty kernel's time under ``timer`` (ms): what a launch costs
+    with no work. None for a checkout without it."""
+    import ctypes
+
+    from ray_tpu_torch.ops import _build
+
+    fn = getattr(_build.load("fused"), "rtt_empty_kernel", None)
+    if fn is None:
+        return None
+    fn.argtypes, fn.restype = [ctypes.c_void_p], ctypes.c_int
+    stream = torch.cuda.current_stream().cuda_stream
+    return timer(lambda: fn(stream))
+
+
+def decode_rope_times(timer, floor):
+    """Rows 1, 2 and 5 at the shapes their redesign is judged at, each
+    beside its bytes bound (each input read once, each output written
+    once): both decode kernels at B=8 H=32 KH=8 D=128 bf16 with every row
+    valid (S=512 contiguous, the engine's S=528 paged, both at S=4096) and
+    at phase 5's lengths; RoPE at the decode shape and at phase 8's.
+    Returns {label: ms}."""
+    from ray_tpu_torch.ops import KERNELS
+
+    b, h, kh, d, dt = 8, 32, 8, 128, torch.bfloat16
+    times = {}
+
+    def show(label, fn, nbytes):
+        ms = timer(fn)
+        bound = nbytes / HBM_BYTES_S * 1e3
+        times[label] = ms
+        vs_floor = f", {ms / floor} x the launch floor" if floor else ""
+        log(f"  {label}: {ms} ms, bytes bound {bound} ms ({bound / ms} of "
+            f"it){vs_floor}")
+
+    for name, s, lengths, tag in (
+            ("decode_attention", 512, [512] * b, "all rows valid"),
+            ("decode_attention", 512, REAL_LENGTHS, "phase 5's lengths"),
+            ("decode_attention", 4096, [4096] * b, "all rows valid"),
+            ("paged_decode_attention", PAGED_S, [512] * b, "512 rows valid"),
+            ("paged_decode_attention", PAGED_S, REAL_LENGTHS,
+             "phase 5's lengths"),
+            ("paged_decode_attention", 4096, [4096] * b, "all rows valid")):
+        q, k, v, lens = decode_inputs(b, h, kh, d, s, dt, 24, lengths)
+        nbytes = sum(lengths) * kh * d * 2 * 2 + 2 * q.numel() * 2 + 4 * b
+        if name == "decode_attention":
+            fn = (lambda q=q, k=k, v=v, lens=lens: KERNELS[name](
+                q, k, v, lens, layout="bksd"))
+        else:
+            table = identity_table(b, s)
+            nbytes += 4 * sum(-(-n // PAGE) for n in lengths)
+            fn = (lambda q=q, k=k, v=v, lens=lens, table=table: KERNELS[name](
+                q, k, v, table, lens, page_size=PAGE))
+        show(f"{name} S={s} {tag}", fn, nbytes)
+        del q, k, v
+    for bb, ss, tag in ((8, 1, "decode"), (TRAIN_B, TRAIN_S, "phase 8")):
+        q = _randn((bb, ss, 32, 128), dt, 33)
+        k = _randn((bb, ss, 8, 128), dt, 34)
+        # Contiguous positions: the wrapper copies an expanded tensor, a
+        # second launch the timing would include.
+        pos = (torch.arange(ss, device="cuda", dtype=torch.int32)
+               + 300).expand(bb, ss).contiguous()
+        show(f"qk_rope {tag} q {list(q.shape)} k {list(k.shape)}",
+             lambda q=q, k=k, pos=pos: KERNELS["qk_rope"](q, k, pos,
+                                                          500000.0),
+             2 * (q.numel() + k.numel()) * 2 + bb * ss * 4 + 64 * 4)
+    return times
 
 
 def _bound(nbytes, flops, flop_rate):
@@ -1080,6 +1237,7 @@ def phase_timing(launches):
     dt = torch.bfloat16
     it = 2
     timer = Timer()
+    floor = launch_floor(timer)
     rows = []
 
     def entry(name, kernel, plain, library, nbytes, flops, rate):
@@ -1096,13 +1254,17 @@ def phase_timing(launches):
                "launches": launches[name], "max_abs_err": err,
                "ms": timer(kernel), "plain_ms": timer(plain),
                "bound_ms": bound, "bound_by": by,
-               "library_ms": timer(library) if library else None}
+               "library_ms": timer(library) if library else None,
+               "floor_ms": floor}
         rows.append(row)
         log(f"  {name}: {row['ms']} ms (plain {row['plain_ms']}, library "
-            f"{row['library_ms']}, bound {bound} by {by}), max abs err {err}")
+            f"{row['library_ms']}, bound {bound} by {by}, launch floor "
+            f"{floor}), max abs err {err}")
         return row
 
     log("phase 6 timing (bf16, decode shapes of phase 3, L2 flushed)")
+    log(f"  launch floor, an empty kernel (one CTA of 128 threads): {floor} "
+        "ms")
     # paged decode attention: the phase-7b engine's cache (S = PAGED_S),
     # every slot at 512 rows, read through the identity table.
     b, h, kh, d, s = 8, 32, 8, 128, PAGED_S
@@ -1132,23 +1294,8 @@ def phase_timing(launches):
               q[:, :, None], k, v, attn_mask=mask, enable_gqa=True),
           kv_bytes + 2 * q.numel() * it + lens.numel() * 4,
           4 * int(lens.sum().item()) * h * d, BF16_FLOPS)
-    # The same kernel over a 4096-row cache (printed, not in the JSON).
-    q4, k4, v4, l4 = decode_inputs(b, h, kh, d, 4096, dt, 21, [4096] * b)
-    t4 = timer(lambda: KERNELS["decode_attention"](q4, k4, v4, l4,
-                                                   layout="bksd"))
-    b4 = (8 * 4096 * kh * d * 2 * it) / HBM_BYTES_S * 1e3
-    log(f"  decode_attention S=4096 all rows valid: {t4} ms, bytes bound "
-        f"{b4} ms ({b4 / t4:.3f} of it)")
-    # The paged kernel on the same caches through the identity table, and
-    # at S=512 (phase 6's row is at the engine's padded S=528).
-    p4 = timer(lambda: KERNELS["paged_decode_attention"](
-        q4, k4, v4, identity_table(b, 4096), l4, page_size=PAGE))
-    p512 = timer(lambda: KERNELS["paged_decode_attention"](
-        q, k, v, identity_table(b, s), lens, page_size=PAGE))
-    log(f"  paged_decode_attention identity table, all rows valid: S=512 "
-        f"{p512} ms (decode_attention {row_ms(rows, 'decode_attention')} "
-        f"ms), S=4096 {p4} ms ({b4 / p4:.3f} of the bytes bound)")
-    del q4, k4, v4
+    del q, k, v
+    decode_rope_times(timer, floor)
 
     n, dm = 8, 4096
     x = _randn((n, 1, dm), dt, 30)
@@ -1313,6 +1460,60 @@ def flash_probe(smi, root):
     phase_train(smi)
 
 
+def decode_probe(smi, root):
+    """``--decode``: the decode kernels and RoPE of the package at
+    ``root`` against their plain versions at phase 3's shapes, the launch
+    floor, then their times at the shapes of ``decode_rope_times``."""
+    log(f"decode probe of {root}: kernels against their plain versions")
+    for dtype in (torch.float32, torch.bfloat16):
+        for s in (512, 4096):
+            check_decode(dtype, s)
+        for s in (PAGED_S, 4096):
+            check_paged(dtype, s)
+        for shape in ((8, 1), (TRAIN_B, TRAIN_S)):
+            check_fused(dtype, shape)
+        check_rope_bwd(dtype)
+    timer = Timer()
+    floor = launch_floor(timer)
+    log(f"  launch floor, an empty kernel: {floor} ms; on {smi}")
+    times = decode_rope_times(timer, floor)
+    log("decode A/B times, ms: " + json.dumps(times))
+    wrapper_host_cost(smi)
+
+
+def wrapper_host_cost(smi, calls=500, rounds=5):
+    """Host microseconds a call of the decode wrappers and RoPE's forward
+    take at the decode shapes (median of ``rounds`` x ``calls`` calls): what
+    a decode step's 32 calls of each cost its host enqueue."""
+    from ray_tpu_torch.ops import (decode_attention, paged_decode_attention,
+                                   fused)
+
+    dt, b = torch.bfloat16, 8
+    q, k, v, lens = decode_inputs(b, 32, 8, 128, PAGED_S, dt, 26, [64] * b)
+    table = identity_table(b, PAGED_S)
+    qd, kd = _randn((b, 1, 32, 128), dt, 27), _randn((b, 1, 8, 128), dt, 28)
+    pos = torch.arange(b, device="cuda", dtype=torch.int32)[:, None]
+    arms = {"decode_attention": lambda: decode_attention(q, k, v, lens,
+                                                         layout="bksd"),
+            "paged_decode_attention": lambda: paged_decode_attention(
+                q, k, v, table, lens, page_size=PAGE),
+            "qk_rope": lambda: fused._rope_fwd(qd, kd, pos, 500000.0)}
+    out = {}
+    with torch.no_grad():
+        for name, fn in arms.items():
+            runs = []
+            for _ in range(rounds + 1):     # the first round warms up
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(calls):
+                    fn()
+                runs.append((time.perf_counter() - t0) / calls * 1e6)
+                torch.cuda.synchronize()
+            out[name] = sorted(runs[1:])[rounds // 2]
+    log(f"decode wrappers' host us a call (median of {rounds} x {calls}): "
+        f"{json.dumps(out)}; on {smi}")
+
+
 def fused_apply_cost(smi, calls=500, rounds=5):
     """What the fused ops' autograd Functions cost the serving step's host
     with gradients off: per call, each op's ``Function.apply`` against its
@@ -1372,15 +1573,15 @@ def main() -> int:
         return 1
     args = sys.argv[1:]
     here = os.path.dirname(os.path.abspath(__file__))
-    if args[:1] == ["--flash-ab"] and len(args) == 2:
-        other = os.path.abspath(args[1])
+    if args[:1] in (["--flash-ab"], ["--decode-ab"]) and len(args) == 2:
+        other, mode = os.path.abspath(args[1]), args[0][:-3]
         for root in (other, here, here, other):
-            log(f"flash A/B arm: {root}")
+            log(f"{mode[2:]} A/B arm: {root}")
             subprocess.run([sys.executable, os.path.abspath(__file__),
-                            "--flash", root], check=True, timeout=900)
+                            mode, root], check=True, timeout=900)
         return 0
-    root = os.path.abspath(args[1]) if args[:1] == ["--flash"] and \
-        len(args) == 2 else here
+    root = os.path.abspath(args[1]) if args[:1] in (["--flash"], [
+        "--decode"]) and len(args) == 2 else here
     sys.path.insert(0, root)
     import ray_tpu_torch  # noqa: F401 — fails outside a checkout
 
@@ -1391,8 +1592,8 @@ def main() -> int:
         spec_ab(smi)
         log(f"total {time.perf_counter() - t_start:.1f} s on {smi}")
         return 0
-    if args[:1] == ["--flash"]:
-        flash_probe(smi, root)
+    if args[:1] in (["--flash"], ["--decode"]):
+        (flash_probe if args[0] == "--flash" else decode_probe)(smi, root)
         log(f"total {time.perf_counter() - t_start:.1f} s on {smi}")
         return 0
     phase_kernels()

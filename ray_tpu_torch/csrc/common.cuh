@@ -24,6 +24,15 @@ struct Vec16<float> {
     out[2] = v.z;
     out[3] = v.w;
   }
+  // The same from shared memory (no read-only cache path there).
+  __device__ __forceinline__ static void load_shared(const float* p,
+                                                     float* out) {
+    const float4 v = *reinterpret_cast<const float4*>(p);
+    out[0] = v.x;
+    out[1] = v.y;
+    out[2] = v.z;
+    out[3] = v.w;
+  }
   __device__ __forceinline__ static void store(float* p, const float* in) {
     *reinterpret_cast<float4*>(p) = make_float4(in[0], in[1], in[2], in[3]);
   }
@@ -34,15 +43,21 @@ struct Vec16<__nv_bfloat16> {
   static constexpr int N = 8;
   // A bf16 value is the high half of the f32 with the same bits, so the
   // widening is two shifts/masks per 32-bit word (exact).
-  __device__ __forceinline__ static void load(const __nv_bfloat16* p,
-                                              float* out) {
-    const uint4 v = __ldg(reinterpret_cast<const uint4*>(p));
+  __device__ __forceinline__ static void widen(const uint4 v, float* out) {
     const uint32_t w[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       out[2 * i] = __uint_as_float(w[i] << 16);
       out[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
     }
+  }
+  __device__ __forceinline__ static void load(const __nv_bfloat16* p,
+                                              float* out) {
+    widen(__ldg(reinterpret_cast<const uint4*>(p)), out);
+  }
+  __device__ __forceinline__ static void load_shared(const __nv_bfloat16* p,
+                                                     float* out) {
+    widen(*reinterpret_cast<const uint4*>(p), out);
   }
   __device__ __forceinline__ static void store(__nv_bfloat16* p,
                                                const float* in) {

@@ -19,15 +19,23 @@
 //     scale and store it. The residual form adds x + r in the storage
 //     dtype first (as the unfused `x = x + attn` does), writes that sum,
 //     and normalises it.
-//   * RoPE: one CTA per token. cos and sin of each frequency are computed
-//     once into shared memory and reused for every q and k head of the
-//     token, the TPU kernel's "cos/sin once per position". Rotation is
-//     half-split, not interleaved. The inverse frequencies 1/theta^(2i/D)
-//     come from the wrapper (ops/rotary.rope_frequencies, D/2 floats):
-//     the TPU kernel rebuilds them in-kernel, but a powf here may differ
-//     from PyTorch's pow by an ulp, which at position p moves the angle
-//     by p ulps; with the plain version's own table the angles match bit
-//     for bit.
+//   * RoPE: one thread per (token, head group, chunk of W = 8
+//     frequencies), every load of a call in flight at once. A thread makes
+//     its 16-byte loads of the x1 chunk and the matching x2 chunk of each of
+//     its HG heads first (q heads, then k heads, one list), computes the W
+//     angles' cos and sin once with full-precision sincosf (the angle is
+//     (float)pos * inv_freq[i], one f32 product, as apply_rope), and
+//     rotates its heads with them: the TPU kernel's "cos/sin once per
+//     position", per pair of heads. The decode shape (8 tokens x 40 heads)
+//     takes one head a thread, 20 CTAs; the training shape (2048 tokens)
+//     two. Rotation is half-split, not interleaved. The inverse
+//     frequencies 1/theta^(2i/D) come from the wrapper
+//     (ops/rotary.rope_frequencies, D/2 floats): the TPU kernel rebuilds
+//     them in-kernel, but a powf here may differ from PyTorch's pow by an
+//     ulp, which at position p moves the angle by p ulps; with the plain
+//     version's own table the angles match bit for bit. A head_dim whose
+//     half is not a multiple of 8 takes chunks of one frequency (W = 1),
+//     scalar loads.
 //   * SwiGLU: a grid-stride elementwise pass, silu(gate) * up in f32,
 //     stored in the gate's dtype.
 
@@ -97,45 +105,86 @@ __global__ void rms_kernel(const T* __restrict__ x, const T* __restrict__ r,
   }
 }
 
+// W consecutive values of a row, widened to f32 (W = 8: 16 bytes in
+// bf16, 32 in f32; W = 1: one value), and back.
+template <typename T, int W>
+__device__ __forceinline__ void load_chunk(const T* p, float* out) {
+  if constexpr (W == 1) {
+    out[0] = rtt::to_f32(p[0]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < W; i += Vec16<T>::N) Vec16<T>::load(p + i, out + i);
+  }
+}
+
+template <typename T, int W>
+__device__ __forceinline__ void store_chunk(T* p, const float* in) {
+  if constexpr (W == 1) {
+    p[0] = rtt::from_f32<T>(in[0]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < W; i += Vec16<T>::N) Vec16<T>::store(p + i, in + i);
+  }
+}
+
 // q [T, H, D], k [T, KH, D] (T = B*S tokens), pos [T] int32,
-// inv_freq [D/2] f32.
-template <typename T>
+// inv_freq [D/2] f32. Thread (token, head group of HG, chunk of W
+// frequencies), the chunk fastest: neighbouring threads read neighbouring
+// 16 bytes of one head.
+template <typename T, int W, int HG>
 __global__ void rope_kernel(const T* __restrict__ q, const T* __restrict__ k,
                             const int* __restrict__ pos,
                             const float* __restrict__ inv_freq,
-                            T* __restrict__ oq, T* __restrict__ ok, int H,
-                            int KH, int D) {
-  extern __shared__ float tab[];  // cos[D/2] then sin[D/2]
+                            T* __restrict__ oq, T* __restrict__ ok,
+                            int tokens, int H, int KH, int D, int n_groups) {
   const int half = D / 2;
-  const size_t tok = blockIdx.x;
-  const float p = (float)pos[tok];
-  for (int i = threadIdx.x; i < half; i += blockDim.x) {
-    const float ang = p * inv_freq[i];  // one f32 product, as apply_rope
-    tab[i] = cosf(ang);
-    tab[half + i] = sinf(ang);
-  }
-  __syncthreads();
-  const int n = (H + KH) * half;
-  for (int e = threadIdx.x; e < n; e += blockDim.x) {
-    const int hh = e / half;
-    const int i = e % half;
-    const T* src;
-    T* dst;
-    if (hh < H) {
-      src = q + (tok * H + hh) * D;
-      dst = oq + (tok * H + hh) * D;
-    } else {
-      src = k + (tok * KH + (hh - H)) * D;
-      dst = ok + (tok * KH + (hh - H)) * D;
+  const unsigned n_chunk = half / W;
+  const unsigned idx = blockIdx.x * blockDim.x + threadIdx.x;
+  const unsigned chunk = idx % n_chunk;  // three divisions a thread
+  const unsigned rest = idx / n_chunk;
+  const int grp = rest % n_groups;
+  const int tok = rest / n_groups;
+  if (tok >= tokens) return;
+  const int i0 = chunk * W;
+  const int h0 = grp * HG;
+  const size_t tq = (size_t)tok * H, tk = (size_t)tok * KH;
+
+  float x1[HG][W], x2[HG][W];
+#pragma unroll
+  for (int j = 0; j < HG; ++j) {
+    const int hh = h0 + j;
+    if (hh < H + KH) {
+      const T* src = hh < H ? q + (tq + hh) * D : k + (tk + hh - H) * D;
+      load_chunk<T, W>(src + i0, x1[j]);
+      load_chunk<T, W>(src + half + i0, x2[j]);
     }
-    const float x1 = rtt::to_f32(src[i]);
-    const float x2 = rtt::to_f32(src[i + half]);
-    const float c = tab[i];
-    const float s = tab[half + i];
-    dst[i] = rtt::from_f32<T>(x1 * c - x2 * s);
-    dst[i + half] = rtt::from_f32<T>(x2 * c + x1 * s);
+  }
+  const float p = (float)pos[tok];
+  float c[W], s[W];
+#pragma unroll
+  for (int i = 0; i < W; ++i) {
+    const float ang = p * inv_freq[i0 + i];  // one f32 product, as apply_rope
+    sincosf(ang, &s[i], &c[i]);
+  }
+#pragma unroll
+  for (int j = 0; j < HG; ++j) {
+    const int hh = h0 + j;
+    if (hh < H + KH) {
+      float y1[W], y2[W];
+#pragma unroll
+      for (int i = 0; i < W; ++i) {
+        y1[i] = x1[j][i] * c[i] - x2[j][i] * s[i];
+        y2[i] = x2[j][i] * c[i] + x1[j][i] * s[i];
+      }
+      T* dst = hh < H ? oq + (tq + hh) * D : ok + (tk + hh - H) * D;
+      store_chunk<T, W>(dst + i0, y1);
+      store_chunk<T, W>(dst + half + i0, y2);
+    }
   }
 }
+
+// Nothing: the launch floor the other kernels' times are read against.
+__global__ void empty_kernel() {}
 
 __device__ __forceinline__ float silu_mul(float g, float u) {
   return (g * (1.f / (1.f + expf(-g)))) * u;
@@ -211,26 +260,74 @@ extern "C" int rtt_rms_norm_residual(const void* x, const void* r,
   return static_cast<int>(cudaGetLastError());
 }
 
+namespace {
+
+constexpr int kRopeThreads = 128;
+constexpr long long kRopeTargetThreads = 132LL * 4 * kRopeThreads;
+
+template <typename T, int W, int HG>
+void launch_rope(const void* q, const void* k, const int* pos,
+                 const float* inv, void* oq, void* ok, int tokens, int H,
+                 int KH, int D, cudaStream_t s) {
+  const int n_groups = (H + KH + HG - 1) / HG;
+  const long long threads = (long long)tokens * n_groups * (D / 2 / W);
+  const unsigned blocks =
+      (unsigned)((threads + kRopeThreads - 1) / kRopeThreads);
+  rope_kernel<T, W, HG><<<blocks, kRopeThreads, 0, s>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), pos, inv,
+      static_cast<T*>(oq), static_cast<T*>(ok), tokens, H, KH, D, n_groups);
+}
+
+// Two heads a thread where the grid still has kRopeTargetThreads threads
+// (four CTAs of 128 on each SM), else one. At phase 8's shape two were the
+// fastest of 1, 2, 4 and 8 heads a thread (PERF.md): larger groups hold
+// more loads in registers and leave fewer threads to hide their latency.
+template <typename T, int W>
+void dispatch_rope(const void* q, const void* k, const int* pos,
+                   const float* inv, void* oq, void* ok, int tokens, int H,
+                   int KH, int D, cudaStream_t s) {
+  const long long pairs =
+      (long long)tokens * (D / 2 / W) * ((H + KH + 1) / 2);
+  if (pairs >= kRopeTargetThreads)
+    launch_rope<T, W, 2>(q, k, pos, inv, oq, ok, tokens, H, KH, D, s);
+  else
+    launch_rope<T, W, 1>(q, k, pos, inv, oq, ok, tokens, H, KH, D, s);
+}
+
+template <typename T>
+void rope_width(const void* q, const void* k, const int* pos,
+                const float* inv, void* oq, void* ok, int tokens, int H,
+                int KH, int D, cudaStream_t s) {
+  if ((D / 2) % 8 == 0)
+    dispatch_rope<T, 8>(q, k, pos, inv, oq, ok, tokens, H, KH, D, s);
+  else
+    dispatch_rope<T, 1>(q, k, pos, inv, oq, ok, tokens, H, KH, D, s);
+}
+
+}  // namespace
+
 extern "C" int rtt_qk_rope(const void* q, const void* k, const void* pos,
                            const void* inv_freq, void* oq, void* ok,
                            int tokens, int H, int KH, int D, int dtype,
                            void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t smem = sizeof(float) * D;
   const int* p = static_cast<const int*>(pos);
   const float* inv = static_cast<const float*>(inv_freq);
+  if (D <= 0 || D % 2 != 0 || tokens < 0) return -1;
+  if (tokens == 0) return 0;
   if (dtype == rtt::kF32)
-    rope_kernel<float><<<tokens, 128, smem, s>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k), p, inv,
-        static_cast<float*>(oq), static_cast<float*>(ok), H, KH, D);
+    rope_width<float>(q, k, p, inv, oq, ok, tokens, H, KH, D, s);
   else if (dtype == rtt::kBF16)
-    rope_kernel<__nv_bfloat16><<<tokens, 128, smem, s>>>(
-        static_cast<const __nv_bfloat16*>(q),
-        static_cast<const __nv_bfloat16*>(k), p, inv,
-        static_cast<__nv_bfloat16*>(oq), static_cast<__nv_bfloat16*>(ok), H,
-        KH, D);
+    rope_width<__nv_bfloat16>(q, k, p, inv, oq, ok, tokens, H, KH, D, s);
   else
     return -1;
+  return static_cast<int>(cudaGetLastError());
+}
+
+// One launch of an empty kernel (one CTA of 128 threads): what a launch
+// costs on the card with no work, for reading the other kernels' times.
+extern "C" int rtt_empty_kernel(void* stream) {
+  empty_kernel<<<1, 128, 0, static_cast<cudaStream_t>(stream)>>>();
   return static_cast<int>(cudaGetLastError());
 }
 

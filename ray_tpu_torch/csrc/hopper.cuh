@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks for the port's warp-specialised kernels:
-// mbarriers, TMA tile loads, wgmma shared-memory descriptors and the
-// bf16 wgmma products with f32 accumulators.
+// mbarriers, TMA tile loads and 1-D bulk copies, thread block cluster
+// barriers and distributed shared memory, wgmma shared-memory descriptors
+// and the bf16 wgmma products with f32 accumulators.
 //
 // Shared-memory tiles. A tile of R rows x D bf16 columns (D = 64 or 128)
 // is stored as D / 64 column halves, each R rows of 128 bytes, in the
@@ -92,6 +93,50 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
       "r"(c2)
       : "memory");
+}
+
+// `bytes` (a multiple of 16) of contiguous global memory at `src` into
+// shared memory at `dst`, both 16-byte aligned, completing `bytes` of the
+// transaction count on `bar`: a 1-D bulk copy, no tensor map.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// ------------------------------------------------------------ clusters
+
+// Every thread of every CTA of the cluster: the arrive releases this
+// thread's earlier shared-memory writes to the cluster, the wait acquires
+// the other CTAs'. The `.aligned` forms want the warp converged: the
+// __syncwarp makes it so after a branch taken by some lanes only.
+__device__ __forceinline__ void cluster_sync() {
+  __syncwarp();
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// The shared-memory address `addr` of this CTA, as the address of the
+// same variable in the CTA of cluster rank `rank` (distributed shared
+// memory).
+__device__ __forceinline__ uint32_t map_rank(uint32_t addr, uint32_t rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(out)
+               : "r"(addr), "r"(rank));
+  return out;
+}
+
+__device__ __forceinline__ float ld_cluster(uint32_t addr) {
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n"
+               : "=f"(v)
+               : "r"(addr)
+               : "memory");
+  return v;
 }
 
 // ------------------------------------------------------ wgmma plumbing

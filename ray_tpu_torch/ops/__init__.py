@@ -11,8 +11,9 @@ card and raises without one.
 =========================  ===================================  ==========================
 op                         on the card                          replaces (ray_tpu/ops)
 =========================  ===================================  ==========================
-decode_attention           CUDA split-K flash-decode            decode_attention.py
-                           (csrc/decode_attention.cu)           ``_decode_kernel``
+decode_attention           CUDA split-K decode, one launch: a   decode_attention.py
+                           cluster a (slot, KV head)            ``_decode_kernel``
+                           (csrc/decode_attention.cu)
 paged_decode_attention     the same kernel through a block      paged_decode.py
                            table (csrc/decode_attention.cu)     ``_paged_kernel``
 flash_attention            CUDA causal flash forward            attention.py

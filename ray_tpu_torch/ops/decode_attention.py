@@ -5,9 +5,11 @@ attends to that slot's cached rows. Two versions of one function:
 
 - ``decode_attention_reference`` — the plain PyTorch version (CPU tests;
   the yardstick the kernel is held against on the card);
-- the CUDA kernel in ``ray_tpu_torch/csrc/decode_attention.cu``, a
-  split-K flash-decode for Hopper. It replaces the Pallas kernel
-  ``ray_tpu/ops/decode_attention.py::decode_attention``
+- the CUDA kernel in ``ray_tpu_torch/csrc/decode_attention.cu``, one
+  launch per call: each (slot, KV head) splits its rows over a thread
+  block cluster that merges the splits in distributed shared memory, and
+  K/V stream through a shared-memory ring of bulk copies. It replaces the
+  Pallas kernel ``ray_tpu/ops/decode_attention.py::decode_attention``
   (``_decode_kernel``). Its source note says what bounds it on the H100
   (bytes: each valid cache row is read once) and how the design answers.
 
@@ -24,20 +26,23 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import NamedTuple
 
 import torch
 
 from ray_tpu_torch.ops import _build
 
 NEG_INF = -1e30
-_TARGET_CTAS = 4 * 132   # a few CTAs per H100 SM
+# At most this many CTAs a launch: the clusters of 2, 4 and 8 CTAs that an
+# H100 keeps resident at two CTAs an SM (cudaOccupancyMaxActiveClusters:
+# 132, 62 and 30), so a launch is one wave.
+_TARGET_CTAS = 240
+_MAX_CLUSTER = 8         # the portable thread block cluster size
 _MIN_SPLIT_ROWS = 64
 # Split rows are a multiple of this granule (and of the page, for the
 # paged read), so a contiguous and a paged read of one cache share a plan
-# and reduce in the same order; at most _MAX_SPLIT_ROWS rows per split
-# keeps the paged kernel's per-split page list small in shared memory.
+# and reduce in the same order.
 _ROW_GRANULE = 16
-_MAX_SPLIT_ROWS = 2048
 
 
 def decode_attention_reference(q: torch.Tensor, k: torch.Tensor,
@@ -85,16 +90,33 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 decode_attention.launches = 0
 
 
-def split_plan(b: int, kh: int, s: int, page: int = 1):
-    """(n_split, split_rows): split S until the grid has about
-    ``_TARGET_CTAS`` CTAs, keeping at least ``_MIN_SPLIT_ROWS`` rows per
-    split; split_rows is a multiple of lcm(_ROW_GRANULE, page)."""
+class SplitPlan(NamedTuple):
+    """How the decode kernel splits a (slot, KV head)'s rows."""
+
+    n_split: int   # CTAs of one (slot, KV head): one thread block cluster
+    rows: int      # rows a split covers when the slot is full
+    granule: int   # a split's rows are a multiple of this
+
+    def rows_for(self, length: int) -> int:
+        """The rows of each split of a slot holding ``length`` valid rows,
+        as the kernel computes them: ceil(length / n_split) rounded up to
+        the granule."""
+        per = -(-length // self.n_split)
+        return min(self.rows, -(-per // self.granule) * self.granule)
+
+
+def split_plan(b: int, kh: int, s: int, page: int = 1) -> SplitPlan:
+    """The largest power-of-two cluster (at most ``_MAX_CLUSTER`` CTAs)
+    that keeps the grid within ``_TARGET_CTAS`` (one wave) and at least
+    ``_MIN_SPLIT_ROWS`` rows a split of a full slot; rows a multiple of
+    lcm(_ROW_GRANULE, page). At B=8, KH=8: clusters of 2."""
     g = math.lcm(_ROW_GRANULE, page)
-    want = math.ceil(_TARGET_CTAS / max(1, b * kh))
-    n = max(1, min(want, math.ceil(s / _MIN_SPLIT_ROWS)))
-    rows = min(math.ceil(math.ceil(s / n) / g) * g,
-               max(g, _MAX_SPLIT_ROWS // g * g))
-    return math.ceil(s / rows), rows
+    cap = min(_MAX_CLUSTER, _TARGET_CTAS // max(1, b * kh),
+              math.ceil(s / _MIN_SPLIT_ROWS))
+    n = 1
+    while n * 2 <= cap:
+        n *= 2
+    return SplitPlan(n, math.ceil(math.ceil(s / n) / g) * g, g)
 
 
 def _lib():
@@ -102,7 +124,7 @@ def _lib():
     fn = lib.rtt_decode_attention
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i,
+        fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i,
                        ctypes.c_float, i, p]
         fn.restype = i
     return fn
@@ -144,28 +166,16 @@ def check_inputs(what: str, q, k, v, lengths, batch: int):
     return q, lengths
 
 
-def split_scratch(q, kh: int, n_split: int):
-    """The f32 partials (max and sum, accumulator) the split kernel writes
-    and the merge kernel reads."""
-    b, h, d = q.shape
-    g = h // kh
-    return (torch.empty((b, kh, n_split, g, 2), dtype=torch.float32,
-                        device=q.device),
-            torch.empty((b, kh, n_split, g, d), dtype=torch.float32,
-                        device=q.device))
-
-
 def _decode_attention_cuda(q, k, v, lengths):
     b, h, d = q.shape
     q, lengths = check_inputs("decode_attention", q, k, v, lengths, b)
     kh, s = k.shape[1], k.shape[2]
-    n_split, rows = split_plan(b, kh, s)
-    part_ml, part_acc = split_scratch(q, kh, n_split)
+    plan = split_plan(b, kh, s)
     out = torch.empty_like(q)
     rc = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
-                out.data_ptr(), part_ml.data_ptr(), part_acc.data_ptr(),
-                b, h, kh, s, d, rows, n_split, float(d ** -0.5),
-                _build.DTYPE_CODES[q.dtype], _build.stream_handle(q))
+                out.data_ptr(), b, h, kh, s, d, plan.rows, plan.n_split,
+                plan.granule, float(d ** -0.5), _build.DTYPE_CODES[q.dtype],
+                _build.stream_handle(q))
     _build.check(rc, "decode_attention")
     decode_attention.launches += 1
     return out

@@ -14,7 +14,8 @@ equals the contiguous one; the table is the seam for cross-slot paging.
   ``decode_attention_reference`` (length-0 slots give 0);
 - the CUDA kernel, ``rtt_paged_decode_attention`` in
   ``ray_tpu_torch/csrc/decode_attention.cu``: the contiguous kernel's
-  paged case (same split plan, pages looked up once per page per CTA). It
+  paged case (same split plan; the producer warp looks each page up once
+  and copies it whole into the ring). It
   replaces the Pallas kernel ``ray_tpu/ops/paged_decode.py::
   paged_decode_attention`` (``_paged_kernel``).
 
@@ -34,7 +35,7 @@ import torch
 from ray_tpu_torch.ops import _build
 from ray_tpu_torch.ops.decode_attention import (check_inputs,
                                                 decode_attention_reference,
-                                                split_plan, split_scratch)
+                                                split_plan)
 
 
 def paged_decode_attention_reference(q: torch.Tensor, k: torch.Tensor,
@@ -90,7 +91,7 @@ def _lib():
     fn = lib.rtt_paged_decode_attention
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i,
+        fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i,
                        ctypes.c_float, i, p]
         fn.restype = i
     return fn
@@ -111,13 +112,12 @@ def _paged_cuda(q, k, v, block_table, lengths, page):
     n_pages = table.shape[1]
     # The contiguous read's plan over the sequence's logical rows, rounded
     # to whole pages: with the identity table both reads reduce alike.
-    n_split, rows = split_plan(b, kh, n_pages * page, page)
-    part_ml, part_acc = split_scratch(q, kh, n_split)
+    plan = split_plan(b, kh, n_pages * page, page)
     out = torch.empty_like(q)
     rc = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), table.data_ptr(),
-                lengths.data_ptr(), out.data_ptr(), part_ml.data_ptr(),
-                part_acc.data_ptr(), b, h, kh, s, d, n_pages, page, rows,
-                n_split, float(d ** -0.5), _build.DTYPE_CODES[q.dtype],
+                lengths.data_ptr(), out.data_ptr(), b, h, kh, s, d, n_pages,
+                page, plan.rows, plan.n_split, plan.granule,
+                float(d ** -0.5), _build.DTYPE_CODES[q.dtype],
                 _build.stream_handle(q))
     _build.check(rc, "paged_decode_attention")
     paged_decode_attention.launches += 1

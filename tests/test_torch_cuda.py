@@ -155,6 +155,52 @@ def test_paged_decode_kernel(card, dtype, d, h, kh, page):
                                atol=tol)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("g", [1, 2, 4, 8])
+@pytest.mark.parametrize("s", [528, 4096])
+def test_decode_kernels_at_tile_and_split_edges(card, dtype, d, g, s):
+    """The one-launch decode kernel, contiguous and paged (pages of 16),
+    over lengths that end mid-tile, on a tile edge (tiles of 16, 32 or 64
+    rows) and on a split edge, 0 and 1, and slots whose cluster has one
+    busy CTA and the rest idle (1, 15, 16), with every row at or past
+    the length NaN in K and V: within tolerance of the plain version,
+    length 0 exactly 0, the identity-table paged read bit-equal to the
+    contiguous one, and a repeated call bit-equal to the first."""
+    from ray_tpu_torch.ops import (decode_attention,
+                                   decode_attention_reference,
+                                   paged_decode_attention)
+    from ray_tpu_torch.ops.decode_attention import split_plan
+
+    kh, page = 2, 16
+    lengths = [0, 1, 15, 16, 17, 31, 32, 33, 64, 65, s - 1, s]
+    b, h = len(lengths), g * kh
+    plan = split_plan(b, kh, s)
+    assert 64 % plan.rows_for(64) == 0     # 64 ends on a split edge
+    q, k, v = (_randn((b, h, d), dtype, 10 + g),
+               _randn((b, kh, s, d), dtype, 11), _randn((b, kh, s, d),
+                                                        dtype, 12))
+    lens = torch.tensor(lengths, dtype=torch.int32, device=card)
+    want = decode_attention_reference(q, k, v, lens)
+    kp, vp = k.clone(), v.clone()
+    for i, n in enumerate(lengths):
+        kp[i, :, n:] = float("nan")
+        vp[i, :, n:] = float("nan")
+    ident = torch.arange(b * (s // page), dtype=torch.int32,
+                         device=card).reshape(b, -1)
+    got = decode_attention(q, kp, vp, lens, layout="bksd")
+    again = decode_attention(q, kp, vp, lens, layout="bksd")
+    paged = paged_decode_attention(q, kp, vp, ident, lens, page_size=page)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and torch.isfinite(got).all()
+    assert got[0].abs().max().item() == 0.0
+    assert torch.equal(got, again)
+    assert torch.equal(paged, got)
+    tol = PAGED_TOL[dtype] if dtype == torch.float32 else TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                               atol=tol)
+
+
 def test_paged_decode_refuses_what_it_cannot_run(card):
     from ray_tpu_torch.ops import paged_decode_attention
 
@@ -216,6 +262,37 @@ def test_qk_rope_kernel(card, dtype, b, s, h, kh, d):
     pos = (torch.arange(s, device=card)[None]
            + 500 * torch.arange(b, device=card)[:, None]).to(torch.int32)
     qr, kr = fused_qk_rope(q, k, pos, 500000.0)
+    rtol, atol = ((1e-5, 1e-6) if dtype == torch.float32 else (2e-2, 2e-2))
+    torch.testing.assert_close(qr.float(),
+                               apply_rope(q, pos, 500000.0).float(),
+                               rtol=rtol, atol=atol)
+    torch.testing.assert_close(kr.float(),
+                               apply_rope(k, pos, 500000.0).float(),
+                               rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,kh,d,pos0", [
+    (1, 1, 32, 8, 128, 511),        # B=1 decode
+    (1, 2048, 32, 8, 128, 0),       # phase 8's shape: pairs of heads
+    (1, 2048, 32, 8, 128, -2047),   # the backward's negative positions
+    (2, 2200, 11, 3, 128, 0),       # a head pair of a q and a k head
+    (3, 5, 7, 5, 64, 9),            # odd head counts, one head a thread
+    (2, 7, 4, 1, 24, 3)])           # D/2 not a multiple of 8
+def test_qk_rope_kernel_layouts(card, dtype, b, s, h, kh, d, pos0):
+    """The RoPE kernel's thread layouts (token, head or pair of heads,
+    chunk of frequencies) against the plain version: a single token, the
+    training shape at positions 0..2047 and -2047..0, a pair that holds a
+    q and a k head, odd head counts, and a head_dim whose half takes
+    scalar chunks."""
+    from ray_tpu_torch.ops import apply_rope, fused_qk_rope
+
+    q, k = _randn((b, s, h, d), dtype, 16), _randn((b, s, kh, d), dtype, 17)
+    pos = (pos0 + torch.arange(s, device=card)[None]
+           + 64 * torch.arange(b, device=card)[:, None]).to(torch.int32)
+    n0 = fused_qk_rope.launches
+    qr, kr = fused_qk_rope(q, k, pos, 500000.0)
+    assert fused_qk_rope.launches == n0 + 1
     rtol, atol = ((1e-5, 1e-6) if dtype == torch.float32 else (2e-2, 2e-2))
     torch.testing.assert_close(qr.float(),
                                apply_rope(q, pos, 500000.0).float(),

@@ -196,3 +196,37 @@ def test_llama_paged_glue_matches_unpaged(page):
         tok = outs["paged"][:, -1].argmax(-1)[:, None]
         assert torch.equal(tok, outs["generic"][:, -1].argmax(-1)[:, None])
     assert torch.equal(caches["paged"]["k"], caches["decode"]["k"])
+
+
+@pytest.mark.parametrize("b,kh,s", [(8, 8, 512), (8, 8, 528), (8, 8, 4096),
+                                    (1, 8, 4096), (6, 4, 300), (2, 2, 336),
+                                    (64, 8, 2048), (3, 1, 40)])
+@pytest.mark.parametrize("page", [1, 8, 16, 48])
+def test_split_plan_invariants(b, kh, s, page):
+    """The decode kernels' split plan (``ops/decode_attention.split_plan``):
+    a cluster of at most 8 CTAs (a power of two), split rows a multiple of
+    lcm(16, page), S covered; each slot's own split (``rows_for``, what the
+    kernel computes from the slot's length) is a granule multiple that
+    covers the length and stays inside the plan; a contiguous cache and
+    its identity-table paged read get the same plan where the page divides
+    the granule of 16."""
+    from ray_tpu_torch.ops.decode_attention import split_plan
+
+    s = -(-s // page) * page            # a paged pool holds whole pages
+    plan = split_plan(b, kh, s, page)
+    assert plan.n_split in (1, 2, 4, 8)
+    assert plan.granule == np.lcm(16, page)
+    assert plan.rows % plan.granule == 0
+    assert plan.n_split * plan.rows >= s
+    for length in sorted({0, 1, 15, 16, 17, 63, 64, 65, s // 2, s - 1, s}):
+        if not 0 <= length <= s:
+            continue
+        rows = plan.rows_for(length)
+        assert rows % plan.granule == 0 and rows <= plan.rows
+        assert plan.n_split * rows >= length
+        if length:
+            # The splits that hold rows: at most one of them is partial.
+            used = -(-length // rows)
+            assert used <= plan.n_split and (used - 1) * rows < length
+    if 16 % page == 0:
+        assert split_plan(b, kh, s) == plan
