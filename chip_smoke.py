@@ -2,7 +2,7 @@
 """Run the PyTorch/CUDA port (``ray_tpu_torch``) end to end on one CUDA
 card and check it.
 
-    python3 chip_smoke.py              # phases 1-8, the smoke
+    python3 chip_smoke.py              # phases 1-9, the smoke
     python3 chip_smoke.py --spec-ab    # phases 1-2, then speculation off
                                        # against on (bf16), no result line
     python3 chip_smoke.py --flash [DIR]     # phases 1-2, the flash kernels
@@ -54,6 +54,22 @@ script exits non-zero without printing its last line:
    kernel runs, the contiguous one does not; (b) paged decode,
    speculation, chunked prefill and int8 weights all on, with repetitive,
    long and short prompts — speculation and chunked prefill both run.
+9. The engine tier, full-depth Llama-3-8B: (a) bf16, one params tree
+   shared by every engine: a prefill-role and a decode-role engine take
+   phase 5's warm-up and 16 prompts one at a time through
+   ``prefill_remote`` -> ``install_remote``, greedy tokens identical to a
+   colocated engine's, the chain hashes checked, the prefill side
+   launching no decode kernel and the decode side one a layer and step,
+   one ``kv_export`` sync a handoff; the handoff's pages, bytes and
+   milliseconds (client-side, and export / host / install re-run at each
+   request's page count); the 16 requests again from 8 threads (token
+   counts); the sequential pass again with ``paged_decode=True`` on both
+   sides. (b) bf16: two fleet engines sharing a ``LocalKVPageStore``, the
+   first spilling evicted prefix blocks, the second pulling them, tokens
+   identical to a fleet-off engine's that reuses the same prefix from its
+   own cache; spilled and pulled blocks, no rejects, pull ms a page. (c)
+   f32: a one-slot engine where a priority-1 arrival parks a long
+   priority-0 request; both finish with their solo runs' tokens.
 8. Training, after the engines are gone: full-depth Llama-3-8B in bf16
    (random weights from a seed), ``spmd.init_train_state`` ->
    ``make_train_step(default_optimizer(lr=1e-4, warmup=1))``, 5 steps on
@@ -66,10 +82,13 @@ script exits non-zero without printing its last line:
    phase 3 (the flash kernels at phase 8's training shape, with their
    TFLOP/s, share of the bound and, for the backward, each of its three
    kernels' device time); the decode kernels also at S=4096 and at phase
-   5's slot lengths, RoPE also at phase 8's shape; then the host
-   cost of the fused ops' autograd ``Function``. The ``kernels`` JSON
-   line (phase 7a's launches for the paged kernel, phase 8's for the
-   flash kernels) is printed just before the last line.
+   5's slot lengths; RMSNorm, RMSNorm+residual, RoPE and SwiGLU also at
+   phase 8's shapes, beside their plain versions and launches a step;
+   then the host cost of the fused ops' autograd
+   ``Function``. The ``kernels`` JSON line (phase 7a's launches for the
+   paged kernel, phase 8's for the flash kernels, and each kernel's
+   launches over phase 9 as ``launches_phase9``) is printed just before
+   the last line.
 
 The last line is ``{"ok": true, "device": {...}}``. Needs one card; exits
 non-zero at once without one.
@@ -921,10 +940,27 @@ def decode_breakdown(eng, smi, chunks=3):
             host.append(time.perf_counter() - t0)
             torch.cuda.synchronize()
             wall.append(time.perf_counter() - t0)
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            chunk()
-            torch.cuda.synchronize()
+        # The wrappers' own counts say how many decode kernels the chunk
+        # launched; the profiler's records say which kernels ran. CUPTI
+        # may drop a record now and then (one decode kernel of 256 in a
+        # chunk, one RMSNorm of 65 in a training step), so a trace that
+        # holds fewer decode records than launches is taken again.
+        for attempt in range(1, 4):
+            before = read_counts()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                chunk()
+                torch.cuda.synchronize()
+            after = read_counts()
+            launched = sum(after[n] - before[n] for n in
+                           ("decode_attention", "paged_decode_attention"))
+            recorded = sum(ev.device_type == DeviceType.CUDA
+                           and "decode_kernel" in ev.name.lower()
+                           for ev in prof.events())
+            if recorded >= launched or recorded == 0:
+                break
+            log(f"  decode breakdown trace {attempt}: {recorded} decode "
+                f"kernel records for {launched} launches; tracing again")
     groups = {"port kernels": 0.0, "matmul": 0.0, "other": 0.0}
     others = {}
     ours = ("decode_kernel", "rms_kernel", "rope_kernel", "swiglu_kernel")
@@ -962,16 +998,403 @@ def decode_breakdown(eng, smi, chunks=3):
     log("  largest 'other' kernels, ms/step: " + "; ".join(
         f"{n} {v / k / 1e3}" for n, v in top))
     per_step = {n: c / k for n, c in counts.items()}
-    log(f"  port kernel launches per step (profiler): {per_step}; kernels "
-        f"named *merge*: {merges}")
-    # One decode launch a layer (the splits merge inside it), no merge
-    # kernel; a profiler that recorded nothing proves nothing either way.
-    if busy > 0 and (per_step["decode_kernel"] != eng.cfg.n_layers
-                     or merges):
-        raise AssertionError(f"decode step: {per_step['decode_kernel']} "
-                             f"decode launches a step for "
-                             f"{eng.cfg.n_layers} layers, {merges} merge "
+    log(f"  port kernel launches per step (profiler): {per_step}; decode "
+        f"wrapper launches per step: {launched / k}; kernels named *merge*: "
+        f"{merges}")
+    # One decode launch a layer, by the wrappers' counts; the profiler's
+    # records of the same chunk hold one decode kernel per launch (the
+    # splits merge inside it) and no merge kernel. A profiler that
+    # recorded nothing proves nothing about the kernels either way.
+    if launched != eng.cfg.n_layers * k:
+        raise AssertionError(f"decode step: {launched / k} decode launches "
+                             f"a step for {eng.cfg.n_layers} layers")
+    if busy > 0 and (counts["decode_kernel"] != launched or merges):
+        raise AssertionError(f"decode step: {counts['decode_kernel']} decode "
+                             f"kernel records for {launched} launches in the "
+                             f"last of {attempt} traces, {merges} merge "
                              "kernels")
+
+
+# ---------------------------------------------------------------- phase 9
+
+def phase9_engine(cfg, params, label, smi, **knobs):
+    from ray_tpu_torch.serve.llm import LLMEngine
+
+    eng = LLMEngine(cfg, params, **dict(ENGINE_KW, **knobs))
+    log(f"{label} engine: knobs {knobs or 'none'}, "
+        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated; on "
+        f"{smi}")
+    return eng
+
+
+def zero_counts():
+    from ray_tpu_torch import ops
+
+    for fn in ops.KERNELS.values():
+        fn.launches = 0
+
+
+def read_counts():
+    from ray_tpu_torch import ops
+
+    return {name: fn.launches for name, fn in ops.KERNELS.items()}
+
+
+def add_counts(total, counts):
+    for name, n in counts.items():
+        total[name] = total.get(name, 0) + n
+
+
+def median(xs):
+    return sorted(xs)[len(xs) // 2]
+
+
+def handoff_split(pre, dec, n_pages, page=PAGE):
+    """One handoff's transfer re-run on the closed engines' loops and
+    caches at ``n_pages`` pages: ms of the export programs (to a stacked
+    tensor on the card), of the host fetch, and of the installs."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pages = [torch.stack(pre.loop.export_page(pre.cache, 0, i * page))
+             for i in range(n_pages)]
+    stacked = torch.stack(pages)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    host = stacked.cpu()
+    t2 = time.perf_counter()
+    for i in range(n_pages):
+        dec.loop.install_page(dec.cache, host[i, 0], host[i, 1], 0, i * page)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    return (t1 - t0) * 1e3, (t2 - t1) * 1e3, (t3 - t2) * 1e3
+
+
+def phase9a(cfg, params, smi, paged, want=None):
+    """9a, disaggregation: a prefill-role and a decode-role engine take
+    phase 5's warm-up and 16 prompts one at a time, in order, each through
+    prefill_remote -> install_remote; their greedy tokens must equal the
+    colocated engine's (``want``, made here when None). Launches are read
+    per side. Returns (colocated tokens, launches of the pair)."""
+    from ray_tpu_torch.serve.engine.kv_manager import chain_hashes
+
+    tag = "9a paged" if paged else "9a"
+    prompts, warmup = phase5_prompts(cfg.vocab_size)
+    n_new = 32
+    if want is None:
+        colo = phase9_engine(cfg, params, f"phase {tag} colocated", smi)
+        try:
+            want = [colo.generate(p, max_new_tokens=n_new,
+                                  timeout=600)["token_ids"]
+                    for p in [warmup] + prompts]
+        finally:
+            colo.close()
+    pre = phase9_engine(cfg, params, f"phase {tag} prefill", smi,
+                        role="prefill", paged_decode=paged)
+    dec = phase9_engine(cfg, params, f"phase {tag} decode", smi,
+                        role="decode", paged_decode=paged)
+    pair = {}
+    try:
+        zero_counts()
+        handoffs, pre_ms = [], []
+        for p in [warmup] + prompts:
+            t0 = time.perf_counter()
+            h = pre.prefill_remote(p, max_new_tokens=n_new, timeout=600)
+            pre_ms.append((time.perf_counter() - t0) * 1e3)
+            if not h.get("kv_handoff"):
+                raise AssertionError(f"phase {tag}: no handoff for a "
+                                     f"{len(p)}-token prompt")
+            if h["chain"] != chain_hashes(p, PAGE):
+                raise AssertionError(f"phase {tag}: handoff chain differs "
+                                     "from the prompt's")
+            handoffs.append(h)
+        pre_counts = read_counts()
+        add_counts(pair, pre_counts)
+        zero_counts()
+        got, inst_ms = [], []
+        for h in handoffs:
+            t0 = time.perf_counter()
+            got.append(dec.install_remote(h, timeout=600)["token_ids"])
+            inst_ms.append((time.perf_counter() - t0) * 1e3)
+        dec_counts = read_counts()
+        add_counts(pair, dec_counts)
+        pre_st, dec_st = pre.stats(), dec.stats()
+        if not paged:
+            # The same 16 requests from 8 client threads; token counts.
+            errors, lens = [], [None] * len(prompts)
+
+            def client(i):
+                try:
+                    for j in (i, i + 8):
+                        h = pre.prefill_remote(prompts[j],
+                                               max_new_tokens=n_new,
+                                               timeout=600)
+                        lens[j] = len(dec.install_remote(
+                            h, timeout=600)["token_ids"])
+                except BaseException as e:  # noqa: BLE001 — raised below
+                    errors.append(e)
+
+            zero_counts()
+            t0 = time.perf_counter()
+            threads = [threading.Thread(target=client, args=(i,))
+                       for i in range(8)]
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(timeout=900)
+            wall = time.perf_counter() - t0
+            add_counts(pair, read_counts())
+            if errors:
+                raise errors[0]
+            if lens != [n_new] * len(prompts):
+                raise AssertionError(f"phase 9a concurrent: token counts "
+                                     f"{lens}")
+            log(f"  phase 9a concurrent pass: 16 requests x {n_new} tokens "
+                f"from 8 threads in {wall} s ({16 * n_new / wall} tokens/s "
+                f"through the pair); on {smi}")
+    finally:
+        pre.close()
+        dec.close()
+    for i, (a, b) in enumerate(zip(want, got)):
+        if a != b:
+            raise AssertionError(f"phase {tag} request {i}: tokens differ "
+                                 f"from the colocated engine's: {b} vs {a}")
+    kernel = "paged_decode_attention" if paged else "decode_attention"
+    other = "decode_attention" if paged else "paged_decode_attention"
+    require_launches(f"phase {tag} prefill side", pre_counts,
+                     ("decode_attention", "paged_decode_attention")
+                     + TRAIN_ONLY)
+    require_launches(f"phase {tag} decode side", dec_counts,
+                     (other,) + TRAIN_ONLY)
+    steps = dec_st["dispatches"]["decode"] * dec.loop.chunk
+    if dec_counts[kernel] != cfg.n_layers * steps:
+        raise AssertionError(f"phase {tag}: {dec_counts[kernel]} {kernel} "
+                             f"launches for {steps} decode steps of "
+                             f"{cfg.n_layers} layers")
+    n_pages = [-(-len(p) // PAGE) for p in [warmup] + prompts]
+    page_bytes = (cfg.n_layers * cfg.n_kv_heads * PAGE * cfg.head_dim
+                  * cfg.dtype.itemsize * 2)
+    if (pre_st["dispatches"]["export_page"] != sum(n_pages)
+            or dec_st["dispatches"]["install_page"] != sum(n_pages)
+            or pre_st["host_syncs"]["kv_export"] != len(n_pages)):
+        raise AssertionError(f"phase {tag}: pages {sum(n_pages)}, exports "
+                             f"{pre_st['dispatches']}, installs "
+                             f"{dec_st['dispatches']}, syncs "
+                             f"{pre_st['host_syncs']}")
+    log(f"  phase {tag}: {len(n_pages)} handoffs token-identical to the "
+        f"colocated engine; export_page {pre_st['dispatches']['export_page']}"
+        f", install_page {dec_st['dispatches']['install_page']}, kv_export "
+        f"syncs {pre_st['host_syncs']['kv_export']} (one a handoff); pages "
+        f"a handoff {min(n_pages)}-{max(n_pages)} of {page_bytes} bytes (K "
+        f"and V), median {median(n_pages) * page_bytes} bytes; decode "
+        f"launches {dec_counts[kernel]} = {cfg.n_layers} layers x {steps} "
+        f"steps; on {smi}")
+    log(f"  phase {tag} client ms per request, median: prefill_remote "
+        f"{median(pre_ms)}, install_remote (install + {n_new - 1} decoded "
+        f"tokens) {median(inst_ms)}; on {smi}")
+    if not paged:
+        split = [handoff_split(pre, dec, n) for n in n_pages]
+        log(f"  phase 9a handoff transfer at each request's page count, "
+            f"median ms: export {median([x[0] for x in split])}, host "
+            f"{median([x[1] for x in split])}, install "
+            f"{median([x[2] for x in split])} (max pages {max(n_pages)}: "
+            f"{[round(v, 4) for v in handoff_split(pre, dec, max(n_pages))]})"
+            f"; on {smi}")
+    return want, pair
+
+
+def phase9b(cfg, params, smi):
+    """9b, the fleet tier: engine F1 serves A_i (a 32-token prefix X_i and
+    its own tail) then two disjoint prompts that evict and spill A_i's
+    blocks; a fresh engine F2 serves B_i (X_i and another tail), pulling
+    X_i's two blocks from the shared store. The fleet-off engine C serves
+    A_i then B_i, a local prefix hit at the same depth: B_i's suffix
+    prefill reads bitwise the same rows either way, so the tokens must be
+    identical. Returns the launches of F1 and F2."""
+    from ray_tpu_torch.serve.engine import kv_fleet
+    from ray_tpu_torch.serve.engine.kv_manager import chain_hashes
+
+    rng = np.random.RandomState(9)
+    v = cfg.vocab_size
+    sets = []
+    for _ in range(3):
+        x = rng.randint(0, v, 32).tolist()
+        sets.append((x + rng.randint(0, v, 8).tolist(),
+                     x + rng.randint(0, v, 12).tolist(),
+                     [rng.randint(0, v, 40).tolist() for _ in range(2)]))
+    n_new = 24
+    knobs = dict(max_batch=2)
+    store = kv_fleet.LocalKVPageStore()
+    c = phase9_engine(cfg, params, "phase 9b fleet-off", smi, **knobs)
+    try:
+        want = [(c.generate(a, max_new_tokens=n_new,
+                            timeout=600)["token_ids"],
+                 c.generate(b, max_new_tokens=n_new,
+                            timeout=600)["token_ids"])
+                for a, b, _ in sets]
+        c_hits = c.stats()["prefix_hits"]
+    finally:
+        c.close()
+    fleet = dict(knobs, kv_fleet_min_prefix_blocks=0, kv_fleet_store=store)
+    f1 = phase9_engine(cfg, params, "phase 9b fleet F1", smi, **fleet)
+    f2 = phase9_engine(cfg, params, "phase 9b fleet F2", smi, **fleet)
+    counts = {}
+    try:
+        zero_counts()
+        for i, (a, b, evictors) in enumerate(sets):
+            got_a = f1.generate(a, max_new_tokens=n_new,
+                                timeout=600)["token_ids"]
+            for e in evictors:
+                f1.generate(e, max_new_tokens=8, timeout=600)
+            oid = kv_fleet.page_object_id(f1._fleet_ns,
+                                          chain_hashes(a, PAGE)[1])
+            deadline = time.time() + 60
+            while not store.contains(oid):
+                if time.time() > deadline:
+                    raise AssertionError("phase 9b: A's blocks never "
+                                         f"spilled: {store.stats()}")
+                time.sleep(0.01)
+            got_b = f2.generate(b, max_new_tokens=n_new,
+                                timeout=600)["token_ids"]
+            if (got_a, got_b) != want[i]:
+                raise AssertionError(f"phase 9b set {i}: fleet tokens "
+                                     f"{got_a} / {got_b} vs fleet-off "
+                                     f"{want[i]}")
+        add_counts(counts, read_counts())
+        st1, st2 = f1.stats(), f2.stats()
+    finally:
+        f1.close()
+        f2.close()
+    if not (st1["kv_fleet_spilled_blocks"] > 0
+            and st2["kv_fleet_pulled_blocks"] > 0
+            and st1["kv_fleet_rejects"] == st2["kv_fleet_rejects"] == 0):
+        raise AssertionError(f"phase 9b: spilled "
+                             f"{st1['kv_fleet_spilled_blocks']}, pulled "
+                             f"{st2['kv_fleet_pulled_blocks']}, rejects "
+                             f"{st1['kv_fleet_rejects']}/"
+                             f"{st2['kv_fleet_rejects']}")
+    require_launches("phase 9b", counts,
+                     ("paged_decode_attention",) + TRAIN_ONLY)
+    # The pull re-run on the closed F2: store get + unpack a page (host),
+    # then the install of a two-page run (to the card, synchronized).
+    chain = chain_hashes(sets[0][1], PAGE)[:2]
+    get_ms, inst_ms = [], []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        pages = [kv_fleet.unpack_page(store.get(
+            kv_fleet.page_object_id(f2._fleet_ns, h))) for h in chain]
+        t1 = time.perf_counter()
+        f2.loop.install_page(
+            f2.cache, torch.cat([p_["k_page"] for p_ in pages], dim=2),
+            torch.cat([p_["v_page"] for p_ in pages], dim=2), 0, 0)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        get_ms.append((t1 - t0) * 1e3 / 2)
+        inst_ms.append((t2 - t1) * 1e3 / 2)
+    log(f"  phase 9b: {len(sets)} pulls token-identical to the fleet-off "
+        f"engine (its local prefix hits {c_hits}); spilled "
+        f"{st1['kv_fleet_spilled_blocks']} blocks (kv_spill syncs "
+        f"{st1['host_syncs']['kv_spill']}), pulled "
+        f"{st2['kv_fleet_pulled_blocks']} in {st2['kv_fleet_hits']} hits, "
+        f"rejects 0; store {store.stats()}; on {smi}")
+    log(f"  phase 9b pull ms per page, median of 5: store get + unpack "
+        f"{median(get_ms)} (host), install {median(inst_ms)} (to the card, "
+        f"in a two-page run); the engine's probe "
+        f"kv_fleet_pull_ms_per_page {st2['kv_fleet_pull_ms_per_page']} "
+        f"(put + get + unpack), prefill ms per block "
+        f"{st2['kv_fleet_prefill_ms_per_block']}, crossover "
+        f"{st2['kv_pull_vs_recompute_crossover_blocks']} blocks; on {smi}")
+    return counts
+
+
+def phase9c(smi):
+    """9c, preemption, in f32: a one-slot engine runs a long priority-0
+    request, a priority-1 arrival parks it; both finish with the tokens
+    each gives alone. f32 because the resume re-prefills rows the solo
+    run decoded: bf16 rounding of that other path can flip a greedy token
+    of random weights, f32's does not in practice (ray_tpu's own test
+    holds the identity in f32). Returns the launches of the run."""
+    import gc
+
+    from ray_tpu_torch.models import llama
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(llama.LLAMA3_8B, fused_ops=True,
+                              use_decode_kernel=True, dtype=torch.float32)
+    params = llama.init_params(cfg, _gen(12))
+    eng = phase9_engine(cfg, params, "phase 9c f32", smi, max_batch=1)
+    rng = np.random.RandomState(10)
+    lo_p = rng.randint(0, cfg.vocab_size, 40).tolist()
+    hi_p = rng.randint(0, cfg.vocab_size, 24).tolist()
+    try:
+        solo_lo = eng.generate(lo_p, max_new_tokens=160,
+                               timeout=600)["token_ids"]
+        solo_hi = eng.generate(hi_p, max_new_tokens=16,
+                               timeout=600)["token_ids"]
+        zero_counts()
+        t0 = time.perf_counter()
+        lo = eng._make_request(lo_p, 160, None, priority=0)
+        eng._queue.put(lo)
+        deadline = time.time() + 600
+        while not any(r is lo for r in eng.scheduler.active):
+            if time.time() > deadline:
+                raise AssertionError("phase 9c: lo never activated")
+            time.sleep(0.001)
+        hi = eng._make_request(hi_p, 16, None, priority=1)
+        eng._queue.put(hi)
+        out_hi = hi.future.result(timeout=600)
+        out_lo = lo.future.result(timeout=600)
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        st = eng.stats()
+    finally:
+        eng.close()
+        del eng, params
+        gc.collect()
+        torch.cuda.empty_cache()
+    if out_lo["token_ids"] != solo_lo or out_hi["token_ids"] != solo_hi:
+        raise AssertionError(f"phase 9c: preempted tokens differ from the "
+                             f"solo runs: {out_lo['token_ids']} vs "
+                             f"{solo_lo}; {out_hi['token_ids']} vs {solo_hi}")
+    if st["preempts"] < 1 or st["resumes"] < 1 or st["parked"]:
+        raise AssertionError(f"phase 9c: preempts {st['preempts']}, resumes "
+                             f"{st['resumes']}, parked {st['parked']}")
+    require_launches("phase 9c", counts,
+                     ("paged_decode_attention",) + TRAIN_ONLY)
+    log(f"  phase 9c: Llama-3-8B f32, one slot: preempts {st['preempts']}, "
+        f"resumes {st['resumes']}, the parked request's {len(solo_lo)} "
+        f"tokens and the preemptor's {len(solo_hi)} identical to their solo "
+        f"runs (resumed result 'preempted' {out_lo.get('preempted')}); the "
+        f"pair took {wall} s; on {smi}")
+    return counts
+
+
+def phase_engine_tier(smi):
+    """Phase 9: the engine tier on full-depth Llama-3-8B (9a, 9b: bf16,
+    one params tree shared by every engine; 9c: f32). Returns the kernels'
+    launches over the phase's engines."""
+    import gc
+
+    from ray_tpu_torch.models import llama
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(llama.LLAMA3_8B, fused_ops=True,
+                              use_decode_kernel=True)
+    t0 = time.perf_counter()
+    params = llama.init_params(cfg, _gen(ENGINE_KW["seed"]))
+    launches = {}
+    want, pair = phase9a(cfg, params, smi, paged=False)
+    add_counts(launches, pair)
+    _, pair = phase9a(cfg, params, smi, paged=True, want=want)
+    add_counts(launches, pair)
+    add_counts(launches, phase9b(cfg, params, smi))
+    del params
+    add_counts(launches, phase9c(smi))
+    require_launches("phase 9", launches, TRAIN_ONLY)
+    log(f"phase 9 engine tier: {time.perf_counter() - t0:.1f} s, kernel "
+        f"launches {launches}; on {smi}")
+    return launches
 
 
 # ---------------------------------------------------------------- phase 8
@@ -996,7 +1419,7 @@ def train_breakdown(prof):
 
     groups = {g: 0.0 for g, _ in TRAIN_GROUPS}
     groups["other"] = 0.0
-    others = {}
+    others, fused = {}, {}
     for ev in prof.events():
         if ev.device_type != DeviceType.CUDA or ev.is_user_annotation:
             continue
@@ -1006,6 +1429,13 @@ def train_breakdown(prof):
         groups[group] += us
         if group == "other":
             others[ev.name[:60]] = others.get(ev.name[:60], 0.0) + us
+        if group == "fused kernels":
+            # The glue group by kernel instantiation: (launches, us).
+            key = ev.name[:70]
+            n_, t_ = fused.get(key, (0, 0.0))
+            fused[key] = (n_ + 1, t_ + us)
+    log("  phase 8 fused kernels by instantiation (launches, ms): " + "; ".join(
+        f"{k_} ({n_}, {t_ / 1e3})" for k_, (n_, t_) in sorted(fused.items())))
     return groups, others
 
 
@@ -1228,7 +1658,7 @@ def row_ms(rows, name):
     return next(r["ms"] for r in rows if r["name"] == name)
 
 
-def phase_timing(launches):
+def phase_timing(launches, launches_phase9):
     from ray_tpu_torch.ops import (KERNELS, apply_rope,
                                    decode_attention_reference,
                                    paged_decode_attention_reference,
@@ -1251,7 +1681,8 @@ def phase_timing(launches):
         row = {"name": name, "route": "cuda",
                "source": KERNEL_META[name][0],
                "replaces": KERNEL_META[name][1],
-               "launches": launches[name], "max_abs_err": err,
+               "launches": launches[name],
+               "launches_phase9": launches_phase9[name], "max_abs_err": err,
                "ms": timer(kernel), "plain_ms": timer(plain),
                "bound_ms": bound, "bound_by": by,
                "library_ms": timer(library) if library else None,
@@ -1325,8 +1756,63 @@ def phase_timing(launches):
           lambda: swiglu_reference(g, up), None,
           3 * g.numel() * it, 5 * g.numel(), F32_SIMT_FLOPS)
     del x, r, g, up
+    glue_train_times(timer, floor)
     flash_timing(entry, timer)
     return rows
+
+
+# Launches a training step (phase 8's check) of the glue kernels.
+TRAIN_GLUE_LAUNCHES = {"rms_norm": 65, "rms_norm_residual": 64, "qk_rope": 96,
+                       "swiglu": 64}
+
+
+def glue_train_times(timer, floor):
+    """Rows 3b, 4b, 5b and 6b: RMSNorm, RMSNorm+residual, RoPE and SwiGLU
+    at phase 8's shapes ([1,2048,4096]; q [1,2048,32,128] and k
+    [1,2048,8,128]; SwiGLU [1,2048,14336]), bf16, each beside its bytes
+    bound (each input read once, each output written once), its plain
+    version, the launch floor and its launches a training step; RMSNorm
+    also beside F.rms_norm."""
+    from ray_tpu_torch.ops import (KERNELS, apply_rope, rms_norm,
+                                   swiglu_reference)
+
+    dt, it = torch.bfloat16, 2
+    n, dm, ff = TRAIN_B * TRAIN_S, 4096, 14336
+    x = _randn((TRAIN_B, TRAIN_S, dm), dt, 60)
+    r = _randn((TRAIN_B, TRAIN_S, dm), dt, 61)
+    sc = _randn((dm,), dt, 62, scale=0.2)
+    w = (1.0 + sc.float()).to(dt)
+    g = _randn((TRAIN_B, TRAIN_S, ff), dt, 63)
+    up = _randn((TRAIN_B, TRAIN_S, ff), dt, 64)
+    q = _randn((TRAIN_B, TRAIN_S, 32, 128), dt, 65)
+    k = _randn((TRAIN_B, TRAIN_S, 8, 128), dt, 66)
+    pos = torch.arange(TRAIN_S, device="cuda", dtype=torch.int32).expand(
+        TRAIN_B, TRAIN_S).contiguous()
+    for row, name, fn, plain, lib, nbytes in (
+            ("3b", "rms_norm", lambda: KERNELS["rms_norm"](x, sc, 1e-5),
+             lambda: rms_norm(x, sc, 1e-5),
+             lambda: F.rms_norm(x, (dm,), weight=w, eps=1e-5),
+             (2 * n * dm + dm) * it),
+            ("4b", "rms_norm_residual",
+             lambda: KERNELS["rms_norm_residual"](x, r, sc, 1e-5),
+             lambda: (rms_norm(x + r, sc, 1e-5), x + r), None,
+             (4 * n * dm + dm) * it),
+            ("5b", "qk_rope",
+             lambda: KERNELS["qk_rope"](q, k, pos, 500000.0),
+             lambda: (apply_rope(q, pos, 500000.0),
+                      apply_rope(k, pos, 500000.0)), None,
+             2 * (q.numel() + k.numel()) * it + pos.numel() * 4 + 64 * 4),
+            ("6b", "swiglu", lambda: KERNELS["swiglu"](g, up),
+             lambda: swiglu_reference(g, up), None, 3 * n * ff * it)):
+        ms = timer(fn)
+        bound = nbytes / HBM_BYTES_S * 1e3
+        lib_txt = f", F.rms_norm {timer(lib)} ms" if lib else ""
+        log(f"  row {row} {name} at phase 8's shape: {ms} ms, bytes bound "
+            f"{bound} ms ({bound / ms} of it), plain {timer(plain)} ms"
+            f"{lib_txt}, launch floor {floor} ms; "
+            f"{TRAIN_GLUE_LAUNCHES[name]} launches a training step, "
+            f"{TRAIN_GLUE_LAUNCHES[name] * ms} ms a step at this time")
+    del x, r, g, up, q, k
 
 
 def sdpa_calls(q, k, v, dout):
@@ -1602,10 +2088,11 @@ def main() -> int:
     paged = phase_paged_engine(smi)
     launches["paged_decode_attention"] = paged["paged_decode_attention"]
     phase_all_knobs(smi)
+    tier = phase_engine_tier(smi)
     train = phase_train(smi)
     for kernel in TRAIN_ONLY:
         launches[kernel] = train[kernel]
-    rows = phase_timing(launches)
+    rows = phase_timing(launches, tier)
     fused_apply_cost(smi)
     log(f"total {time.perf_counter() - t_start:.1f} s on {smi}")
     print(json.dumps({"kernels": rows}), flush=True)

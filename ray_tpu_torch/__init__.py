@@ -10,7 +10,8 @@ Ported so far: the serving engine's device path — ``ops`` (norm, rotary,
 attention, decode attention contiguous and paged, the fused per-layer
 glue), ``models.llama`` and ``models.quant`` (int8 weights),
 ``serve.engine`` (continuous batching, prefix cache, chunked prefill,
-speculative decoding) and the ``serve.llm.LLMEngine`` facade — and the
+speculative decoding, prefill/decode roles, the fleet KV page tier,
+priority preemption) and the ``serve.llm.LLMEngine`` facade — and the
 single-card training step: ``parallel.spmd`` (``init_train_state``,
 ``make_train_step``, ``default_optimizer``) over ``models.llama.loss_fn``
 (remat, chunked cross-entropy), causal flash attention forward and

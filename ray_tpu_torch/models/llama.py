@@ -18,8 +18,11 @@ without its multi-chip ring branch.
 rotary and SwiGLU through the fused ops, ``paged_decode`` routes
 single-token decode attention through ``paged_decode_attention`` (a
 slot-identity block table over the batched cache) and, without it,
-``use_decode_kernel`` through ``decode_attention``. Each dispatches on the
-tensors' device (kernel on the card, plain version on the CPU). Every
+``use_decode_kernel`` through ``decode_attention``, both only for the
+shapes ``ops.use_decode_kernel`` admits (on the card, those its kernels
+take; others take the masked ``causal_attention``, as ``ray_tpu`` does
+off the TPU). Each dispatches on the tensors' device (kernel on the card,
+plain version on the CPU). Every
 weight product goes through ``_wdot``, which also takes the int8
 ``QuantTensor`` weights of ``models/quant.py``.
 
@@ -47,7 +50,8 @@ from ray_tpu_torch.models.quant import _BLOCK_CONTRACT, QuantTensor
 from ray_tpu_torch.ops import (apply_rope, causal_attention, decode_attention,
                                full_causal_attention, fused_qk_rope,
                                fused_rms_norm, fused_rms_norm_residual,
-                               fused_swiglu, paged_decode_attention, rms_norm)
+                               fused_swiglu, paged_decode_attention, rms_norm,
+                               use_decode_kernel)
 
 Params = Dict[str, Any]
 CacheIndex = Union[int, torch.Tensor]
@@ -399,14 +403,16 @@ def _block(x, layer, positions, cfg: LlamaConfig, cache_kv=None,
         _write_kv(ck, k, cache_index)
         _write_kv(cv, v, cache_index)
         new_kv = (ck, cv)
-        if t == 1 and cfg.paged_decode:
+        kernel_shape = t == 1 and use_decode_kernel(
+            x.device.type == "cuda", q.shape[3], q.shape[2], ck.shape[1])
+        if kernel_shape and cfg.paged_decode:
             # Paged decode step: the cache read in place as a pool of
             # decode_page-row pages through the slot-identity table.
             lengths = positions[:, 0] + 1
             attn = paged_decode_attention(
                 q[:, 0], ck, cv, block_table, lengths,
                 page_size=cfg.decode_page)[:, None]
-        elif t == 1 and cfg.use_decode_kernel:
+        elif kernel_shape and cfg.use_decode_kernel:
             # Serving decode step: one query per slot over that slot's
             # first index+1 rows, streamed from the native layout.
             lengths = positions[:, 0] + 1

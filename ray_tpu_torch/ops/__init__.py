@@ -46,7 +46,7 @@ from ray_tpu_torch.ops.attention import (blockwise_attention,
                                          causal_attention,
                                          full_causal_attention,
                                          online_softmax_update, repeat_kv,
-                                         use_fused_kernel)
+                                         use_decode_kernel, use_fused_kernel)
 from ray_tpu_torch.ops.decode_attention import (decode_attention,
                                                 decode_attention_reference)
 from ray_tpu_torch.ops.flash_attention import (

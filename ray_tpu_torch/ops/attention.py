@@ -132,6 +132,21 @@ def use_fused_kernel(on_card: bool, standard: bool, sq: int, d: int) -> bool:
             and d <= 128)
 
 
+def use_decode_kernel(on_card: bool, d: int, h: int, kh: int) -> bool:
+    """The decode dispatch gate (contiguous and paged): True when a
+    single-token step may go through the decode wrappers. On the card,
+    the shapes its decode kernels take: head_dim 64 or 128 and 1, 2, 4 or
+    8 query heads per KV head. On the CPU every shape (the wrappers run
+    their plain versions there, which take any). ``ray_tpu``'s Pallas
+    kernel takes any width and group; its ``_block`` runs it only on the
+    TPU and elsewhere uses the masked ``causal_attention``, which the
+    shapes outside this gate take here too. This is a dispatch by shape,
+    not a fallback: a kernel that fails on a shape the gate admits
+    raises."""
+    return not on_card or (d in (64, 128) and h % kh == 0
+                           and h // kh in (1, 2, 4, 8))
+
+
 def full_causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           *, q_positions: Optional[torch.Tensor] = None,
                           kv_positions: Optional[torch.Tensor] = None,

@@ -36,8 +36,13 @@ below max_len - 1, ends inside it. ``ray_tpu`` relies on XLA clamping
 never firing; here the per-slot index bound is asserted on the device
 (``forward_with_cache``).
 
-Not ported yet (ROADMAP): KV page export/install (the prefill/decode
-roles and the fleet tier use it).
+KV page transfer (``kv_page`` P > 0, built when the engine has a
+prefill/decode role or the fleet tier on): ``export_page`` copies one
+P-row page of a slot out of the cache, ``install_page`` writes a page, or
+a run of pages stacked along the row axis, back in place. ``ray_tpu``'s
+``dynamic_slice``/``dynamic_update_slice`` clamp where torch slicing
+would truncate, so both clamps are written out and rows land where
+``ray_tpu`` lands them.
 """
 
 from __future__ import annotations
@@ -54,7 +59,7 @@ class DecodeLoop:
 
     def __init__(self, cfg: llama.LlamaConfig, params: llama.Params, *,
                  max_len: int, chunk: int = 8, spec_window: int = 1,
-                 spec_chunk: int = 0):
+                 spec_chunk: int = 0, kv_page: int = 0):
         self.cfg = cfg
         self.params = params
         self.layers = llama.layer_views(params)
@@ -66,9 +71,13 @@ class DecodeLoop:
         # (chunk // window), as in ray_tpu.
         self.spec_chunk = (max(1, int(spec_chunk)) if spec_chunk
                            else max(1, self.chunk // self.spec_window))
+        # Rows of one exported or installed KV page (0 = no transfer).
+        self.kv_page = max(0, int(kv_page))
         # Calls per program (a prefill chunk, a decode chunk, a verify
-        # chunk), for the engine's stats.
+        # chunk, a page export or install), for the engine's stats.
         self.dispatches = {"prefill": 0, "decode": 0, "verify": 0}
+        if self.kv_page:
+            self.dispatches.update(export_page=0, install_page=0)
 
     @property
     def scratch_rows(self) -> int:
@@ -221,3 +230,48 @@ class DecodeLoop:
             counts.append(m)
         return (torch.stack(targets, dim=1), torch.stack(counts, dim=1),
                 ln, dn, cache)
+
+    # ------------------------------------------------------ KV transfer
+
+    def _page_start(self, cache: Dict[str, torch.Tensor], slot: int,
+                    start: int) -> int:
+        """``ray_tpu``'s ``jnp.clip(start, 0, S - P)``; the slot is bounded
+        by contract there and checked here."""
+        if not self.kv_page:
+            raise RuntimeError("DecodeLoop built without KV transfer "
+                               "(kv_page=0)")
+        n_slots, s = cache["k"].shape[1], cache["k"].shape[3]
+        if not 0 <= slot < n_slots:
+            raise IndexError(f"slot {slot} outside {n_slots} cache slots")
+        return min(max(int(start), 0), s - self.kv_page)
+
+    @torch.no_grad()
+    def export_page(self, cache: Dict[str, torch.Tensor], slot: int,
+                    start: int):
+        """-> (k_page, v_page), each [L, KH, P, D]: copies of rows
+        [start, start + P) of ``slot``, start clamped into the cache."""
+        start = self._page_start(cache, slot, start)
+        self.dispatches["export_page"] += 1
+        return tuple(cache[key][:, slot, :, start:start + self.kv_page]
+                     .clone() for key in ("k", "v"))
+
+    @torch.no_grad()
+    def install_page(self, cache: Dict[str, torch.Tensor],
+                     k_page: torch.Tensor, v_page: torch.Tensor, slot: int,
+                     start: int) -> Dict[str, torch.Tensor]:
+        """Write a page [L, KH, R, D] (R = P, or a run of pages stacked
+        along the row axis) into ``slot`` at rows [start, start + R), in
+        the cache's dtype, in place. ``start`` is clamped as
+        ``export_page``'s, then to S - R, as ``dynamic_update_slice``
+        clamps a run longer than one page."""
+        start = self._page_start(cache, slot, start)
+        s, rows = cache["k"].shape[3], k_page.shape[2]
+        if v_page.shape != k_page.shape or rows > s:
+            raise ValueError(f"pages {tuple(k_page.shape)}/"
+                             f"{tuple(v_page.shape)} for a {s}-row cache")
+        start = min(start, s - rows)
+        self.dispatches["install_page"] += 1
+        for key, page in (("k", k_page), ("v", v_page)):
+            dst = cache[key][:, slot, :, start:start + rows]
+            dst.copy_(page.to(device=dst.device, dtype=dst.dtype))
+        return cache

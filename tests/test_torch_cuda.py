@@ -422,6 +422,124 @@ def test_engine_on_the_card_with_every_knob(card):
     assert stats["dispatches"]["prefill"] > 3
 
 
+@pytest.mark.parametrize("cfg_kw,eng_kw", [
+    ({}, {}),                                        # head_dim 16, G=2
+    (dict(fused_ops=True), {}),
+    ({}, dict(paged_decode=True)),
+    (dict(d_model=96, n_heads=6, n_kv_heads=2), {}),  # G=3
+    (dict(d_model=96, n_heads=6, n_kv_heads=2, fused_ops=True),
+     dict(paged_decode=True)),
+])
+def test_engine_at_shapes_the_decode_kernels_refuse(card, cfg_kw, eng_kw):
+    """The decode gate: head_dim 16 and G=3 are outside what the decode
+    kernels take, so their steps take the masked attention (0 decode
+    launches) and the engine serves the tokens of the port's CPU run on
+    the same weights; the fused kernels, where on, still run."""
+    from ray_tpu_torch import ops
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.serve.llm import LLMEngine
+
+    cfg = llama.tiny_config(max_seq_len=64, **cfg_kw)
+    params = llama.init_params(cfg, torch.Generator().manual_seed(2), "cpu")
+    on_card = {k: ({n: w.cuda() for n, w in v.items()}
+                   if isinstance(v, dict) else v.cuda())
+               for k, v in params.items()}
+    kw = dict(max_batch=2, max_len=64, prompt_buckets=[8, 16],
+              decode_chunk=4, **eng_kw)
+    prompts = ([5, 9, 3, 7], list(range(1, 20)), [2] * 9)
+    outs, launches = {}, None
+    for where, p in (("cpu", params), ("cuda", on_card)):
+        eng = LLMEngine(cfg, p, device=where, **kw)
+        try:
+            for fn in ops.KERNELS.values():
+                fn.launches = 0
+            outs[where] = [eng.generate(x, max_new_tokens=12)["token_ids"]
+                           for x in prompts]
+            if where == "cuda":
+                launches = {n: fn.launches for n, fn in ops.KERNELS.items()}
+        finally:
+            eng.close()
+    assert outs["cuda"] == outs["cpu"]
+    assert launches["decode_attention"] == 0
+    assert launches["paged_decode_attention"] == 0
+    fused = ("rms_norm", "rms_norm_residual", "qk_rope", "swiglu")
+    assert all((launches[n] > 0) == cfg.fused_ops for n in fused), launches
+
+
+def test_engine_roles_fleet_and_preemption_on_the_card(card):
+    """The engine tier at widths the kernels take (head_dim 64, G=2): a
+    prefill/decode pair and a fleet pull give the colocated engine's
+    tokens, and a parked request resumes with its solo tokens. f32: a
+    pull or a resume recomputes some rows by another path than the solo
+    run, which bf16 rounding would let flip a greedy token."""
+    import time
+
+    from ray_tpu_torch import ops
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.serve.engine.kv_fleet import LocalKVPageStore
+    from ray_tpu_torch.serve.llm import LLMEngine
+
+    cfg = llama.tiny_config(d_model=256, n_heads=4, n_kv_heads=2,
+                            d_ff=512, max_seq_len=96, fused_ops=True)
+    params = llama.init_params(cfg, torch.Generator("cuda").manual_seed(4))
+    kw = dict(max_batch=2, max_len=96, prompt_buckets=[8, 16, 32],
+              decode_chunk=4, prefix_block=8)
+    p1, p2 = list(range(1, 33)), list(range(100, 132))
+    colo = LLMEngine(cfg, params, **kw)
+    try:
+        want = {tuple(p): colo.generate(p, max_new_tokens=10)["token_ids"]
+                for p in (p1, p2)}
+        solo = colo.generate(p1, max_new_tokens=40)["token_ids"]
+    finally:
+        colo.close()
+    pre = LLMEngine(cfg, params, role="prefill", **kw)
+    dec = LLMEngine(cfg, params, role="decode", **kw)
+    try:
+        for fn in ops.KERNELS.values():
+            fn.launches = 0
+        for p in (p1, p2):
+            h = pre.prefill_remote(p, max_new_tokens=10)
+            assert dec.install_remote(h)["token_ids"] == want[tuple(p)]
+        assert ops.decode_attention.launches > 0
+        assert pre.stats()["dispatches"]["decode"] == 0
+        assert pre.stats()["host_syncs"]["kv_export"] == 2
+        assert dec.stats()["dispatches"]["install_page"] == 8
+    finally:
+        pre.close()
+        dec.close()
+    store = LocalKVPageStore(64 << 20)
+    fleet = dict(kw, max_batch=1, kv_fleet_min_prefix_blocks=0,
+                 kv_fleet_store=store)
+    a = LLMEngine(cfg, params, **fleet)
+    try:
+        a.generate(p1, max_new_tokens=10)
+        a.generate(p2, max_new_tokens=10)
+        deadline = time.time() + 30
+        while store.stats()["objects"] < 4 and time.time() < deadline:
+            time.sleep(0.01)
+    finally:
+        a.close()
+    b = LLMEngine(cfg, params, **fleet)
+    try:
+        assert b.generate(p1, max_new_tokens=10)["token_ids"] == \
+            want[tuple(p1)]
+        st = b.stats()
+        assert st["kv_fleet_pulled_blocks"] == 3
+        assert st["kv_fleet_rejects"] == 0
+        lo = b._make_request(p1, 40, None, priority=0)
+        b._queue.put(lo)
+        while not any(r is lo for r in b.scheduler.active):
+            time.sleep(0.001)
+        hi = b._make_request(p2, 10, None, priority=3)
+        b._queue.put(hi)
+        assert hi.future.result(timeout=120)["token_ids"] == \
+            want[tuple(p2)]
+        assert lo.future.result(timeout=120)["token_ids"] == solo
+        assert b.stats()["preempts"] >= 1 and b.stats()["resumes"] >= 1
+    finally:
+        b.close()
+
+
 # ------------------------------------------------------------- training
 
 

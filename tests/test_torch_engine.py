@@ -248,25 +248,29 @@ def test_host_sync_cadence_matches_jax(tiny):
         teng.close()
 
 
-@pytest.mark.parametrize("knob", [
-    dict(role="prefill"), dict(role="decode"),
-    dict(kv_fleet_min_prefix_blocks=0), dict(kv_fleet_store=object()),
-])
-def test_unported_knobs_raise(tiny, knob):
+@pytest.mark.parametrize("role", ["colocate", "Decode", "", None])
+def test_unknown_role_raises(tiny, role):
+    """The three roles are colocated, prefill and decode (the two
+    disaggregated ones are held by test_torch_disagg.py)."""
     _, _, tcfg, tparams = tiny
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TEngine(tcfg, tparams, device="cpu", **knob)
+    with pytest.raises(ValueError, match="unknown engine role"):
+        TEngine(tcfg, tparams, device="cpu", role=role)
 
 
-def test_priority_preemption_raises(tiny):
+def test_request_validation(tiny):
+    """Bad requests raise in the caller; priority is a request knob now
+    (test_torch_preempt.py) and a priority request is served."""
     _, _, tcfg, tparams = tiny
     eng = TEngine(tcfg, tparams, device="cpu", max_batch=1, max_len=64,
                   prompt_buckets=[8, 16])
     try:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            eng.generate([1, 2], max_new_tokens=2, priority=1)
-        assert eng.generate([1, 2], max_new_tokens=2)["num_generated"] == 2
-        with pytest.raises(ValueError):
+        with pytest.raises(ValueError, match="max_len"):
             eng.generate([1, 2], max_new_tokens=63)
+        with pytest.raises(ValueError, match="empty"):
+            eng.generate([], max_new_tokens=2)
+        with pytest.raises(ValueError, match="vocab_size"):
+            eng.generate([1, 256], max_new_tokens=2)
+        out = eng.generate([1, 2], max_new_tokens=2, priority=1)
+        assert out["num_generated"] == 2
     finally:
         eng.close()

@@ -359,3 +359,58 @@ def test_non_cpu_non_cuda_tensors_raise_instead_of_falling_back():
             torch.empty(2, 2, 8, 16, device="meta"),
             torch.arange(4).reshape(2, 2), torch.tensor([3, 8]),
             page_size=4)
+
+
+# ------------------------------------------------------ decode shape gate
+
+
+@pytest.mark.parametrize("d,h,kh,admitted", [
+    (128, 32, 8, True), (64, 8, 8, True), (128, 16, 2, True),
+    (64, 2, 1, True), (16, 4, 2, False), (96, 8, 8, False),
+    (128, 6, 2, False), (128, 32, 2, False), (64, 9, 4, False),
+])
+def test_use_decode_kernel_gate(d, h, kh, admitted):
+    """On the card: head_dim 64/128 and 1, 2, 4 or 8 query heads per KV
+    head, what the decode kernels take. On the CPU every shape goes to
+    the wrappers, whose plain versions take any."""
+    assert tops.use_decode_kernel(True, d, h, kh) is admitted
+    assert tops.use_decode_kernel(False, d, h, kh) is True
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_block_sends_refused_decode_shapes_to_masked_attention(monkeypatch,
+                                                               paged):
+    """A single-token step whose shape the gate refuses takes the masked
+    ``causal_attention`` branch (the decode wrappers are not called) and
+    gives the logits of ``use_decode_kernel=False``, bit for bit; those
+    agree with the plain decode version's within 1e-5."""
+    from ray_tpu_torch.models import llama as tllama
+
+    cfg = tllama.tiny_config(max_seq_len=32, paged_decode=paged,
+                             decode_page=8)
+    masked = tllama.tiny_config(max_seq_len=32, use_decode_kernel=False)
+    params = tllama.init_params(cfg, torch.Generator().manual_seed(0),
+                                "cpu")
+    tok = torch.tensor([[5, 9, 3, 7], [2, 8, 1, 4]])
+    nxt = torch.tensor([[11], [12]])
+    idx = torch.tensor([4, 4], dtype=torch.int32)
+
+    def step(c):
+        cache = tllama.init_kv_cache(c, 2, 32, device="cpu")
+        with torch.no_grad():
+            tllama.forward_with_cache(params, tok, cache, 0, c)
+            return tllama.forward_with_cache(params, nxt, cache, idx, c)[0]
+
+    via_plain_decode = step(cfg)
+    want = step(masked)
+
+    def refused(*a, **k):
+        raise AssertionError("decode wrapper called for a refused shape")
+
+    monkeypatch.setattr(tllama, "use_decode_kernel", lambda *a: False)
+    monkeypatch.setattr(tllama, "decode_attention", refused)
+    monkeypatch.setattr(tllama, "paged_decode_attention", refused)
+    got = step(cfg)
+    assert torch.equal(got, want)
+    np.testing.assert_allclose(got.numpy(), via_plain_decode.numpy(),
+                               rtol=1e-5, atol=1e-5)
