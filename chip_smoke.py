@@ -2,7 +2,7 @@
 """Run the PyTorch/CUDA port (``ray_tpu_torch``) end to end on one CUDA
 card and check it.
 
-    python3 chip_smoke.py              # phases 1-9, the smoke
+    python3 chip_smoke.py              # phases 1-10, the smoke
     python3 chip_smoke.py --spec-ab    # phases 1-2, then speculation off
                                        # against on (bf16), no result line
     python3 chip_smoke.py --flash [DIR]     # phases 1-2, the flash kernels
@@ -76,6 +76,20 @@ script exits non-zero without printing its last line:
    one batch of B=1, S=2048 from a numpy seed; finite losses and gradient
    norms, a falling loss, the kernels' launch counts per step, step time,
    tokens/s, MFU, peak memory and the device time by group.
+10. The model zoo, after phase 8: (a) Mixtral, 2 layers at
+    MIXTRAL_8X7B's widths in f32, B=1, S=256: the loss and every gradient
+    through the flash kernels against the plain route, and every token's
+    top-2 experts identical on both; (b) Mixtral's training step, the
+    8x7B widths cut to 4 layers (6.07B parameters: bf16 weights,
+    gradients and AdamW's moments take 48.5 GB), bf16, B=1, S=2048, 5
+    steps through the generalised ``spmd`` optimizer, launches a step
+    checked exactly (8 flash forwards, 4 backwards), step time, MFU by
+    active parameters, peak memory and the device time by group (expert
+    FFN, the f32 dispatch/combine, flash, optimizer); (c) ViT-B/16 bf16,
+    B=32; (d) T5-base bf16, B=8, 512 + 128 tokens with a padded encoder
+    mask, then greedy generation twice, tokens identical; (e) the UNet
+    at ``DiffusionConfig()``, f32, B=64, then a 1000-step sample. Each
+    trains 5 steps with a falling loss; (c)-(e) launch no port kernel.
 6. Timing, last: an empty kernel (the launch floor), then each kernel,
    its plain version and (where one exists) the one PyTorch call that
    computes the same function, with CUDA events, at the decode shapes of
@@ -86,9 +100,10 @@ script exits non-zero without printing its last line:
    phase 8's shapes, beside their plain versions and launches a step;
    then the host cost of the fused ops' autograd
    ``Function``. The ``kernels`` JSON line (phase 7a's launches for the
-   paged kernel, phase 8's for the flash kernels, and each kernel's
-   launches over phase 9 as ``launches_phase9``) is printed just before
-   the last line.
+   paged kernel, phase 8's for the flash kernels, each kernel's
+   launches over phase 9 as ``launches_phase9``, and the flash rows'
+   launches a step of phase 10b as ``launches_phase10``) is printed just
+   before the last line.
 
 The last line is ``{"ok": true, "device": {...}}``. Needs one card; exits
 non-zero at once without one.
@@ -96,6 +111,7 @@ non-zero at once without one.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -1535,6 +1551,409 @@ def phase_train(smi):
     return launches
 
 
+# --------------------------------------------------------------- phase 10
+
+# Phase 10, the model zoo: (B, S) of the Mixtral cells and their depth.
+MOE_CHECK_LAYERS, MOE_CHECK_S = 2, 256
+MOE_LAYERS, MOE_B, MOE_S = 4, 1, 2048
+ZOO_STEPS = 5
+
+
+def free_card():
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def train_steps(label, loss_of, tx, opt, smi, steps=ZOO_STEPS):
+    """``steps`` training steps of a model: its loss through the
+    optimizer's leaf views (``loss_of(opt) -> loss``), the backward, then
+    ``tx.update``, as ``make_train_step`` composes Llama's; the last step
+    under the profiler. The loss must be finite and fall (step 0 has lr
+    0). Returns (median ms of steps 1 to steps - 2, peak bytes, the
+    profiler)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.reset_peak_memory_stats()
+    losses, walls = [], []
+    for i in range(steps):
+        t = time.perf_counter()
+        tracer = (profile(activities=[ProfilerActivity.CPU,
+                                      ProfilerActivity.CUDA])
+                  if i == steps - 1 else contextlib.nullcontext())
+        with tracer as prof:
+            loss = loss_of(opt)
+            loss.backward()
+            tx.update(opt, i)
+            torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+        losses.append(loss.item())
+        del loss
+    peak = torch.cuda.max_memory_allocated()
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"{label}: a non-finite loss: {losses}")
+    if not losses[-1] < losses[1]:
+        raise AssertionError(f"{label}: the loss did not fall: {losses}")
+    step_ms = median(walls[1:-1]) * 1e3
+    # User annotations on the device timeline span other kernels.
+    busy = sum(ev.time_range.elapsed_us() for ev in prof.events()
+               if ev.device_type == DeviceType.CUDA
+               and not ev.is_user_annotation) / 1e3
+    log(f"  {label}: losses {losses}; step wall s {walls}; step {step_ms} "
+        f"ms (median of steps 1-{steps - 2}, unprofiled), device busy "
+        f"{busy} ms in the profiled step (idle share against the "
+        f"unprofiled step {1 - busy / step_ms}), peak memory {peak / 1e9} "
+        f"GB; on {smi}")
+    return step_ms, peak, prof
+
+
+def phase10a(smi):
+    """Mixtral through the kernels: 2 layers at MIXTRAL_8X7B's widths in
+    f32, B=1, S=256 (the flash gate's smallest length), remat on; the loss
+    and every gradient through the flash kernels against the plain route
+    (explicit positions keep attention position-masked, off the gate),
+    within MODEL_TOL of each tensor's largest value; the top-2 expert set
+    of every token and layer identical on both routes."""
+    from ray_tpu_torch.models import mixtral
+
+    cfg = dataclasses.replace(mixtral.MIXTRAL_8X7B,
+                              n_layers=MOE_CHECK_LAYERS,
+                              dtype=torch.float32)
+    params = mixtral.init_params(cfg, _gen(40), device="cuda")
+    # Leaf views of each layer, as the optimizer makes them: a gradient
+    # through a slice of the stacked experts would be stack-sized.
+    layers = [{k: w[i].detach().requires_grad_(True)
+               for k, w in params["blocks"].items()}
+              for i in range(cfg.n_layers)]
+    top = ("embed", "ln_out", "lm_head")
+    for name in top:
+        params[name].requires_grad_(True)
+    leaves = [params[n] for n in top] + [w for layer in layers
+                                         for w in layer.values()]
+    paths = list(top) + [f"blocks.{k}[{i}]" for i, layer in enumerate(layers)
+                         for k in layer]
+    tokens = torch.randint(0, cfg.vocab_size, (1, MOE_CHECK_S),
+                           generator=_gen(41), device="cuda")
+    positions = torch.arange(MOE_CHECK_S, device="cuda").expand(
+        1, MOE_CHECK_S)
+    route, picks = mixtral.route, []
+
+    def recorded(*args):
+        out = route(*args)
+        picks.append(out[2].detach().sort(-1).values)
+        return out
+
+    runs = {}
+    mixtral.route = recorded      # moe_ffn looks it up at each call
+    try:
+        for name, pos in (("kernels", None), ("plain", positions)):
+            picks.clear()
+            zero_counts()
+            loss, metrics = mixtral.loss_fn(params, tokens, cfg,
+                                            positions=pos, layers=layers)
+            chosen = list(picks[:cfg.n_layers])   # the first forward's
+            grads = torch.autograd.grad(loss, leaves)
+            runs[name] = (loss.detach(), metrics, grads, chosen,
+                          read_counts())
+            del loss
+    finally:
+        mixtral.route = route
+    (lk, mk, gk, ck, nk), (lp, _, gp, cp, n_plain) = (runs["kernels"],
+                                                      runs["plain"])
+    if (nk["flash_attention"], nk["flash_attention_bwd"]) != (
+            2 * cfg.n_layers, cfg.n_layers) or n_plain["flash_attention"] \
+            or n_plain["flash_attention_bwd"]:
+        raise AssertionError(f"phase 10a launches: kernels {nk}, plain "
+                             f"{n_plain}")
+    moved = []
+    for layer, (a, b) in enumerate(zip(ck, cp)):
+        tokens_moved = (a != b).any(-1).nonzero().flatten().tolist()
+        moved += [(layer, t) for t in tokens_moved]
+    if moved:
+        raise AssertionError(f"phase 10a: {len(moved)} (layer, token) top-2 "
+                             f"sets differ between the routes: {moved[:20]}")
+    worst = close_enough(lk, lp, MODEL_TOL, MODEL_TOL, "mixtral loss")
+    for path, got, want in zip(paths, gk, gp):
+        top = want.abs().max().item()
+        err = close_enough(got, want, MODEL_TOL, MODEL_TOL * top,
+                           f"mixtral grad {path}")
+        worst = max(worst, err / max(top, 1e-30))
+    log(f"phase 10a Mixtral through the kernels: {cfg.n_layers} layers at "
+        f"8x7B widths f32, B=1 S={MOE_CHECK_S}, loss {lk.item()} (ce "
+        f"{mk['ce'].item()}, aux {mk['aux'].item()}; plain {lp.item()}), "
+        f"every gradient ({len(gk)} tensors) vs the plain route: worst "
+        f"error {worst} of the tensor's largest value (tol {MODEL_TOL}); "
+        f"top-2 sets identical for {MOE_CHECK_S} tokens x {cfg.n_layers} "
+        f"layers; launches {nk}; on {smi}")
+    del params, layers, leaves, runs, gk, gp
+    free_card()
+
+
+# Device time of the MoE step by group: kernels by name first, then the
+# others by the mixtral.* profiler range (or the backward node of an op
+# inside one) that launched them.
+MOE_NAMED = (
+    ("flash forward", ("::fwd_sm90<", "::fwd_kernel<")),
+    ("flash backward", ("::dkdv_sm90<", "::dq_sm90<", "::delta_kernel<",
+                        "::dkdv_kernel<", "::dq_kernel<")),
+    ("optimizer", ("multi_tensor_apply", "fused_adam", "FusedAdam")),
+)
+MOE_RANGES = {"mixtral.experts": "expert FFN (bf16 bmm, silu*up)",
+              "mixtral.dispatch": "dispatch/combine (f32, with the router)"}
+
+
+def moe_breakdown(prof):
+    """Device ms of the profiled step by group. A kernel belongs to the
+    range whose CPU op launched it, or to the range of the forward op
+    whose backward node launched it (autograd's sequence number links
+    the two); the rest of the step is "other"."""
+    from torch.autograd import DeviceType
+
+    def named(kernel):
+        return next((g for g, keys in MOE_NAMED
+                     if any(k_ in kernel for k_ in keys)), None)
+
+    cpu = [e for e in prof.events() if e.device_type == DeviceType.CPU]
+
+    def in_range(e):
+        while e is not None:
+            if e.name in MOE_RANGES:
+                return e.name
+            e = e.cpu_parent
+        return None
+
+    seq = {e.sequence_nr: r for e in cpu
+           if e.sequence_nr >= 0 and (r := in_range(e))}
+
+    def group(e):
+        while e is not None:
+            if e.name in MOE_RANGES:
+                return e.name
+            if (e.name.startswith("autograd::engine::evaluate_function")
+                    and e.sequence_nr in seq):
+                return seq[e.sequence_nr]
+            e = e.cpu_parent
+        return None
+
+    groups = {g: 0.0 for g, _ in MOE_NAMED}
+    groups.update({g: 0.0 for g in MOE_RANGES.values()})
+    total = 0.0
+    for ev in prof.events():
+        if ev.device_type != DeviceType.CUDA or ev.is_user_annotation:
+            continue
+        us = ev.time_range.elapsed_us()
+        total += us
+        g = named(ev.name)
+        if g:
+            groups[g] += us
+    for e in cpu:
+        r = group(e)
+        if r is None:
+            continue
+        for k in e.kernels:
+            if named(k.name) is None:
+                groups[MOE_RANGES[r]] += k.duration
+    groups["other"] = total - sum(groups.values())
+    return {g: us / 1e3 for g, us in groups.items()}
+
+
+def phase10b(smi):
+    """The Mixtral training step: MIXTRAL_8X7B's widths cut to 4 layers,
+    bf16, remat "nothing", B=1 S=2048, default_optimizer(lr=1e-4,
+    warmup=1), 5 steps on one batch from a numpy seed, the last under the
+    profiler. Returns the kernels' launches a step."""
+    from ray_tpu_torch.models import mixtral
+    from ray_tpu_torch.parallel import spmd
+
+    free_card()
+    held = torch.cuda.memory_allocated()
+    cfg = dataclasses.replace(mixtral.MIXTRAL_8X7B, n_layers=MOE_LAYERS)
+    assert (cfg.d_model, cfg.d_ff, cfg.n_experts, cfg.top_k, cfg.dtype,
+            cfg.remat, cfg.remat_policy) == (4096, 14336, 8, 2,
+                                             torch.bfloat16, True, "nothing")
+    tx = spmd.default_optimizer(lr=1e-4, warmup=1)
+    t0 = time.perf_counter()
+    params = mixtral.init_params(cfg, _gen(42), device="cuda")
+    opt = tx.init(params, stacked=mixtral.STACKED)
+    torch.cuda.synchronize()
+    log(f"phase 10b Mixtral train: 8x7B widths cut to {cfg.n_layers} of 32 "
+        f"layers, {cfg.param_count() / 1e9:.3f}B params "
+        f"({cfg.active_param_count() / 1e9:.3f}B active), bf16, B={MOE_B} "
+        f"S={MOE_S}, capacity {cfg.capacity(MOE_B * MOE_S)} tokens per "
+        f"expert, remat "
+        f"{cfg.remat_policy}, fused AdamW; init "
+        f"{time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated ({held} "
+        "bytes before)")
+    tokens = torch.from_numpy(np.random.RandomState(12).randint(
+        0, cfg.vocab_size, (MOE_B, MOE_S))).to("cuda")
+    aux = []
+
+    def loss_of(opt):
+        loss, metrics = mixtral.loss_fn(params, tokens, cfg,
+                                        layers=opt.layers["blocks"])
+        aux.append((metrics["ce"], metrics["aux"]))
+        return loss
+
+    zero_counts()
+    step_ms, peak, prof = train_steps("phase 10b", loss_of, tx, opt, smi)
+    launches = read_counts()
+    parts = [(c.item(), a.item()) for c, a in aux]
+    if not all(np.isfinite(parts).flatten()):
+        raise AssertionError(f"phase 10b: non-finite ce or aux: {parts}")
+    per_step = {n: 0 for n in launches}
+    per_step.update(flash_attention=2 * cfg.n_layers,
+                    flash_attention_bwd=cfg.n_layers)
+    want = {n: c * ZOO_STEPS for n, c in per_step.items()}
+    if launches != want:
+        raise AssertionError(f"phase 10b launches {launches}, expected "
+                             f"{want}")
+    if peak >= 80e9:
+        raise AssertionError(f"phase 10b: peak memory {peak} bytes")
+    tokens_s = MOE_B * MOE_S / (step_ms / 1e3)
+    flops = cfg.flops_per_token(MOE_S) * MOE_B * MOE_S
+    groups = moe_breakdown(prof)
+    log(f"  phase 10b (ce, aux) per step {parts}; launch check passed: per "
+        f"step {per_step}")
+    log(f"  phase 10b step: {step_ms} ms, {tokens_s} tokens/s, MFU by "
+        f"active parameters {flops / (step_ms / 1e3) / BF16_FLOPS} "
+        f"({flops / 1e12} TFLOP a step: 6 x {cfg.n_layers} layers' "
+        "attention, top-2 experts and router + lm_head, + 12*L*d*S), peak "
+        f"memory {peak / 1e9} GB ({peak / 2**30} GiB); on {smi}")
+    log("  phase 10b device time of the profiled step by group, ms: "
+        + ", ".join(f"{g} {v}" for g, v in groups.items()))
+    del params, opt, prof, aux
+    free_card()
+    return per_step
+
+
+def phase10c(smi):
+    """ViT-B/16 in bf16, B=32 images from a numpy seed, 5 steps."""
+    from ray_tpu_torch.models import vit
+    from ray_tpu_torch.parallel import spmd
+
+    cfg = vit.VIT_B_16
+    assert (cfg.image_size, cfg.patch_size, cfg.d_model, cfg.n_layers,
+            cfg.dtype) == (224, 16, 768, 12, torch.bfloat16)
+    params = vit.init_params(cfg, _gen(43), device="cuda")
+    tx = spmd.default_optimizer(lr=3e-4, warmup=1)
+    opt = tx.init(params, stacked=vit.STACKED)
+    b = 32
+    rng = np.random.RandomState(13)
+    images = torch.from_numpy(rng.rand(b, 224, 224, 3).astype(
+        np.float32)).to("cuda")
+    labels = torch.from_numpy(rng.randint(0, cfg.num_classes, b)).to("cuda")
+    log(f"phase 10c ViT-B/16: {cfg.param_count() / 1e6:.2f}M params, bf16, "
+        f"B={b} 224x224")
+    step_ms, _, _ = train_steps(
+        "phase 10c", lambda opt: vit.loss_fn(
+            params, images, labels, cfg, layers=opt.layers["blocks"]),
+        tx, opt, smi)
+    log(f"  phase 10c: {b / (step_ms / 1e3)} images/s; on {smi}")
+    del params, opt
+    free_card()
+
+
+def phase10d(smi):
+    """T5-base in bf16, B=8, 512 encoder tokens (padded: each input's
+    length from a numpy seed) and 128 decoder tokens, 5 steps; then
+    ``greedy_generate`` of 16 tokens for 2 inputs, twice."""
+    from ray_tpu_torch.models import t5
+    from ray_tpu_torch.parallel import spmd
+
+    cfg = t5.T5_BASE
+    params = t5.init_params(cfg, _gen(44), device="cuda")
+    tx = spmd.default_optimizer(lr=3e-4, warmup=1)
+    opt = tx.init(params, stacked=t5.STACKED)
+    b, s, t = 8, 512, 128
+    rng = np.random.RandomState(14)
+    enc = torch.from_numpy(rng.randint(0, cfg.vocab_size, (b, s))).to("cuda")
+    dec = torch.from_numpy(rng.randint(0, cfg.vocab_size, (b, t))).to("cuda")
+    lengths = rng.randint(s // 2, s + 1, b)
+    enc_mask = torch.from_numpy(np.arange(s)[None, :]
+                                < lengths[:, None]).to("cuda")
+    log(f"phase 10d T5-base: {cfg.param_count() / 1e6:.2f}M params, bf16, "
+        f"B={b}, encoder {s} tokens (valid lengths {lengths.tolist()}), "
+        f"decoder {t}")
+    step_ms, _, _ = train_steps(
+        "phase 10d", lambda opt: t5.loss_fn(params, enc, dec, cfg,
+                                            enc_mask=enc_mask,
+                                            layers=opt.layers)[0], tx, opt,
+        smi)
+    t0 = time.perf_counter()
+    outs = [t5.greedy_generate(params, enc[:2], cfg, max_len=16,
+                               enc_mask=enc_mask[:2]) for _ in range(2)]
+    torch.cuda.synchronize()
+    gen_s = (time.perf_counter() - t0) / 2
+    if not torch.equal(outs[0], outs[1]):
+        raise AssertionError(f"phase 10d: greedy tokens differ between two "
+                             f"runs: {outs[0].tolist()} vs {outs[1].tolist()}")
+    log(f"  phase 10d: {b * (s + t) / (step_ms / 1e3)} tokens/s (encoder + "
+        f"decoder); greedy 16 tokens x 2 inputs identical twice, "
+        f"{gen_s} s a run: {outs[0].tolist()}; on {smi}")
+    del params, opt
+    free_card()
+
+
+def phase10e(smi):
+    """The UNet at ``DiffusionConfig()``'s defaults (32x32x3, widths
+    64/128/256, f32), B=64 images from a numpy seed, 5 steps on timesteps
+    and noise drawn once; then ``sample`` of 4 images over all 1000
+    steps."""
+    from ray_tpu_torch.models import diffusion
+    from ray_tpu_torch.parallel import spmd
+
+    cfg = diffusion.DiffusionConfig()
+    params = diffusion.init_params(cfg, _gen(45), device="cuda")
+    sched = diffusion.cosine_schedule(cfg, "cuda")
+    tx = spmd.default_optimizer(lr=3e-4, warmup=1)
+    opt = tx.init(params, stacked=diffusion.STACKED)
+    b = 64
+    x0 = torch.from_numpy(np.random.RandomState(15).uniform(
+        -1, 1, (b, 32, 32, 3)).astype(np.float32)).to("cuda")
+    t = torch.randint(0, cfg.num_steps, (b,), generator=_gen(46),
+                      device="cuda")
+    eps = torch.randn(x0.shape, generator=_gen(47), device="cuda")
+    log(f"phase 10e UNet: {cfg.param_count() / 1e6:.3f}M params, f32, B={b} "
+        "32x32x3")
+    step_ms, _, _ = train_steps(
+        "phase 10e", lambda opt: diffusion.loss_fn(params, x0, None, cfg,
+                                                   sched, t=t, eps=eps)[0],
+        tx, opt, smi)
+    t0 = time.perf_counter()
+    out = diffusion.sample(params, _gen(48), cfg, batch=4, schedule=sched)
+    torch.cuda.synchronize()
+    sample_s = time.perf_counter() - t0
+    if out.shape != (4, 32, 32, 3) or not torch.isfinite(out).all():
+        raise AssertionError(f"phase 10e: sample {tuple(out.shape)}, finite "
+                             f"{bool(torch.isfinite(out).all())}")
+    log(f"  phase 10e: {b / (step_ms / 1e3)} images/s; sample of 4 over "
+        f"{cfg.num_steps} steps {sample_s} s, finite, std "
+        f"{out.std().item()}; on {smi}")
+    del params, opt
+    free_card()
+
+
+def phase_zoo(smi):
+    """Phase 10: Mixtral (10a, 10b), ViT (10c), T5 (10d) and the UNet
+    (10e). Returns the kernels' launches a step of 10b. ViT, T5 and the
+    UNet run no port kernel (``ray_tpu`` runs no Pallas kernel there)."""
+    t0 = time.perf_counter()
+    phase10a(smi)
+    per_step = phase10b(smi)
+    zero_counts()
+    phase10c(smi)
+    phase10d(smi)
+    phase10e(smi)
+    stray = {n: c for n, c in read_counts().items() if c}
+    if stray:
+        raise AssertionError(f"phases 10c-10e launched port kernels: {stray}")
+    log(f"phase 10 model zoo: {time.perf_counter() - t0:.1f} s; on {smi}")
+    return per_step
+
+
 # ---------------------------------------------------------------- phase 6
 
 class Timer:
@@ -2092,7 +2511,11 @@ def main() -> int:
     train = phase_train(smi)
     for kernel in TRAIN_ONLY:
         launches[kernel] = train[kernel]
+    zoo = phase_zoo(smi)
     rows = phase_timing(launches, tier)
+    for row in rows:
+        if row["name"] in TRAIN_ONLY:
+            row["launches_phase10"] = zoo[row["name"]]
     fused_apply_cost(smi)
     log(f"total {time.perf_counter() - t_start:.1f} s on {smi}")
     print(json.dumps({"kernels": rows}), flush=True)

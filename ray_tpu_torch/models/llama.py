@@ -38,7 +38,6 @@ import dataclasses
 import functools
 from typing import Any, Dict, List, Optional, Tuple, Union
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
@@ -46,6 +45,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     noop_context_fn)
 
 from ray_tpu_torch import resolve_device
+from ray_tpu_torch.models import _tree
 from ray_tpu_torch.models.quant import _BLOCK_CONTRACT, QuantTensor
 from ray_tpu_torch.ops import (apply_rope, causal_attention, decode_attention,
                                full_causal_attention, fused_qk_rope,
@@ -173,12 +173,7 @@ def init_params(cfg: LlamaConfig, generator: torch.Generator,
     device = resolve_device(device)
 
     def normal(shape, fan_in):
-        out = torch.empty(shape, dtype=cfg.dtype, device=device)
-        for dst in (out.unbind(0) if len(shape) >= 3 else (out,)):
-            src = torch.randn(dst.shape, generator=generator,
-                              dtype=torch.float32, device=generator.device)
-            dst.copy_(src.mul_(fan_in ** -0.5))
-        return out
+        return _tree.normal(shape, fan_in, cfg.dtype, device, generator)
 
     shapes = param_shapes(cfg)
     params: Params = {"embed": normal(shapes["embed"], cfg.d_model),
@@ -196,15 +191,6 @@ def init_params(cfg: LlamaConfig, generator: torch.Generator,
     return params
 
 
-def _numpy_to_torch(arr, shape, name: str) -> torch.Tensor:
-    a = np.array(arr, order="C", copy=True)  # writable, owned by torch
-    if tuple(a.shape) != tuple(shape):
-        raise ValueError(f"{name}: shape {a.shape}, expected {shape}")
-    if a.dtype.name == "bfloat16":  # ml_dtypes bfloat16: reinterpret bits
-        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
-    return torch.from_numpy(a)
-
-
 def _to_tensor(arr, shape, name: str, cfg: LlamaConfig,
                device: torch.device, contract=None):
     """One leaf -> a tensor in ``cfg.dtype``; a (q, scale) pair (ray_tpu's
@@ -215,13 +201,13 @@ def _to_tensor(arr, shape, name: str, cfg: LlamaConfig,
             raise ValueError(f"{name}: a quantized leaf where a dense "
                              "weight belongs")
         kept = tuple(n for a, n in enumerate(shape) if a not in contract)
-        q = _numpy_to_torch(arr[0], shape, f"{name}.q")
-        scale = _numpy_to_torch(arr[1], kept, f"{name}.scale")
+        q = _tree.numpy_to_torch(arr[0], shape, f"{name}.q")
+        scale = _tree.numpy_to_torch(arr[1], kept, f"{name}.scale")
         if q.dtype != torch.int8 or scale.dtype != torch.float32:
             raise ValueError(f"{name}: quantized leaf of {q.dtype} with "
                              f"{scale.dtype} scales, expected int8/float32")
         return QuantTensor(q.to(device), scale.to(device))
-    return _numpy_to_torch(arr, shape, name).to(device=device,
+    return _tree.numpy_to_torch(arr, shape, name).to(device=device,
                                                 dtype=cfg.dtype)
 
 

@@ -5,11 +5,14 @@
 warmup-cosine schedule), the buffers donated so the step is in place. Here
 the step runs eagerly on one card and updates the parameters in place:
 
-- the parameters stay the stacked ``llama`` tree (``ray_tpu``'s layout);
-  ``tx.init`` makes each layer's block weights a leaf view of that tree,
-  so each layer's gradient lands in its own tensor (a gradient through a
-  slice of the stacked tensor would build a full-size zero tensor per
-  layer) and the optimizer's in-place updates write the tree;
+- the parameters stay the model's tree in ``ray_tpu``'s layout, any nest
+  of dicts and lists (optax applies to any pytree); ``tx.init`` makes each
+  layer of a stacked subtree (Llama's ``blocks``; the model names them) a
+  leaf view of that tree, so each layer's gradient lands in its own tensor
+  (a gradient through a slice of the stacked tensor would build a
+  full-size zero tensor per layer) and the optimizer's in-place updates
+  write the tree; ``make_train_step`` composes Llama's step, and the other
+  models' steps are the same three calls with their ``loss_fn``;
 - ``default_optimizer`` reproduces optax's chain: the global norm of every
   gradient in f32, a scale of ``max_norm / norm`` only when the norm is not
   below ``max_norm`` (no epsilon, unlike ``clip_grad_norm_``), then AdamW
@@ -27,25 +30,27 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, Dict, List, NamedTuple, Tuple
+from typing import Any, Callable, Dict, List, NamedTuple, Sequence, Tuple
 
 import torch
 
-from ray_tpu_torch.models import llama
+from ray_tpu_torch.models import _tree, llama
 from ray_tpu_torch.models.quant import QuantTensor
 
 Metrics = Dict[str, torch.Tensor]
+Params = Dict[str, Any]
 
 
 class OptState(NamedTuple):
     leaves: List[torch.Tensor]    # every trainable tensor, in update order
-    layers: List[Dict[str, torch.Tensor]]  # per-layer leaf views
+    # Per stacked subtree, per layer: the layer's leaf views.
+    layers: Dict[str, List[Dict[str, torch.Tensor]]]
     adamw: torch.optim.AdamW
 
 
 class TrainState(NamedTuple):
     step: int
-    params: llama.Params
+    params: Params
     opt_state: OptState
 
 
@@ -79,22 +84,32 @@ class Optimizer:
         cosine = 0.5 * (1 + math.cos(math.pi * count / span))
         return self.lr * ((1 - alpha) * cosine + alpha)
 
-    def init(self, params: llama.Params) -> OptState:
-        """Mark the trainable tensors (the non-block leaves of ``params``
-        and a leaf view of each layer's block weights) and make AdamW's
-        state for them (its moments appear at the first update)."""
-        blocks = params["blocks"]
-        if any(isinstance(w, QuantTensor) for w in params.values()) or any(
-                isinstance(w, QuantTensor) for w in blocks.values()):
+    def init(self, params: Params,
+             stacked: Sequence[str] = ("blocks",)) -> OptState:
+        """Mark every floating tensor of ``params`` (any nest of dicts and
+        lists) trainable and make AdamW's state for them (its moments
+        appear at the first update). The top-level subtrees named in
+        ``stacked`` hold layers stacked on a leading axis (the model's
+        ``STACKED``: ``blocks`` for Llama, Mixtral and ViT, ``encoder``
+        and ``decoder`` for T5, none for the UNet); each of their layers
+        gets a leaf view of every weight, ``OptState.layers[name][i]``,
+        which the model's ``loss_fn`` takes as ``layers=``. Every other
+        tensor is a leaf of its own."""
+        missing = [n for n in stacked if n not in params]
+        if missing:
+            raise ValueError(f"stacked subtrees {missing} are not in the "
+                             f"parameters {sorted(params)}")
+        if any(isinstance(w, QuantTensor) for w in _tree.leaves(params)):
             raise ValueError("int8 weights are not trainable")
-        top = [params[n] for n in ("embed", "ln_out", "lm_head")
-               if n in params]
+        top = [t for name, sub in params.items() if name not in stacked
+               for t in _tree.leaves(sub) if t.is_floating_point()]
         for t in top:
             t.requires_grad_(True)
-        layers = [{name: w[i].detach().requires_grad_(True)
-                   for name, w in blocks.items()}
-                  for i in range(len(blocks["ln_attn"]))]
-        leaves = top + [w for layer in layers for w in layer.values()]
+        layers = {name: [_tree.map_leaves(
+            lambda w: w.detach().requires_grad_(w.is_floating_point()), view)
+            for view in _tree.unstack(params[name])] for name in stacked}
+        leaves = top + [w for views in layers.values()
+                        for w in _tree.leaves(views) if w.requires_grad]
         adamw = torch.optim.AdamW(
             leaves, lr=0.0, betas=(self.b1, self.b2), eps=self.eps,
             weight_decay=self.weight_decay,
@@ -151,7 +166,7 @@ def make_train_step(cfg: llama.LlamaConfig, tx: Optimizer
     def step_fn(state: TrainState, tokens: torch.Tensor):
         opt = state.opt_state
         loss, metrics = llama.loss_fn(state.params, tokens, cfg,
-                                      layers=opt.layers)
+                                      layers=opt.layers["blocks"])
         loss.backward()
         gnorm = tx.update(opt, state.step)
         return (TrainState(state.step + 1, state.params, opt),

@@ -743,3 +743,125 @@ def test_train_step_on_the_card_lowers_the_loss(card):
         losses.append(metrics["loss"].item())
         assert torch.isfinite(metrics["grad_norm"])
     assert losses[-1] < losses[1]
+
+
+def test_tiny_mixtral_through_the_flash_kernels_matches_plain(card,
+                                                             monkeypatch):
+    """A Mixtral at head 128 (n_heads=2, d_model=256), S=256, f32, remat
+    on: the loss and every gradient through the flash kernels against the
+    plain route (explicit positions keep attention off the flash gate),
+    2e-3 of each tensor's largest value, the same top-2 experts, and the
+    kernels launched twice a layer forward (remat) and once backward."""
+    from ray_tpu_torch import ops
+    from ray_tpu_torch.models import mixtral
+
+    cfg = mixtral.tiny_moe_config(d_model=256, n_heads=2, n_kv_heads=1,
+                                  d_ff=512, vocab_size=512, max_seq_len=256,
+                                  remat=True)
+    params = mixtral.init_params(cfg, torch.Generator("cuda").manual_seed(5))
+    tokens = torch.randint(0, cfg.vocab_size, (2, 256), device=card,
+                           generator=torch.Generator("cuda").manual_seed(6))
+    positions = torch.arange(256, device=card).expand(2, 256)
+    route, picks = mixtral.route, []
+
+    def recorded(*args):
+        out = route(*args)
+        picks.append(out[2].sort(-1).values)
+        return out
+
+    monkeypatch.setattr(mixtral, "route", recorded)
+    runs = []
+    for pos in (None, positions):
+        p = {n: (v.clone().requires_grad_() if n != "blocks" else
+                 {b: w.clone().requires_grad_() for b, w in v.items()})
+             for n, v in params.items()}
+        for fn in ops.KERNELS.values():
+            fn.launches = 0
+        picks.clear()
+        loss, metrics = mixtral.loss_fn(p, tokens, cfg, positions=pos)
+        chosen = picks[:cfg.n_layers]
+        loss.backward()
+        runs.append((loss, metrics, p, {n: fn.launches
+                                        for n, fn in ops.KERNELS.items()},
+                     chosen))
+    (lk, mk, pk, nk, ck), (lp, mp, pp, np_, cp) = runs
+    for a, b in zip(ck, cp):
+        assert torch.equal(a, b)
+    assert nk["flash_attention"] == 4 and nk["flash_attention_bwd"] == 2
+    assert np_["flash_attention"] == 0 and np_["flash_attention_bwd"] == 0
+    assert sum(nk.values()) == 6
+    torch.testing.assert_close(lk, lp, rtol=2e-3, atol=2e-3)
+    torch.testing.assert_close(mk["aux"], mp["aux"], rtol=2e-3, atol=2e-3)
+    pairs = [(pk[n], pp[n]) for n in ("embed", "ln_out", "lm_head")] + [
+        (pk["blocks"][n], pp["blocks"][n]) for n in pk["blocks"]]
+    for got, want in pairs:
+        tol = 2e-3 * want.grad.abs().max().item()
+        torch.testing.assert_close(got.grad, want.grad, rtol=2e-3, atol=tol)
+
+
+def _card_and_cpu(fn):
+    """``fn(device)`` on the card and on the CPU, both from the same CPU
+    weights (bf16)."""
+    return fn(torch.device("cuda")), fn(torch.device("cpu"))
+
+
+def _bf16_close(got, want):
+    """The bf16 tolerance of the card tests, of the tensor's largest
+    value: bf16 products accumulate in another order on each device."""
+    want = want.float().cpu()
+    tol = 2e-2 * max(1.0, want.abs().max().item())
+    torch.testing.assert_close(got.float().cpu(), want, rtol=2e-2, atol=tol)
+
+
+def test_tiny_vit_forward_on_the_card_matches_the_cpu(card):
+    from ray_tpu_torch.models import vit
+
+    cfg = vit.tiny_config(dtype=torch.bfloat16)
+    params = vit.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    images = torch.rand(4, 32, 32, 3, generator=torch.Generator()
+                        .manual_seed(1))
+
+    def run(dev):
+        p = {n: ({b: w.to(dev) for b, w in v.items()} if n == "blocks"
+                 else v.to(dev)) for n, v in params.items()}
+        return vit.forward(p, images.to(dev), cfg)
+
+    _bf16_close(*_card_and_cpu(run))
+
+
+def test_tiny_t5_forward_on_the_card_matches_the_cpu(card):
+    from ray_tpu_torch.models import t5
+
+    cfg = t5.tiny_config(dtype=torch.bfloat16)
+    params = t5.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    g = torch.Generator().manual_seed(2)
+    enc = torch.randint(0, 256, (2, 40), generator=g)
+    dec = torch.randint(0, 256, (2, 24), generator=g)
+    mask = torch.arange(40)[None, :] < torch.tensor([[40], [29]])
+
+    def run(dev):
+        p = {n: ({b: w.to(dev) for b, w in v.items()}
+                 if isinstance(v, dict) else v.to(dev))
+             for n, v in params.items()}
+        return t5.forward(p, enc.to(dev), dec.to(dev), cfg,
+                          enc_mask=mask.to(dev))
+
+    _bf16_close(*_card_and_cpu(run))
+
+
+def test_tiny_unet_forward_on_the_card_matches_the_cpu(card):
+    from ray_tpu_torch.models import _tree, diffusion
+
+    cfg = diffusion.tiny_config(image_size=12, channels=3,
+                                widths=(8, 16, 32), dtype=torch.bfloat16)
+    params = diffusion.init_params(cfg, torch.Generator().manual_seed(0),
+                                   "cpu")
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn(4, 12, 12, 3, generator=g)
+    t = torch.tensor([0.0, 5.0, 31.0, 63.0])
+
+    def run(dev):
+        p = _tree.map_leaves(lambda w: w.to(dev), params)
+        return diffusion.forward(p, x.to(dev), t.to(dev), cfg)
+
+    _bf16_close(*_card_and_cpu(run))

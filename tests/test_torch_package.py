@@ -38,8 +38,9 @@ def test_importing_and_serving_loads_no_jax_module():
     """In a fresh interpreter: import the package, build a CPU engine and
     serve a request, then one with every engine knob on (paged decode,
     speculation, chunked prefill, int8), then take two training steps with
-    remat and the fused ops; no jax* and no ray_tpu / ray_tpu.* module may
-    load."""
+    remat and the fused ops, then a step of each other model (Mixtral,
+    ViT, T5, the UNet, and a UNet sample); no jax* and no ray_tpu /
+    ray_tpu.* module may load."""
     code = (
         "import sys, torch\n"
         "import ray_tpu_torch, ray_tpu_torch.ops\n"
@@ -71,6 +72,30 @@ def test_importing_and_serving_loads_no_jax_module():
         "for _ in range(2):\n"
         "    st, m = step(st, tok)\n"
         "assert st.step == 2 and torch.isfinite(m['grad_norm']), m\n"
+        "from ray_tpu_torch.models import diffusion, mixtral, t5, vit\n"
+        "g = torch.Generator().manual_seed(0)\n"
+        "def train(mod, cfg, loss, stacked):\n"
+        "    p = mod.init_params(cfg, g, 'cpu')\n"
+        "    opt = tx.init(p, stacked=stacked)\n"
+        "    out = loss(p, opt.layers)\n"
+        "    out = out[0] if isinstance(out, tuple) else out\n"
+        "    out.backward()\n"
+        "    assert torch.isfinite(tx.update(opt, 1))\n"
+        "train(mixtral, mixtral.tiny_moe_config(remat=True),\n"
+        "      lambda p, l: mixtral.loss_fn(p, tok[:, :8] % 128,\n"
+        "          mixtral.tiny_moe_config(remat=True), layers=l['blocks']),\n"
+        "      mixtral.STACKED)\n"
+        "train(vit, vit.tiny_config(), lambda p, l: vit.loss_fn(\n"
+        "    p, torch.rand(2, 32, 32, 3), torch.tensor([1, 2]),\n"
+        "    vit.tiny_config(), layers=l['blocks']), vit.STACKED)\n"
+        "train(t5, t5.tiny_config(), lambda p, l: t5.loss_fn(\n"
+        "    p, tok[:, :6], tok[:, 6:], t5.tiny_config(), layers=l),\n"
+        "    t5.STACKED)\n"
+        "dcfg = diffusion.tiny_config()\n"
+        "train(diffusion, dcfg, lambda p, l: diffusion.loss_fn(\n"
+        "    p, torch.randn(2, 8, 8, 1), g, dcfg), diffusion.STACKED)\n"
+        "dp = diffusion.init_params(dcfg, g, 'cpu')\n"
+        "assert diffusion.sample(dp, g, dcfg, batch=1).shape == (1, 8, 8, 1)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'ray_tpu'))\n"
         "print('BAD', bad)\n")
@@ -104,6 +129,16 @@ def test_device_none_means_the_card():
     with pytest.raises(RuntimeError):
         spmd.init_train_state(cfg, torch.Generator().manual_seed(0),
                               spmd.default_optimizer())
+    from ray_tpu_torch.models import diffusion, mixtral, t5, vit
+
+    for init, mcfg in ((mixtral.init_params, mixtral.tiny_moe_config()),
+                       (vit.init_params, vit.tiny_config()),
+                       (t5.init_params, t5.tiny_config()),
+                       (diffusion.init_params, diffusion.tiny_config())):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            init(mcfg, torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        diffusion.cosine_schedule(diffusion.tiny_config())
     assert resolve_device("cpu") == torch.device("cpu")
 
 
