@@ -2,7 +2,7 @@
 """Run the PyTorch/CUDA port (``ray_tpu_torch``) end to end on one CUDA
 card and check it.
 
-    python3 chip_smoke.py              # phases 1-10, the smoke
+    python3 chip_smoke.py              # phases 1-11, the smoke
     python3 chip_smoke.py --spec-ab    # phases 1-2, then speculation off
                                        # against on (bf16), no result line
     python3 chip_smoke.py --flash [DIR]     # phases 1-2, the flash kernels
@@ -12,6 +12,7 @@ card and check it.
     python3 chip_smoke.py --decode [DIR]    # phases 1-2, the decode and
                                             # RoPE kernels, no result line
     python3 chip_smoke.py --decode-ab DIR   # --decode for DIR and this one
+    python3 chip_smoke.py --rllib           # phases 1 and 11, no result line
 
 ``--flash`` runs against the package of the checkout at DIR (default:
 this one): the flash kernels against their plain versions at phase 3's
@@ -90,6 +91,22 @@ script exits non-zero without printing its last line:
     mask, then greedy generation twice, tokens identical; (e) the UNet
     at ``DiffusionConfig()``, f32, B=64, then a 1000-step sample. Each
     trains 5 steps with a falling loss; (c)-(e) launch no port kernel.
+11. RLlib (``ray_tpu_torch.rllib``), after phase 10, f32 with TF32 off:
+    (a) one update of each learner (PPO, DQN with prioritised weights,
+    SAC, IMPALA, BC, CQL) on the card and on the CPU from the same seed's
+    weights, numpy batches and draws, every parameter and stat within
+    1e-4 of its largest value (a stat: of max(|stat|, 1)); a 16 x 256
+    CartPole rollout of ``EnvRunner`` under a policy whose logits differ
+    by 50 or more, actions, flags, rewards and returns identical to the
+    CPU's; (b) the learning gates of ``ray_tpu``'s tests at their
+    configs, budgets and thresholds (PPO, DQN, IMPALA, multi-agent PPO,
+    SAC, BC with action accuracy > 0.7, CQL), each stopping at its
+    threshold, iterations to it; (c) PPO at the gate's config: ms an
+    iteration split into env steps, policy forwards with host copies, and
+    the update; host syncs an iteration (PyTorch's sync debug mode); env
+    steps/s; one profiled update's device busy time and idle share; the
+    same iteration on the CPU; one DQN and one SAC iteration. Launches no
+    port kernel.
 6. Timing, last: an empty kernel (the launch floor), then each kernel,
    its plain version and (where one exists) the one PyTorch call that
    computes the same function, with CUDA events, at the decode shapes of
@@ -1954,6 +1971,490 @@ def phase_zoo(smi):
     return per_step
 
 
+# --------------------------------------------------------------- phase 11
+
+# Phase 11a: the card against the CPU, f32 with TF32 off (phase 1): within
+# RL_TOL of each tensor's largest value; a scalar stat's scale is
+# max(|stat|, 1), as tests/test_torch_rllib*.py hold stats against
+# ray_tpu's (stats such as mean_kl are means of differences of O(1) terms).
+RL_TOL = 1e-4
+# A policy whose action logits differ by at least this much: any correct
+# sampler takes the argmax (the rollout check of 11a).
+RL_DECISIVE_GAP = 50.0
+
+
+def rl_close(got, want, what, floor=1e-30):
+    got = torch.as_tensor(got).detach().float().cpu()
+    want = torch.as_tensor(want).detach().float().cpu()
+    if got.shape != want.shape or not torch.isfinite(got).all():
+        raise AssertionError(f"{what}: shape {tuple(got.shape)} vs "
+                             f"{tuple(want.shape)}, or non-finite")
+    scale = max(want.abs().max().item() if want.numel() else 0.0, floor)
+    err = (got - want).abs().max().item() if want.numel() else 0.0
+    if err > RL_TOL * scale:
+        raise AssertionError(f"{what}: max abs err {err} > {RL_TOL} x "
+                             f"{scale}")
+    return err / scale
+
+
+def rl_rollout_batch(rng, T, B, obs_size=4):
+    term = rng.random((T, B)) < 0.05
+    trunc = (rng.random((T, B)) < 0.02) & ~term
+    return {
+        "obs": rng.normal(size=(T, B, obs_size)).astype(np.float32),
+        "actions": rng.integers(0, 2, (T, B)).astype(np.int32),
+        "logp": -rng.uniform(0.4, 1.0, (T, B)).astype(np.float32),
+        "values": rng.normal(size=(T, B)).astype(np.float32),
+        "rewards": np.ones((T, B), np.float32),
+        "terminated": term, "truncated": trunc,
+        "bootstrap_value": np.where(trunc, rng.normal(size=(T, B)),
+                                    0.0).astype(np.float32),
+        "last_value": rng.normal(size=B).astype(np.float32),
+    }
+
+
+def rl_transitions(rng, n, obs_size, act_size=0):
+    return {
+        "obs": rng.normal(size=(n, obs_size)).astype(np.float32),
+        "actions": (rng.uniform(-2, 2, (n, act_size)).astype(np.float32)
+                    if act_size else
+                    rng.integers(0, 2, n).astype(np.int32)),
+        "rewards": rng.normal(size=n).astype(np.float32),
+        "next_obs": rng.normal(size=(n, obs_size)).astype(np.float32),
+        "dones": (rng.random(n) < 0.05).astype(np.float32),
+    }
+
+
+def rl_learner_cases(rng):
+    """(name, make(device), update(learner) -> stats, trees(learner)) of
+    one update each, batches and draws from ``rng``, at the gates' batch
+    sizes (PPO 16 envs x 256 steps in minibatches of 512; IMPALA 16 x
+    128; DQN 64 with prioritised weights; SAC 128; BC and CQL 256)."""
+    from ray_tpu_torch.rllib import (BCLearner, CQLLearner, DQNLearner,
+                                     PPOLearner, SACLearner)
+    from ray_tpu_torch.rllib.impala import IMPALALearner
+
+    ppo = rl_rollout_batch(rng, 256, 16)
+    perms = np.stack([rng.permutation(256 * 16) for _ in range(4)])
+    impala = rl_rollout_batch(rng, 128, 16)
+    dqn = rl_transitions(rng, 64, 4)
+    dqn["weights"] = rng.uniform(0.2, 1.0, 64).astype(np.float32)
+    sac = rl_transitions(rng, 128, 3, act_size=1)
+    noise = [rng.normal(size=(128, 1)).astype(np.float32) for _ in range(2)]
+    offline = rl_transitions(rng, 256, 4)
+
+    def sac_update(learner):
+        grads, stats, _ = learner.compute_grads(sac, noise=noise)
+        learner.apply_grads(grads)
+        return stats
+
+    return (
+        ("PPOLearner",
+         lambda d: PPOLearner(4, 2, minibatch_size=512, seed=0, device=d),
+         lambda l: l.update_from_batch(ppo, perms=perms),
+         lambda l: [l.params]),
+        ("DQNLearner",
+         lambda d: DQNLearner(4, 2, target_update_freq=1, seed=0, device=d),
+         lambda l: l.update_from_batch(dqn),
+         lambda l: [l.params, l.target_params]),
+        ("SACLearner",
+         lambda d: SACLearner(3, 1, act_scale=2.0, seed=0, device=d),
+         sac_update,
+         lambda l: [l.actor, l.critic, l.target_critic,
+                    {"log_alpha": l.log_alpha}]),
+        ("IMPALALearner",
+         lambda d: IMPALALearner(4, 2, lr=1e-3, seed=0, device=d),
+         lambda l: l.update_from_batch(impala),
+         lambda l: [l.params]),
+        ("BCLearner",
+         lambda d: BCLearner(4, 2, lr=3e-3, seed=0, device=d),
+         lambda l: l.update_from_batch(offline),
+         lambda l: [l.params]),
+        ("CQLLearner",
+         lambda d: CQLLearner(4, 2, target_update_freq=1, seed=0,
+                              device=d),
+         lambda l: l.update_from_batch(offline),
+         lambda l: [l.params, l.target_params]),
+    )
+
+
+def decisive_policy(seed=0):
+    """The seed's policy weights (CPU tensors) with the action head scaled
+    by 1e6: logits far apart wherever the policy is not near a tie."""
+    from ray_tpu_torch.rllib import models
+
+    p = models.init_policy_params(torch.Generator().manual_seed(seed), 4,
+                                  2, 64, "cpu")
+    p["pi"]["w2"] *= 1e6
+    p["pi"]["b2"] *= 1e6
+    return p
+
+
+def phase11a(smi):
+    """One update of each learner on the card and on the CPU from the same
+    seed's weights, batches and draws: every parameter and stat within
+    RL_TOL. Then a rollout of ``EnvRunner`` (16 CartPoles x 256 steps) on
+    both under a decisive policy: identical actions, flags, rewards and
+    episode returns."""
+    from ray_tpu_torch.rllib import EnvRunner, models
+
+    for name, make, update, trees in rl_learner_cases(
+            np.random.default_rng(0)):
+        out = {}
+        for dev in ("cuda", "cpu"):
+            learner = make(dev)
+            stats = update(learner)
+            leaves = [t for tree in trees(learner)
+                      for t in models.leaves(tree)]
+            if dev == "cuda" and any(t.device.type != "cuda"
+                                     for t in leaves):
+                raise AssertionError(f"phase 11a {name}: a tensor is off "
+                                     "the card")
+            out[dev] = (stats, leaves)
+        (cs, cl), (ps, pl) = out["cuda"], out["cpu"]
+        if set(cs) != set(ps):
+            raise AssertionError(f"phase 11a {name}: stats {sorted(cs)} vs "
+                                 f"{sorted(ps)}")
+        worst_stat = max(rl_close(cs[k], ps[k], f"{name} {k}", floor=1.0)
+                         for k in ps)
+        worst_param = max(rl_close(g, w, f"{name} tensor {i}")
+                          for i, (g, w) in enumerate(zip(cl, pl)))
+        log(f"  phase 11a {name}: card vs CPU, {len(pl)} tensors, worst "
+            f"error / largest value: params {worst_param}, stats "
+            f"{worst_stat} (limit {RL_TOL}); on {smi}")
+    params = decisive_policy()
+    rollouts = {}
+    for dev in ("cuda", "cpu"):
+        runner = EnvRunner("CartPole", 16, 256, seed=0, device=dev)
+        runner.set_weights(params)
+        rollouts[dev] = (runner.sample(), runner.get_metrics())
+    (cr, cm), (pr, pm) = rollouts["cuda"], rollouts["cpu"]
+    with torch.no_grad():
+        logits, _ = models.policy_apply(params, torch.from_numpy(pr["obs"]))
+    gap = (logits[..., 1] - logits[..., 0]).abs().min().item()
+    if gap < RL_DECISIVE_GAP:
+        raise AssertionError(f"phase 11a rollout: logit gap {gap} < "
+                             f"{RL_DECISIVE_GAP}")
+    for k in ("obs", "actions", "rewards", "terminated", "truncated"):
+        if not np.array_equal(cr[k], pr[k]):
+            raise AssertionError(f"phase 11a rollout: {k} differ")
+    if cm != pm or not pm["num_episodes"]:
+        raise AssertionError(f"phase 11a rollout: returns {cm} vs {pm}")
+    err = max(rl_close(cr[k], pr[k], f"rollout {k}")
+              for k in ("logp", "values", "bootstrap_value", "last_value"))
+    log(f"  phase 11a rollout: 16 x 256 CartPole steps, actions, flags and "
+        f"rewards identical, {pm['num_episodes']} episodes, returns "
+        f"{pm['episode_return_mean']} on both; min logit gap {gap}; "
+        f"logp/values worst error / largest value {err}; on {smi}")
+
+
+def expert_batches(n_steps=1500, noise=0.2, seed=0):
+    """The scripted PD-controller expert with epsilon-noise of
+    tests/test_rllib_sac_offline.py:90-111 (numpy CartPole)."""
+    from ray_tpu_torch.rllib.env import CartPoleVecEnv
+
+    env = CartPoleVecEnv(num_envs=8, seed=seed)
+    rng = np.random.default_rng(seed)
+    obs = env.reset(seed=seed)
+    batches = []
+    for _ in range(n_steps):
+        expert = (obs[:, 2] + 0.4 * obs[:, 3] > 0).astype(np.int32)
+        rand = rng.integers(0, 2, len(expert)).astype(np.int32)
+        a = np.where(rng.random(len(expert)) < noise, rand, expert)
+        prev = obs
+        obs, r, done, info = env.step(a)
+        batches.append({"obs": prev, "actions": a, "rewards": r,
+                        "next_obs": np.where(done[:, None],
+                                             info["final_obs"], obs),
+                        "dones": info["terminated"].astype(np.float32)})
+    return batches
+
+
+def _runner_return(result):
+    return result["env_runners"]["episode_return_mean"]
+
+
+def _agents_return(result):
+    rets = [m["episode_return_mean"] for m in result["env_runners"].values()
+            if m["episode_return_mean"] is not None]
+    return float(np.mean(rets)) if rets else None
+
+
+def rl_gate_algos(device):
+    """(label, build(), budget, threshold, score(result, algo)) of each
+    gate, with the configs, budgets and thresholds of ray_tpu's tests."""
+    from ray_tpu_torch.rllib import (BCConfig, CQLConfig, DQNConfig,
+                                     OfflineData, PPOConfig, SACConfig)
+    from ray_tpu_torch.rllib.impala import IMPALAConfig
+    from ray_tpu_torch.rllib.multi_agent import (IndependentEnsembleEnv,
+                                                 MultiAgentPPOConfig)
+
+    def pair(num_envs, seed):
+        return IndependentEnsembleEnv({"a0": "CartPole", "a1": "CartPole"},
+                                      num_envs=num_envs, seed=seed)
+
+    data = {}
+
+    def offline():
+        if "d" not in data:
+            data["d"] = OfflineData.from_batches(expert_batches())
+        return data["d"]
+
+    def evaluated(result, algo):
+        return algo.evaluate()["env_runners"]["episode_return_mean"]
+
+    return (
+        ("PPO CartPole (tests/test_rllib.py:118-137)",
+         lambda: (PPOConfig(device=device).environment("CartPole")
+                  .env_runners(num_env_runners=0,
+                               num_envs_per_env_runner=16,
+                               rollout_fragment_length=256)
+                  .training(lr=3e-4, minibatch_size=512).build()),
+         80, 450.0, lambda r, a: _runner_return(r)),
+        ("DQN CartPole (tests/test_rllib_dqn.py:71-94)",
+         lambda: (DQNConfig(device=device).environment("CartPole")
+                  .env_runners(num_env_runners=0, num_envs_per_env_runner=8,
+                               rollout_fragment_length=32)
+                  .training(lr=1e-3, train_batch_size=64,
+                            target_network_update_freq=250,
+                            num_steps_sampled_before_learning_starts=1000,
+                            updates_per_iteration=32).build()),
+         120, 130.0, lambda r, a: _runner_return(r)),
+        ("IMPALA CartPole, local (tests/test_rllib_impala.py:79-98)",
+         lambda: (IMPALAConfig(device=device).environment("CartPole")
+                  .env_runners(num_env_runners=0,
+                               num_envs_per_env_runner=16,
+                               rollout_fragment_length=128)
+                  .training(lr=1e-3, entropy_coeff=0.01).build()),
+         150, 150.0, lambda r, a: _runner_return(r)),
+        ("multi-agent PPO, shared policy (tests/test_rllib_impala.py:"
+         "147-172)",
+         lambda: MultiAgentPPOConfig(
+             env=pair, policies=("shared",),
+             policy_mapping={"a0": "shared", "a1": "shared"},
+             num_env_runners=0, num_envs_per_runner=8, rollout_len=128,
+             minibatch_size=512, seed=0, device=device).build(),
+         40, 100.0, lambda r, a: _agents_return(r)),
+        ("SAC Pendulum (tests/test_rllib_sac_offline.py:62-83)",
+         lambda: (SACConfig(device=device).environment("Pendulum")
+                  .env_runners(num_env_runners=0, num_envs_per_env_runner=8,
+                               rollout_fragment_length=16)
+                  .training(actor_lr=3e-4, critic_lr=3e-4,
+                            train_batch_size=128,
+                            num_steps_sampled_before_learning_starts=500,
+                            updates_per_iteration=48).build()),
+         120, -700.0, lambda r, a: _runner_return(r)),
+        ("BC, scripted expert (tests/test_rllib_sac_offline.py:139-159)",
+         lambda: (BCConfig(device=device).environment("CartPole")
+                  .training(lr=3e-3, train_batch_size=256,
+                            updates_per_iteration=150)
+                  .offline_data(offline()).build()),
+         6, 150.0, evaluated),
+        ("CQL, scripted expert (tests/test_rllib_sac_offline.py:162-183)",
+         lambda: (CQLConfig(device=device).environment("CartPole")
+                  .training(lr=1e-3, cql_alpha=1.0, train_batch_size=256,
+                            target_network_update_freq=200,
+                            updates_per_iteration=200)
+                  .offline_data(offline()).build()),
+         8, 150.0, evaluated),
+    )
+
+
+def phase11b(smi):
+    """Each learning gate on the card, stopping at its threshold as
+    ray_tpu's tests do. Returns {label: iterations to the threshold}."""
+    out = {}
+    for label, build, budget, threshold, score in rl_gate_algos("cuda"):
+        t = time.perf_counter()
+        algo = build()
+        best, it, result = -float("inf"), 0, None
+        while it < budget and best < threshold:
+            result = algo.train()
+            it += 1
+            s = score(result, algo)
+            if s is not None:
+                best = max(best, s)
+        took = time.perf_counter() - t
+        if best < threshold:
+            raise AssertionError(f"phase 11b {label}: best {best} < "
+                                 f"{threshold} within {budget} iterations")
+        if label.startswith("BC"):
+            acc = result["learners"]["default_policy"]["action_accuracy"]
+            if not acc > 0.7:
+                raise AssertionError(f"phase 11b BC: action accuracy {acc}")
+            label += f", action accuracy {acc}"
+        out[label] = it
+        log(f"  phase 11b {label}: best {best} >= {threshold} at iteration "
+            f"{it} of {budget}, {took} s; on {smi}")
+    return out
+
+
+class _Clock:
+    """Wall time and calls of a wrapped callable."""
+
+    def __init__(self, fn):
+        self.fn, self.s, self.calls = fn, 0.0, 0
+
+    def __call__(self, *a, **kw):
+        t = time.perf_counter()
+        try:
+            return self.fn(*a, **kw)
+        finally:
+            self.s += time.perf_counter() - t
+            self.calls += 1
+
+
+@contextlib.contextmanager
+def count_host_syncs():
+    """Counts the operations that wait for the card (PyTorch's sync debug
+    mode warns at each) inside the block: ``out["syncs"]``."""
+    import warnings
+
+    out = {}
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            yield out
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    out["syncs"] = sum("synchronizing" in str(w.message) for w in seen)
+
+
+def device_busy_ms(fn):
+    """fn() under the profiler, ended by a synchronize: the CUDA kernels'
+    and copies' time in ms (user annotations span other work)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(ev.time_range.elapsed_us() for ev in prof.events()
+               if ev.device_type == DeviceType.CUDA
+               and not ev.is_user_annotation) / 1e3
+
+
+def ppo_iteration_split(device, iters):
+    """PPO at the gate's config on ``device``: after one warm-up
+    iteration, ms an iteration over ``iters``, split into sampling (env
+    steps; policy forwards and host copies) and the learner update."""
+    algo = rl_gate_algos(device)[0][1]()
+    runner = algo.env_runners._local
+    algo.train()
+    step = runner.env.step = _Clock(runner.env.step)
+    sample = runner.sample = _Clock(runner.sample)
+    update = algo.learner.update_from_batch = _Clock(
+        algo.learner.update_from_batch)
+    t = time.perf_counter()
+    for _ in range(iters):
+        algo.train()
+    if device == "cuda":
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t) / iters * 1e3
+    steps = 16 * 256
+    return algo, {
+        "iteration_ms": wall,
+        "sampling_ms": sample.s / iters * 1e3,
+        "env_step_ms": step.s / iters * 1e3,
+        "forward_and_copy_ms": (sample.s - step.s) / iters * 1e3,
+        "update_ms": update.s / iters * 1e3,
+        "env_steps_per_s": steps / (sample.s / iters),
+    }
+
+
+def off_policy_iteration_split(algo, warmup):
+    """One iteration of a DQN or SAC algorithm after ``warmup``
+    iterations (learning has started): ms of the iteration, of the
+    collection (env steps; forwards and copies) and of the updates, env
+    steps/s, host syncs, and one update's wall and (profiled) device busy
+    time."""
+    for _ in range(warmup):
+        algo.train()
+    if len(algo.buffer) < algo.config.learning_starts:
+        raise AssertionError("phase 11c: learning has not started")
+    runner = algo._local_runner
+    step = runner.env.step = _Clock(runner.env.step)
+    collect = algo._collect = _Clock(algo._collect)
+    update = algo.learner_group.update_from_batch = _Clock(
+        algo.learner_group.update_from_batch)
+    with count_host_syncs() as syncs:
+        t = time.perf_counter()
+        algo.train()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+    learner = algo.learner_group._local
+    batch = algo.buffer.sample(algo.config.train_batch_size)
+    learner.update_from_batch(batch)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    learner.update_from_batch(batch)
+    torch.cuda.synchronize()
+    update_ms = (time.perf_counter() - t) * 1e3
+    busy = device_busy_ms(lambda: learner.update_from_batch(batch))
+    steps = algo.config.rollout_steps * algo.config.num_envs_per_runner
+    return {"iteration_ms": wall, "collect_ms": collect.s * 1e3,
+            "env_step_ms": step.s * 1e3,
+            "forward_and_copy_ms": (collect.s - step.s) * 1e3,
+            "env_steps_per_s": steps / collect.s,
+            "updates": update.calls, "updates_ms": update.s * 1e3,
+            "host_syncs": syncs["syncs"], "update_ms": update_ms,
+            "update_busy_ms": busy, "update_idle_share": 1 - busy / update_ms}
+
+
+def phase11c(smi):
+    """Where an iteration's time goes: PPO at the gate's config on the card
+    (sampling and update, host syncs, env steps/s, one profiled update's
+    device busy time and idle share), the same on the CPU, then one DQN
+    and one SAC iteration on the card."""
+    algo, split = ppo_iteration_split("cuda", iters=3)
+    with count_host_syncs() as syncs:
+        algo.train()
+        torch.cuda.synchronize()
+    batch = algo.env_runners._local.sample()
+    learner = algo.learner
+    learner.update_from_batch(batch)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    learner.update_from_batch(batch)
+    torch.cuda.synchronize()
+    update_ms = (time.perf_counter() - t) * 1e3
+    busy = device_busy_ms(lambda: learner.update_from_batch(batch))
+    sample_busy = device_busy_ms(algo.env_runners._local.sample)
+    log(f"  phase 11c PPO on the card (16 envs x 256 steps, 4 epochs of "
+        f"minibatch 512, hidden 64), ms an iteration, mean of 3: "
+        f"{json.dumps(split)}; host syncs an iteration {syncs['syncs']}; "
+        f"one update: {update_ms} ms wall, device busy {busy} ms (profiled),"
+        f" idle share {1 - busy / update_ms}; one rollout's device busy "
+        f"{sample_busy} ms against {split['sampling_ms']} ms of sampling; "
+        f"on {smi}")
+    _, cpu = ppo_iteration_split("cpu", iters=3)
+    log(f"  phase 11c PPO on the CPU, same config and host: {json.dumps(cpu)}"
+        f"; card / CPU iteration time {split['iteration_ms'] / cpu['iteration_ms']}"
+        f", update {split['update_ms'] / cpu['update_ms']}; on {smi}")
+    gates = rl_gate_algos("cuda")
+    for (label, build, *_), warmup in ((gates[1], 4), (gates[4], 4)):
+        out = off_policy_iteration_split(build(), warmup)
+        log(f"  phase 11c {label.split(' (')[0]} on the card, one iteration "
+            f"after learning starts: {json.dumps(out)}; on {smi}")
+
+
+def phase_rllib(smi):
+    """Phase 11: RLlib on the card (11a, 11b, 11c); no port kernel may
+    launch. Returns the gates' iterations to their thresholds."""
+    from ray_tpu_torch import ops
+
+    t0 = time.perf_counter()
+    zero_counts()
+    phase11a(smi)
+    gates = phase11b(smi)
+    phase11c(smi)
+    require_launches("phase 11", read_counts(), tuple(ops.KERNELS))
+    log(f"phase 11 RLlib: {time.perf_counter() - t0:.1f} s; on {smi}")
+    return gates
+
+
 # ---------------------------------------------------------------- phase 6
 
 class Timer:
@@ -2492,6 +2993,10 @@ def main() -> int:
 
     t_start = time.perf_counter()
     smi, name = phase_device()
+    if args == ["--rllib"]:
+        phase_rllib(smi)
+        log(f"total {time.perf_counter() - t_start:.1f} s on {smi}")
+        return 0
     phase_build()
     if args == ["--spec-ab"]:
         spec_ab(smi)
@@ -2512,6 +3017,7 @@ def main() -> int:
     for kernel in TRAIN_ONLY:
         launches[kernel] = train[kernel]
     zoo = phase_zoo(smi)
+    phase_rllib(smi)
     rows = phase_timing(launches, tier)
     for row in rows:
         if row["name"] in TRAIN_ONLY:

@@ -15,11 +15,15 @@ priority preemption) and the ``serve.llm.LLMEngine`` facade — and the
 single-card training step: ``parallel.spmd`` (``init_train_state``,
 ``make_train_step``, ``default_optimizer``) over ``models.llama.loss_fn``
 (remat, chunked cross-entropy), causal flash attention forward and
-backward, and the fused ops' backward. ``ROADMAP.md`` lists what is left
-(among it every multi-chip path).
+backward, and the fused ops' backward; the other model families
+(``models.mixtral``, ``vit``, ``t5``, ``diffusion``); and ``rllib`` in
+its local modes (env runners, PPO/DQN/SAC/IMPALA/BC/CQL learners and
+algorithms, multi-agent PPO). ``ROADMAP.md`` lists what is left (among
+it every multi-chip path and everything that rides the actor runtime).
 
 Entry points that make tensors (``init_params``, ``init_kv_cache``,
-``LLMEngine``, ``spmd.init_train_state``) take ``device=None``, meaning
+``LLMEngine``, ``spmd.init_train_state``, the ``rllib`` learners,
+runners and configs) take ``device=None``, meaning
 the card; without one they raise. Pass ``device="cpu"`` to run the plain
 versions on the CPU.
 """

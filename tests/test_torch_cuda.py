@@ -865,3 +865,65 @@ def test_tiny_unet_forward_on_the_card_matches_the_cpu(card):
         return diffusion.forward(p, x.to(dev), t.to(dev), cfg)
 
     _bf16_close(*_card_and_cpu(run))
+
+
+def _rl_close(got, want, what, floor=1e-30):
+    """Phase 11a's tolerance: 1e-4 of the tensor's largest value (f32,
+    TF32 off; the card sums in another order); a scalar stat's scale is
+    max(|stat|, 1), as the CPU tests hold stats against ``ray_tpu``'s."""
+    got, want = torch.as_tensor(got).float().cpu(), torch.as_tensor(
+        want).float().cpu()
+    tol = 1e-4 * max(want.abs().max().item(), floor)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=tol, msg=what)
+
+
+def test_rllib_ppo_and_sac_updates_on_the_card_match_the_cpu(card):
+    """One PPO update (the permutations fed) and one SAC update (the
+    Gaussian draws fed) on the card and on the CPU from the same seed's
+    weights: every parameter and every stat within 1e-4."""
+    import numpy as np
+
+    from ray_tpu_torch.rllib import PPOLearner, SACLearner
+    from ray_tpu_torch.rllib import models
+
+    rng = np.random.default_rng(0)
+    T, B = 32, 8
+    ppo_batch = {
+        "obs": rng.normal(size=(T, B, 4)).astype(np.float32),
+        "actions": rng.integers(0, 2, (T, B)).astype(np.int32),
+        "logp": -rng.uniform(0.5, 0.9, (T, B)).astype(np.float32),
+        "values": rng.normal(size=(T, B)).astype(np.float32),
+        "rewards": np.ones((T, B), np.float32),
+        "terminated": rng.random((T, B)) < 0.05,
+        "truncated": np.zeros((T, B), bool),
+        "bootstrap_value": np.zeros((T, B), np.float32),
+        "last_value": rng.normal(size=B).astype(np.float32),
+    }
+    perms = np.stack([rng.permutation(T * B) for _ in range(4)])
+    sac_batch = {
+        "obs": rng.normal(size=(128, 3)).astype(np.float32),
+        "actions": rng.uniform(-2, 2, (128, 1)).astype(np.float32),
+        "rewards": rng.normal(size=128).astype(np.float32),
+        "next_obs": rng.normal(size=(128, 3)).astype(np.float32),
+        "dones": np.zeros(128, np.float32),
+    }
+    noise = [rng.normal(size=(128, 1)).astype(np.float32) for _ in range(2)]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        ppo = PPOLearner(4, 2, minibatch_size=64, seed=1, device=dev)
+        ppo_stats = ppo.update_from_batch(ppo_batch, perms=perms)
+        sac = SACLearner(3, 1, act_scale=2.0, seed=1, device=dev)
+        grads, sac_stats, _ = sac.compute_grads(sac_batch, noise=noise)
+        sac.apply_grads(grads)
+        out[dev] = (ppo_stats, models.leaves(ppo.params), sac_stats,
+                    models.leaves(sac.actor) + models.leaves(sac.critic)
+                    + models.leaves(sac.target_critic) + [sac.log_alpha])
+    for i, (got, want) in enumerate(zip(out["cuda"], out["cpu"])):
+        if isinstance(want, dict):
+            assert set(got) == set(want)
+            for k in want:
+                _rl_close(got[k], want[k], k, floor=1.0)
+        else:
+            for n, (g, w) in enumerate(zip(got, want)):
+                assert g.device.type == "cuda"
+                _rl_close(g.detach(), w.detach(), f"{i}.{n}")

@@ -39,8 +39,9 @@ def test_importing_and_serving_loads_no_jax_module():
     serve a request, then one with every engine knob on (paged decode,
     speculation, chunked prefill, int8), then take two training steps with
     remat and the fused ops, then a step of each other model (Mixtral,
-    ViT, T5, the UNet, and a UNet sample); no jax* and no ray_tpu /
-    ray_tpu.* module may load."""
+    ViT, T5, the UNet, and a UNet sample), then build RLlib's PPO and
+    take one ``train()`` step; no jax* and no ray_tpu / ray_tpu.* module
+    may load."""
     code = (
         "import sys, torch\n"
         "import ray_tpu_torch, ray_tpu_torch.ops\n"
@@ -96,6 +97,13 @@ def test_importing_and_serving_loads_no_jax_module():
         "    p, torch.randn(2, 8, 8, 1), g, dcfg), diffusion.STACKED)\n"
         "dp = diffusion.init_params(dcfg, g, 'cpu')\n"
         "assert diffusion.sample(dp, g, dcfg, batch=1).shape == (1, 8, 8, 1)\n"
+        "from ray_tpu_torch.rllib import PPOConfig\n"
+        "algo = (PPOConfig(device='cpu').environment('CartPole')\n"
+        "        .env_runners(num_envs_per_env_runner=4,\n"
+        "                     rollout_fragment_length=16)\n"
+        "        .training(minibatch_size=32).build())\n"
+        "r = algo.train()\n"
+        "assert r['num_env_steps_sampled_lifetime'] == 64, r\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'ray_tpu'))\n"
         "print('BAD', bad)\n")
@@ -139,6 +147,29 @@ def test_device_none_means_the_card():
             init(mcfg, torch.Generator().manual_seed(0))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         diffusion.cosine_schedule(diffusion.tiny_config())
+    from ray_tpu_torch import rllib
+    from ray_tpu_torch.rllib import dqn, impala, multi_agent, sac
+
+    for make in (lambda: rllib.PPOLearner(4, 2),
+                 lambda: rllib.DQNLearner(4, 2),
+                 lambda: rllib.SACLearner(3, 1),
+                 lambda: impala.IMPALALearner(4, 2),
+                 lambda: rllib.BCLearner(4, 2),
+                 lambda: rllib.CQLLearner(4, 2),
+                 lambda: rllib.EnvRunner("CartPole", 2, 4),
+                 lambda: dqn._DQNRunner("CartPole", 2),
+                 lambda: sac._SACRunner("Pendulum", 2),
+                 lambda: rllib.PPOConfig().build(),
+                 lambda: rllib.DQNConfig().build(),
+                 lambda: rllib.SACConfig().build(),
+                 lambda: impala.IMPALAConfig().build(),
+                 lambda: multi_agent.MultiAgentPPOConfig(
+                     env=lambda num_envs, seed: multi_agent.
+                     IndependentEnsembleEnv({"a": "CartPole"}, num_envs,
+                                            seed)).build(),
+                 lambda: rllib.models.from_jax_params({"w0": [1.0]})):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
     assert resolve_device("cpu") == torch.device("cpu")
 
 
