@@ -2,7 +2,7 @@
 """Run the PyTorch/CUDA port (``ray_tpu_torch``) end to end on one CUDA
 card and check it.
 
-    python3 chip_smoke.py              # phases 1-11, the smoke
+    python3 chip_smoke.py              # phases 1-12, the smoke
     python3 chip_smoke.py --spec-ab    # phases 1-2, then speculation off
                                        # against on (bf16), no result line
     python3 chip_smoke.py --flash [DIR]     # phases 1-2, the flash kernels
@@ -13,6 +13,8 @@ card and check it.
                                             # RoPE kernels, no result line
     python3 chip_smoke.py --decode-ab DIR   # --decode for DIR and this one
     python3 chip_smoke.py --rllib           # phases 1 and 11, no result line
+    python3 chip_smoke.py --serve           # phases 1-2 and 12, no result
+                                            # line
 
 ``--flash`` runs against the package of the checkout at DIR (default:
 this one): the flash kernels against their plain versions at phase 3's
@@ -71,6 +73,34 @@ script exits non-zero without printing its last line:
    own cache; spilled and pulled blocks, no rejects, pull ms a page. (c)
    f32: a one-slot engine where a priority-1 arrival parks a long
    priority-0 request; both finish with their solo runs' tokens.
+12. The serve deployment, full-depth Llama-3-8B bf16, one params tree
+    from a seed passed by reference to every engine:
+    ``ray_tpu_torch.init(local_mode=True)`` -> ``serve.run(
+    build_llm_deployment(use_gpu=True, engine_kwargs=...))`` ->
+    ``handle.remote({"prompt_ids": ...})`` -> router -> replica actor ->
+    ``LLMServer`` -> ``LLMEngine``, phase 5's engine configuration. First a
+    direct ``LLMEngine`` takes phase 5's warm-up and 16 prompts one at a
+    time (the tokens and ms each later pass is held to), then the 16 from
+    8 threads, streamed; then two direct engines in this one process take
+    the 16, alternating (two replicas without serve). (a) One replica: the
+    same sequence through the handle, tokens identical, the ms each
+    request adds against the direct engine and an echo deployment's round
+    trip (the hop alone); the closed loop; then the direct sequence again
+    beside idle serve threads, beside the bare runtime and alone (the
+    drift within the call). Two replicas: the sequence,
+    then three fresh prompts each sent
+    as reply, stream, reply (the stream equal to the second reply), then
+    four prompts sharing a 48-token prefix (the three after the first
+    report ``cached_prefix_len`` >= 48); which replica served each
+    request is read off the replicas' own ``stats()``, and every reply is
+    held to a direct engine fed that replica's requests in order; the
+    closed loop, both replicas serving. The decode kernel and the four
+    fused kernels launch, the paged and flash kernels do not. (b) One
+    replica with ``paged_decode=True``: the sequence's tokens identical
+    to the direct engine's; the paged kernel launches, the contiguous one
+    does not. Requests/s, tokens/s, TTFT and TPOT (client-side, streamed)
+    and the process's CPU cores through the handle, one replica against
+    two, beside the direct engines'.
 8. Training, after the engines are gone: full-depth Llama-3-8B in bf16
    (random weights from a seed), ``spmd.init_train_state`` ->
    ``make_train_step(default_optimizer(lr=1e-4, warmup=1))``, 5 steps on
@@ -118,9 +148,10 @@ script exits non-zero without printing its last line:
    then the host cost of the fused ops' autograd
    ``Function``. The ``kernels`` JSON line (phase 7a's launches for the
    paged kernel, phase 8's for the flash kernels, each kernel's
-   launches over phase 9 as ``launches_phase9``, and the flash rows'
-   launches a step of phase 10b as ``launches_phase10``) is printed just
-   before the last line.
+   launches over phase 9 as ``launches_phase9``, over phase 12's
+   deployments as ``launches_phase12``, and the flash rows' launches a
+   step of phase 10b as ``launches_phase10``) is printed just before the
+   last line.
 
 The last line is ``{"ok": true, "device": {...}}``. Needs one card; exits
 non-zero at once without one.
@@ -738,13 +769,10 @@ def make_engine(label, smi, **knobs):
     return eng
 
 
-def serve(label, eng, prompts, warmup, smi, new_tokens=32):
-    """8 client threads, 2 requests each, streamed; after one warm-up
-    request. Every kernel count is set to 0 just before the 16 requests
-    and read just after. Returns (launches, stats)."""
-    from ray_tpu_torch import ops
-
-    vocab = eng.cfg.vocab_size
+def closed_loop(stream, prompts, new_tokens):
+    """8 client threads, 2 of the 16 prompts each, every reply streamed by
+    ``stream(prompt, new_tokens)``. Returns ([(tokens, ttft s, first to
+    last token s)], wall s, process CPU s)."""
     results = [None] * len(prompts)
     errors = []
 
@@ -753,35 +781,28 @@ def serve(label, eng, prompts, warmup, smi, new_tokens=32):
             for j in (i, i + 8):
                 t_start = time.perf_counter()
                 toks, ttft = [], None
-                for tok in eng.generate_stream(prompts[j],
-                                               max_new_tokens=new_tokens,
-                                               timeout=600):
+                for tok in stream(prompts[j], new_tokens):
                     if ttft is None:
                         ttft = time.perf_counter() - t_start
                     toks.append(tok)
-                results[j] = (toks, ttft)
+                results[j] = (toks, ttft,
+                              time.perf_counter() - t_start - ttft)
         except BaseException as e:  # noqa: BLE001 — re-raised below
             errors.append(e)
 
-    try:
-        # Warm-up request (cuBLAS handles, first launches), then the run.
-        eng.generate(warmup, max_new_tokens=8, timeout=600)
-        for fn in ops.KERNELS.values():
-            fn.launches = 0
-        t0 = time.perf_counter()
-        threads = [threading.Thread(target=client, args=(i,))
-                   for i in range(8)]
-        for th in threads:
-            th.start()
-        for th in threads:
-            th.join(timeout=900)
-        wall = time.perf_counter() - t0
-        launches = {name: fn.launches for name, fn in ops.KERNELS.items()}
-        stats = eng.stats()
-    finally:
-        eng.close()
+    t0, cpu0 = time.perf_counter(), time.process_time()
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(8)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=900)
+    wall, cpu = time.perf_counter() - t0, time.process_time() - cpu0
     if errors:
         raise errors[0]
+    return results, wall, cpu
+
+
+def check_replies(label, results, new_tokens, vocab):
     for j, res in enumerate(results):
         if res is None or len(res[0]) != new_tokens:
             raise AssertionError(f"{label} request {j}: "
@@ -789,6 +810,28 @@ def serve(label, eng, prompts, warmup, smi, new_tokens=32):
                                  f"{new_tokens}")
         if not all(0 <= t_ < vocab for t_ in res[0]):
             raise AssertionError(f"{label} request {j}: token out of vocab")
+
+
+def serve(label, eng, prompts, warmup, smi, new_tokens=32):
+    """8 client threads, 2 requests each, streamed; after one warm-up
+    request. Every kernel count is set to 0 just before the 16 requests
+    and read just after. Returns (launches, stats)."""
+    from ray_tpu_torch import ops
+
+    def stream(prompt, n):
+        return eng.generate_stream(prompt, max_new_tokens=n, timeout=600)
+
+    try:
+        # Warm-up request (cuBLAS handles, first launches), then the run.
+        eng.generate(warmup, max_new_tokens=8, timeout=600)
+        for fn in ops.KERNELS.values():
+            fn.launches = 0
+        results, wall, _ = closed_loop(stream, prompts, new_tokens)
+        launches = {name: fn.launches for name, fn in ops.KERNELS.items()}
+        stats = eng.stats()
+    finally:
+        eng.close()
+    check_replies(label, results, new_tokens, eng.cfg.vocab_size)
     admissions = len(prompts) + 1
     if stats["host_syncs"]["prefill"] != admissions:
         raise AssertionError(f"{label}: prefill syncs {stats['host_syncs']}"
@@ -1427,6 +1470,438 @@ def phase_engine_tier(smi):
     require_launches("phase 9", launches, TRAIN_ONLY)
     log(f"phase 9 engine tier: {time.perf_counter() - t0:.1f} s, kernel "
         f"launches {launches}; on {smi}")
+    return launches
+
+
+# --------------------------------------------------------------- phase 12
+
+SERVE_NAME = "llm"
+SERVE_NEW = 32
+
+
+def serve_deploy(cfg, params, n_replicas, smi, **knobs):
+    """``serve.run(build_llm_deployment(...))`` on a fresh local runtime:
+    Llama-3-8B over ``params`` (one tree, passed by reference to every
+    replica), phase 5's engine configuration plus ``knobs``. Returns the
+    handle."""
+    import ray_tpu_torch
+    from ray_tpu_torch import serve as rserve
+    from ray_tpu_torch.serve.llm import build_llm_deployment
+
+    ray_tpu_torch.init(local_mode=True)
+    t0 = time.perf_counter()
+    h = rserve.run(build_llm_deployment(
+        SERVE_NAME, num_replicas=n_replicas, use_gpu=True,
+        engine_kwargs=dict(ENGINE_KW, cfg=cfg, params=params, **knobs)))
+    log(f"  deployment '{SERVE_NAME}': {n_replicas} replica(s), knobs "
+        f"{knobs or 'none'}, up in {time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated; on "
+        f"{smi}")
+    return h
+
+
+def serve_teardown():
+    """serve.shutdown() (replicas drained and killed, their engines
+    closed), then the runtime; the engines' caches are freed with it."""
+    import gc
+
+    import ray_tpu_torch
+    from ray_tpu_torch import serve as rserve
+
+    try:
+        rserve.shutdown()
+    finally:
+        ray_tpu_torch.shutdown()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def replica_stats():
+    """Each replica's own ``engine.stats()``, in the controller's order."""
+    import ray_tpu_torch
+
+    controller = ray_tpu_torch.get_actor("rtpu-serve-controller")
+    replicas = ray_tpu_torch.get(
+        controller.get_replicas.remote(SERVE_NAME), timeout=60)
+    return ray_tpu_torch.get(
+        [r.handle_request.remote("stats", (), {}) for r in replicas],
+        timeout=60)
+
+
+def handle_request(h, prompt, stream=False):
+    """One request through the handle. Returns (tokens, reply or None,
+    wall ms)."""
+    req = {"prompt_ids": prompt, "max_new_tokens": SERVE_NEW}
+    t0 = time.perf_counter()
+    if stream:
+        toks = list(h.options("stream", stream=True).remote(req))
+        return toks, None, (time.perf_counter() - t0) * 1e3
+    out = h.remote(req).result(timeout=600)
+    return out["token_ids"], out, (time.perf_counter() - t0) * 1e3
+
+
+def wait_resident(h, prompt, timeout=60.0):
+    """Until the router's pushed snapshots show ``prompt``'s complete
+    prefix blocks resident on some replica (the controller sweeps the
+    replicas once per reconcile period)."""
+    from ray_tpu_torch.serve.engine.kv_manager import chain_hashes
+
+    chain = set(chain_hashes(prompt, PAGE))
+    router, deadline = h._router, time.time() + timeout
+    while time.time() < deadline:
+        with router._lock:
+            fresh = router._fresh_loads()
+            if fresh and any(chain <= s.get("prefix_hashes", frozenset())
+                             for s in fresh.values()):
+                return
+        time.sleep(0.02)
+    raise AssertionError(f"phase 12: {len(prompt)}-token prompt never "
+                         "reported resident by a replica")
+
+
+def handle_closed_loop(label, h, prompts, smi, vocab):
+    """Phase 5's 16 prompts from 8 client threads through the handle,
+    streamed. Returns the numbers of the run."""
+    def stream(prompt, n):
+        return h.options("stream", stream=True).remote(
+            {"prompt_ids": prompt, "max_new_tokens": n})
+
+    results, wall, cpu = closed_loop(stream, prompts, SERVE_NEW)
+    return closed_loop_numbers(label, results, wall, cpu, replica_stats(),
+                               smi, vocab)
+
+
+def closed_loop_numbers(label, results, wall, cpu, stats, smi, vocab):
+    """The closed loop's numbers. TPOT is client-side: a request's first
+    to last streamed token over its 31 gaps (the engines' own
+    ``tpot_ms_p50`` mixes in the one-at-a-time requests they served
+    before). ``cpu_cores`` is the process's CPU seconds over the wall:
+    near 1.0, the Python threads take turns on one core."""
+    check_replies(label, results, SERVE_NEW, vocab)
+    n = len(results)
+    ttfts = sorted(r[1] for r in results)
+    tpots = sorted(r[2] / (SERVE_NEW - 1) for r in results)
+    decode_tokens = sum(len(r[0]) - 1 for r in results)
+    out = {"requests_s": n / wall, "decode_tokens_s": decode_tokens / wall,
+           "tokens_s": n * SERVE_NEW / wall,
+           "ttft_ms_p50": ttfts[n // 2] * 1e3,
+           "tpot_ms_p50": tpots[n // 2] * 1e3, "cpu_cores": cpu / wall,
+           "engine_tpot_ms_p50": [s["tpot_ms_p50"] for s in stats],
+           "requests": [s["requests"] for s in stats], "wall_s": wall}
+    log(f"  {label}: 16 requests x {SERVE_NEW} tokens from 8 threads in "
+        f"{wall} s: {out['requests_s']} requests/s, decode tokens/s "
+        f"{out['decode_tokens_s']} (all tokens/s {out['tokens_s']}), p50 "
+        f"TTFT {out['ttft_ms_p50']} ms, p50 TPOT {out['tpot_ms_p50']} ms "
+        f"(client-side, streamed, upper medians of {n}); process CPU "
+        f"{out['cpu_cores']} cores; engine tpot_ms_p50 (lifetime) "
+        f"{out['engine_tpot_ms_p50']}, requests by engine (warm-up "
+        f"included) {out['requests']}; on {smi}")
+    return out
+
+
+def direct_sequence(cfg, params, seq, label, smi, **knobs):
+    """A direct ``LLMEngine`` on the same params fed ``seq`` in order, one
+    request at a time. Returns (tokens per request, ms per request)."""
+    eng = phase9_engine(cfg, params, label, smi, **knobs)
+    toks, ms = [], []
+    try:
+        for p in seq:
+            t0 = time.perf_counter()
+            toks.append(eng.generate(p, max_new_tokens=SERVE_NEW,
+                                     timeout=600)["token_ids"])
+            ms.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        eng.close()
+    return toks, ms
+
+
+def same_tokens(label, got, want):
+    for i, (a, b) in enumerate(zip(want, got)):
+        if a != b:
+            raise AssertionError(f"{label} request {i}: tokens differ from "
+                                 f"the direct engine's: {b} vs {a}")
+    if len(got) != len(want):
+        raise AssertionError(f"{label}: {len(got)} replies for "
+                             f"{len(want)} requests")
+
+
+def echo_hop(calls=200, keep=False):
+    """The serve hop alone, in the running runtime: an echo deployment's
+    round trip through the handle, router and replica actor, no engine.
+    Returns (median, p90) ms; ``keep`` leaves the deployment up."""
+    from ray_tpu_torch import serve as rserve
+
+    @rserve.deployment(name="echo")
+    class Echo:
+        def __call__(self, x):
+            return x
+
+    h = rserve.run(Echo.bind())
+    ms = []
+    for i in range(calls):
+        t0 = time.perf_counter()
+        h.remote(i).result(timeout=60)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    if not keep:
+        rserve.delete("echo")
+    return median(ms), sorted(ms)[calls * 9 // 10]
+
+
+def phase12a_one(cfg, params, smi, seq, want, direct_ms, prompts):
+    """One replica: the sequence's tokens equal the direct engine's, the
+    serve hop's ms a request (paired with the direct engine's times on the
+    same requests), then the closed loop. Returns (launches, numbers)."""
+    h = serve_deploy(cfg, params, 1, smi)
+    try:
+        zero_counts()
+        got, ms = [], []
+        for p in seq:
+            toks, _, t = handle_request(h, p)
+            got.append(toks)
+            ms.append(t)
+        launches = read_counts()
+        same_tokens("phase 12a, one replica", got, want)
+        hop = sorted(a - b for a, b in zip(ms, direct_ms))
+        echo = echo_hop()
+        log(f"  phase 12a one replica: {len(seq)} requests one at a time, "
+            f"tokens identical to the direct engine's; ms a request, "
+            f"median: handle {median(ms)}, direct {median(direct_ms)}; "
+            f"handle - direct, paired by request: median {median(hop)}, "
+            f"quartiles {hop[len(hop) // 4]} / {hop[3 * len(hop) // 4]}; an "
+            f"echo deployment's round trip (the hop alone, engine idle): "
+            f"median {echo[0]} ms, p90 {echo[1]} ms; on {smi}")
+        zero_counts()
+        numbers = handle_closed_loop("phase 12a one replica, closed loop",
+                                     h, prompts, smi, cfg.vocab_size)
+        add_counts(launches, read_counts())
+        numbers["hop_ms"] = median(hop)
+        numbers["echo_ms"] = echo[0]
+        # The direct sequence again, the replica gone but serve's threads
+        # up and idle (the controller's sweep, the router's long-poll, the
+        # runtime's refcount flush, an echo replica); then with serve shut
+        # down and only the runtime up; then (below) with neither: what
+        # each costs a host-bound engine, against drift over the phase.
+        from ray_tpu_torch import serve as rserve
+
+        rserve.delete(SERVE_NAME)
+        deadline = time.time() + 60
+        while any(t.name == "llm-engine" for t in threading.enumerate()):
+            if time.time() > deadline:
+                raise AssertionError("phase 12a: the replica's engine "
+                                     "thread outlived its deletion")
+            time.sleep(0.05)
+        echo_hop(keep=True)
+        beside = {"idle serve": direct_beside(cfg, params, seq, want,
+                                              "idle serve", smi)}
+        rserve.shutdown()
+        beside["the runtime alone"] = direct_beside(
+            cfg, params, seq, want, "the runtime alone", smi)
+    finally:
+        serve_teardown()
+    beside["nothing (again)"] = direct_beside(cfg, params, seq, want,
+                                              "nothing (again)", smi)
+    parts = []
+    for label, ms in beside.items():
+        d = sorted(x - y for x, y in zip(ms, direct_ms))
+        parts.append(f"beside {label}: median {median(ms)}, paired "
+                     f"difference median {median(d)} (quartiles "
+                     f"{d[len(d) // 4]} / {d[3 * len(d) // 4]})")
+    log(f"  phase 12a direct engine, one request at a time, ms a request "
+        f"(alone at the phase's start: median {median(direct_ms)}); "
+        + "; ".join(parts) + f"; on {smi}")
+    numbers["beside_ms"] = {k: median(sorted(x - y for x, y in zip(
+        v, direct_ms))) for k, v in beside.items()}
+    return launches, numbers
+
+
+def direct_beside(cfg, params, seq, want, label, smi):
+    """The direct sequence once more (tokens held to ``want``); its ms a
+    request."""
+    toks, ms = direct_sequence(cfg, params, seq,
+                               f"phase 12a direct beside {label}", smi)
+    same_tokens(f"phase 12a direct beside {label}", toks, want)
+    return ms
+
+
+def phase12a_two(cfg, params, smi, seq, prompts):
+    """Two replicas: the sequence one request at a time, then streams
+    against replies, then four prompts sharing a 48-token prefix, each
+    request's serving replica read off the replicas' own stats; every
+    reply is then checked against a direct engine fed that replica's
+    requests in the same order. Then the closed loop. Returns (launches,
+    numbers)."""
+    rng = np.random.RandomState(12)
+    shared = rng.randint(0, cfg.vocab_size, 48).tolist()
+    h = serve_deploy(cfg, params, 2, smi)
+    log_ = []  # (prompt, tokens, replica, kind)
+    try:
+        zero_counts()
+        before = [s["requests"] for s in replica_stats()]
+
+        def send(p, kind):
+            toks, out, _ = handle_request(h, p, stream=kind == "stream")
+            nonlocal before
+            after = [s["requests"] for s in replica_stats()]
+            moved = [i for i in range(2) if after[i] != before[i]]
+            if len(moved) != 1 or after[moved[0]] != before[moved[0]] + 1:
+                raise AssertionError(f"phase 12a: requests by replica "
+                                     f"{before} -> {after}")
+            before = after
+            log_.append((p, toks, moved[0], kind))
+            return toks, out
+
+        for p in seq:
+            send(p, "reply")
+        # Streams against replies: fresh prompts, so after the first
+        # reply one replica alone holds each, and the router sends the
+        # stream and the second reply there (the same cached prefix, the
+        # same computation).
+        for n in (20, 29, 40):
+            p = rng.randint(0, cfg.vocab_size, n).tolist()
+            send(p, "reply")
+            wait_resident(h, p)
+            streamed, _ = send(p, "stream")
+            again, _ = send(p, "reply")
+            if streamed != again:
+                raise AssertionError(f"phase 12a: streamed {streamed} vs "
+                                     f"reply {again}")
+        cached = []
+        for i in range(4):
+            _, out = send(shared + rng.randint(0, cfg.vocab_size,
+                                               5).tolist(), "reply")
+            cached.append(out["cached_prefix_len"])
+            if i == 0:
+                wait_resident(h, shared)
+        if cached[0] != 0 or min(cached[1:]) < 48:
+            raise AssertionError(f"phase 12a: cached_prefix_len {cached}; "
+                                 "the three after the first must reuse the "
+                                 "48-token prefix")
+        routes = h._router.stats()
+        launches = read_counts()
+        log(f"  phase 12a two replicas: {len(log_)} requests one at a time "
+            f"(replies {sum(k == 'reply' for *_, k in log_)}, streams "
+            f"{sum(k == 'stream' for *_, k in log_)}), by replica "
+            f"{[sum(r == i for _, _, r, _ in log_) for i in range(2)]}; "
+            f"streams equal their replies; shared 48-token prefix: "
+            f"cached_prefix_len {cached}; router {routes}; on {smi}")
+        zero_counts()
+        numbers = handle_closed_loop("phase 12a two replicas, closed loop",
+                                     h, prompts, smi, cfg.vocab_size)
+        add_counts(launches, read_counts())
+        if min(numbers["requests"]) < 1:
+            raise AssertionError(f"phase 12a: a replica served nothing: "
+                                 f"{numbers['requests']}")
+    finally:
+        serve_teardown()
+    for r in range(2):
+        mine = [e for e in log_ if e[2] == r]
+        want, _ = direct_sequence(cfg, params, [e[0] for e in mine],
+                                  f"phase 12a replay of replica {r}", smi)
+        same_tokens(f"phase 12a replica {r}", [e[1] for e in mine], want)
+    log(f"  phase 12a two replicas: every reply and stream identical to a "
+        f"direct engine fed its replica's requests in order; on {smi}")
+    return launches, numbers
+
+
+def phase12b(cfg, params, smi, seq, want):
+    """One replica with paged_decode: the sequence's tokens equal the
+    direct (contiguous) engine's; the paged kernel runs, the contiguous one
+    does not."""
+    h = serve_deploy(cfg, params, 1, smi, paged_decode=True)
+    try:
+        zero_counts()
+        got = [handle_request(h, p)[0] for p in seq]
+        launches = read_counts()
+    finally:
+        serve_teardown()
+    same_tokens("phase 12b", got, want)
+    require_launches("phase 12b", launches, ("decode_attention",)
+                     + TRAIN_ONLY)
+    log(f"  phase 12b paged: {len(seq)} requests, tokens identical to the "
+        f"direct contiguous engine's; on {smi}")
+    return launches
+
+
+def phase_serve(smi):
+    """Phase 12: the engine served through its deployment,
+    ``ray_tpu_torch.init(local_mode=True)`` -> ``serve.run(
+    build_llm_deployment(...))`` -> ``handle.remote``, full-depth
+    Llama-3-8B bf16. Returns the kernels' launches over the deployments'
+    traffic (the direct engines' comparison runs not counted)."""
+    import gc
+
+    from ray_tpu_torch.models import llama
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(llama.LLAMA3_8B, fused_ops=True,
+                              use_decode_kernel=True)
+    params = llama.init_params(cfg, _gen(ENGINE_KW["seed"]))
+    prompts, warmup = phase5_prompts(cfg.vocab_size)
+    seq = [warmup] + prompts
+    want, direct_ms = direct_sequence(cfg, params, seq,
+                                      "phase 12 direct", smi)
+    eng = phase9_engine(cfg, params, "phase 12 direct, closed loop", smi)
+    try:
+        eng.generate(warmup, max_new_tokens=8, timeout=600)
+
+        def stream(prompt, n):
+            return eng.generate_stream(prompt, max_new_tokens=n,
+                                       timeout=600)
+
+        results, wall, cpu = closed_loop(stream, prompts, SERVE_NEW)
+        direct = closed_loop_numbers("phase 12 direct engine, closed loop",
+                                     results, wall, cpu, [eng.stats()], smi,
+                                     cfg.vocab_size)
+    finally:
+        eng.close()
+    # Two engines in this one process and no serve: the closed loop's
+    # requests alternate between them, as two replicas would take them.
+    engines = [phase9_engine(cfg, params, f"phase 12 direct pair, engine "
+                             f"{i}", smi) for i in range(2)]
+    try:
+        owner = {tuple(p): engines[j % 2] for j, p in enumerate(prompts)}
+        for e in engines:
+            e.generate(warmup, max_new_tokens=8, timeout=600)
+
+        def pair_stream(prompt, n):
+            return owner[tuple(prompt)].generate_stream(
+                prompt, max_new_tokens=n, timeout=600)
+
+        results, wall, cpu = closed_loop(pair_stream, prompts, SERVE_NEW)
+        pair = closed_loop_numbers(
+            "phase 12 two direct engines, closed loop", results, wall, cpu,
+            [e.stats() for e in engines], smi, cfg.vocab_size)
+    finally:
+        for e in engines:
+            e.close()
+    launches = {}
+    a1, one = phase12a_one(cfg, params, smi, seq, want, direct_ms, prompts)
+    a2, two = phase12a_two(cfg, params, smi, seq, prompts)
+    add_counts(launches, a1)
+    add_counts(launches, a2)
+    require_launches("phase 12a", launches,
+                     ("paged_decode_attention",) + TRAIN_ONLY)
+    add_counts(launches, phase12b(cfg, params, smi, seq, want))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 12 serve: decode tokens/s direct {direct['decode_tokens_s']}"
+        f" (two direct engines {pair['decode_tokens_s']}), one replica "
+        f"{one['decode_tokens_s']}, two replicas {two['decode_tokens_s']} "
+        f"(two/one {two['decode_tokens_s'] / one['decode_tokens_s']}); "
+        "requests/s "
+        f"{direct['requests_s']}, {one['requests_s']}, {two['requests_s']}; "
+        f"p50 TTFT ms {direct['ttft_ms_p50']}, {one['ttft_ms_p50']}, "
+        f"{two['ttft_ms_p50']}; p50 TPOT ms {direct['tpot_ms_p50']}, "
+        f"{one['tpot_ms_p50']}, {two['tpot_ms_p50']}; process CPU cores "
+        f"{direct['cpu_cores']}, {one['cpu_cores']}, {two['cpu_cores']}; "
+        f"handle - direct {one['hop_ms']} ms a request (median; the direct "
+        f"engine beside, less alone: {one['beside_ms']}), echo hop "
+        f"{one['echo_ms']} ms; "
+        f"{time.perf_counter() - t0:.1f} s; kernel launches {launches}; on "
+        f"{smi}")
     return launches
 
 
@@ -2578,7 +3053,7 @@ def row_ms(rows, name):
     return next(r["ms"] for r in rows if r["name"] == name)
 
 
-def phase_timing(launches, launches_phase9):
+def phase_timing(launches, launches_phase9, launches_phase12):
     from ray_tpu_torch.ops import (KERNELS, apply_rope,
                                    decode_attention_reference,
                                    paged_decode_attention_reference,
@@ -2602,7 +3077,8 @@ def phase_timing(launches, launches_phase9):
                "source": KERNEL_META[name][0],
                "replaces": KERNEL_META[name][1],
                "launches": launches[name],
-               "launches_phase9": launches_phase9[name], "max_abs_err": err,
+               "launches_phase9": launches_phase9[name],
+               "launches_phase12": launches_phase12[name], "max_abs_err": err,
                "ms": timer(kernel), "plain_ms": timer(plain),
                "bound_ms": bound, "bound_by": by,
                "library_ms": timer(library) if library else None,
@@ -2998,6 +3474,10 @@ def main() -> int:
         log(f"total {time.perf_counter() - t_start:.1f} s on {smi}")
         return 0
     phase_build()
+    if args == ["--serve"]:
+        phase_serve(smi)
+        log(f"total {time.perf_counter() - t_start:.1f} s on {smi}")
+        return 0
     if args == ["--spec-ab"]:
         spec_ab(smi)
         log(f"total {time.perf_counter() - t_start:.1f} s on {smi}")
@@ -3013,12 +3493,13 @@ def main() -> int:
     launches["paged_decode_attention"] = paged["paged_decode_attention"]
     phase_all_knobs(smi)
     tier = phase_engine_tier(smi)
+    served = phase_serve(smi)
     train = phase_train(smi)
     for kernel in TRAIN_ONLY:
         launches[kernel] = train[kernel]
     zoo = phase_zoo(smi)
     phase_rllib(smi)
-    rows = phase_timing(launches, tier)
+    rows = phase_timing(launches, tier, served)
     for row in rows:
         if row["name"] in TRAIN_ONLY:
             row["launches_phase10"] = zoo[row["name"]]

@@ -18,8 +18,19 @@ single-card training step: ``parallel.spmd`` (``init_train_state``,
 backward, and the fused ops' backward; the other model families
 (``models.mixtral``, ``vit``, ``t5``, ``diffusion``); and ``rllib`` in
 its local modes (env runners, PPO/DQN/SAC/IMPALA/BC/CQL learners and
-algorithms, multi-agent PPO). ``ROADMAP.md`` lists what is left (among
-it every multi-chip path and everything that rides the actor runtime).
+algorithms, multi-agent PPO); and the in-process actor runtime with the
+serve stack on it: ``init(local_mode=True)`` (``core.local_runtime``: tasks,
+actors, objects on threads), ``serve`` (controller, router, replicas,
+handles, streaming) and ``serve.llm.build_llm_deployment``, so
+``serve.run(build_llm_deployment(engine_kwargs=...))`` serves the engine
+through ``handle.remote({"prompt_ids": [...]})``. ``ROADMAP.md`` lists
+what is left (among it every multi-chip path, the cluster runtime and
+what rides it: the disaggregated deployment, remote env runners, learner
+gangs).
+
+The tests run the serve path on the CPU (``tests/test_torch_serve*.py``,
+``device="cpu"`` in ``engine_kwargs``); ``python3 chip_smoke.py --serve``
+runs it on the card at full Llama-3-8B.
 
 Entry points that make tensors (``init_params``, ``init_kv_cache``,
 ``LLMEngine``, ``spmd.init_train_state``, the ``rllib`` learners,
@@ -45,4 +56,35 @@ def resolve_device(device=None) -> torch.device:
     return torch.device(device)
 
 
-__all__ = ["resolve_device"]
+from ray_tpu_torch import exceptions  # noqa: E402
+from ray_tpu_torch.actor import ActorClass, ActorHandle  # noqa: E402
+from ray_tpu_torch.api import (available_resources, cancel,  # noqa: E402
+                               cluster_resources, get, get_actor, init,
+                               is_initialized, kill, method, nodes, put,
+                               remote, shutdown, wait)
+from ray_tpu_torch.core.object_ref import ObjectRef  # noqa: E402
+from ray_tpu_torch.core.runtime_context import \
+    get_runtime_context  # noqa: E402
+
+__all__ = [
+    "resolve_device",
+    "init",
+    "shutdown",
+    "is_initialized",
+    "remote",
+    "method",
+    "get",
+    "put",
+    "wait",
+    "kill",
+    "cancel",
+    "get_actor",
+    "nodes",
+    "cluster_resources",
+    "available_resources",
+    "ObjectRef",
+    "ActorClass",
+    "ActorHandle",
+    "get_runtime_context",
+    "exceptions",
+]

@@ -540,6 +540,52 @@ def test_engine_roles_fleet_and_preemption_on_the_card(card):
         b.close()
 
 
+
+def test_llm_deployment_on_the_card_matches_the_cpu(card):
+    """``serve.run(build_llm_deployment(use_gpu=True))`` on the local
+    runtime at ``tiny_config`` (f32, fused ops on): two replicas on the
+    card (``device`` left to its default) serve the tokens of one CPU
+    replica on the same weights, replies and streams; the fused kernels
+    run on the card."""
+    import ray_tpu_torch
+    from ray_tpu_torch import ops, serve
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.serve.llm import build_llm_deployment
+
+    cfg = llama.tiny_config(max_seq_len=64, fused_ops=True)
+    params = llama.init_params(cfg, torch.Generator().manual_seed(5), "cpu")
+    on_card = {k: ({n: w.cuda() for n, w in v.items()}
+                   if isinstance(v, dict) else v.cuda())
+               for k, v in params.items()}
+    kw = dict(max_batch=2, max_len=64, prompt_buckets=[8, 16, 32],
+              decode_chunk=4, prefix_block=8)
+    prompts = ([5, 9, 3, 7], list(range(1, 20)), [2] * 9)
+    outs, streams = {}, {}
+    ray_tpu_torch.init(local_mode=True)
+    try:
+        for where, p, extra in (("cpu", params, dict(device="cpu")),
+                                ("cuda", on_card, {})):
+            h = serve.run(build_llm_deployment(
+                name=f"llm-{where}", num_replicas=1 if where == "cpu" else 2,
+                use_gpu=where == "cuda",
+                engine_kwargs=dict(cfg=cfg, params=p, **kw, **extra)))
+            for fn in ops.KERNELS.values():
+                fn.launches = 0
+            outs[where] = [h.remote({"prompt_ids": x, "max_new_tokens": 12})
+                           .result(timeout=120)["token_ids"]
+                           for x in prompts]
+            streams[where] = list(h.options("stream", stream=True).remote(
+                {"prompt_ids": prompts[1], "max_new_tokens": 12}))
+            if where == "cuda":
+                launches = {n: fn.launches for n, fn in ops.KERNELS.items()}
+    finally:
+        serve.shutdown()
+        ray_tpu_torch.shutdown()
+    assert outs["cuda"] == outs["cpu"]
+    assert streams["cuda"] == streams["cpu"] == outs["cpu"][1]
+    for name in ("rms_norm", "rms_norm_residual", "qk_rope", "swiglu"):
+        assert launches[name] > 0, launches
+
 # ------------------------------------------------------------- training
 
 

@@ -40,8 +40,9 @@ def test_importing_and_serving_loads_no_jax_module():
     speculation, chunked prefill, int8), then take two training steps with
     remat and the fused ops, then a step of each other model (Mixtral,
     ViT, T5, the UNet, and a UNet sample), then build RLlib's PPO and
-    take one ``train()`` step; no jax* and no ray_tpu / ray_tpu.* module
-    may load."""
+    take one ``train()`` step, then serve the engine through
+    ``build_llm_deployment`` on the local runtime (a reply and a stream);
+    no jax* and no ray_tpu / ray_tpu.* module may load."""
     code = (
         "import sys, torch\n"
         "import ray_tpu_torch, ray_tpu_torch.ops\n"
@@ -104,6 +105,17 @@ def test_importing_and_serving_loads_no_jax_module():
         "        .training(minibatch_size=32).build())\n"
         "r = algo.train()\n"
         "assert r['num_env_steps_sampled_lifetime'] == 64, r\n"
+        "from ray_tpu_torch import serve\n"
+        "from ray_tpu_torch.serve.llm import build_llm_deployment\n"
+        "ray_tpu_torch.init(local_mode=True)\n"
+        "h = serve.run(build_llm_deployment(num_replicas=2, engine_kwargs=\n"
+        "    dict(cfg=cfg, params=p, max_batch=2, max_len=64,\n"
+        "         prompt_buckets=[8, 16], device='cpu')))\n"
+        "req = {'prompt_ids': [1, 2, 3], 'max_new_tokens': 3}\n"
+        "assert h.remote(req).result(timeout=60)['num_generated'] == 3\n"
+        "assert len(list(h.options('stream', stream=True).remote(req))) == 3\n"
+        "serve.shutdown()\n"
+        "ray_tpu_torch.shutdown()\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'ray_tpu'))\n"
         "print('BAD', bad)\n")
