@@ -2,7 +2,7 @@
 """Run the PyTorch/CUDA port (``ray_tpu_torch``) end to end on one CUDA
 card and check it.
 
-    python3 chip_smoke.py              # phases 1-12, the smoke
+    python3 chip_smoke.py              # phases 1-13, the smoke
     python3 chip_smoke.py --spec-ab    # phases 1-2, then speculation off
                                        # against on (bf16), no result line
     python3 chip_smoke.py --flash [DIR]     # phases 1-2, the flash kernels
@@ -14,6 +14,8 @@ card and check it.
     python3 chip_smoke.py --decode-ab DIR   # --decode for DIR and this one
     python3 chip_smoke.py --rllib           # phases 1 and 11, no result line
     python3 chip_smoke.py --serve           # phases 1-2 and 12, no result
+                                            # line
+    python3 chip_smoke.py --cluster         # phases 1-2 and 13, no result
                                             # line
 
 ``--flash`` runs against the package of the checkout at DIR (default:
@@ -101,6 +103,29 @@ script exits non-zero without printing its last line:
     does not. Requests/s, tokens/s, TTFT and TPOT (client-side, streamed)
     and the process's CPU cores through the handle, one replica against
     two, beside the direct engines'.
+13. The cluster runtime, after phase 12: ``ray_tpu_torch.init()`` (a head,
+    a node manager, worker processes over the port's shm object store,
+    whose library phase 2 builds with g++ beside the kernels). (a) The
+    card counted as ``GPU`` 1.0; a GPU task sees it, a CPU task's
+    ``resolve_device(None)`` raises; a CUDA bf16 tensor bit-equal through
+    put/get and a GPU task's argument and return. (b) One replica in a
+    worker process, ``build_llm_deployment(use_gpu=True, engine_kwargs=
+    dict(ENGINE_KW, cfg=...))`` (the replica draws the weights from the
+    seed on its card; the class swapped for ``counting_server()``'s
+    subclass of ``LLMServer``, which reads the replica process's kernel
+    counters): phase 5's warm-up and 16 prompts one at a time, tokens
+    identical to a direct engine here fed the same sequence; the closed
+    loop; an echo deployment's round trip across processes. (c) Two
+    replicas of ``{"GPU": 0.5}`` in two worker processes on the one card:
+    both hold the tree (their own ``memory_allocated``, and nvidia-smi's
+    compute apps and card memory), the sequence one request at a time
+    (each request's replica read off the replicas' ``stats()``), the
+    closed loop, every reply held to a direct engine fed its replica's
+    requests. Each replica process launches the decode and the four fused
+    kernels, no paged or flash kernel. Teardown leaves no process the
+    cluster started alive and no compute app beyond those before it.
+    Decode tokens/s, TTFT, TPOT and the driver's and replicas' CPU cores,
+    beside phase 12's in the same call.
 8. Training, after the engines are gone: full-depth Llama-3-8B in bf16
    (random weights from a seed), ``spmd.init_train_state`` ->
    ``make_train_step(default_optimizer(lr=1e-4, warmup=1))``, 5 steps on
@@ -149,7 +174,8 @@ script exits non-zero without printing its last line:
    ``Function``. The ``kernels`` JSON line (phase 7a's launches for the
    paged kernel, phase 8's for the flash kernels, each kernel's
    launches over phase 9 as ``launches_phase9``, over phase 12's
-   deployments as ``launches_phase12``, and the flash rows' launches a
+   deployments as ``launches_phase12``, summed over phase 13's replica
+   processes as ``launches_phase13``, and the flash rows' launches a
    step of phase 10b as ``launches_phase10``) is printed just before the
    last line.
 
@@ -266,12 +292,21 @@ def phase_device():
 
 def phase_build():
     from ray_tpu_torch import ops
+    from ray_tpu_torch.core import shm_store
     from ray_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
+    # The object store's library (g++) builds beside the kernels (nvcc),
+    # before phase 13's cluster starts any process.
+    store = []
+    gxx = threading.Thread(target=lambda: store.append(shm_store.build_lib()))
+    gxx.start()
     ops.build_kernels()
+    gxx.join()
+    if not store:
+        raise AssertionError("phase 2: the shm store library did not build")
     log(f"phase 2 build: {time.perf_counter() - t0:.3f} s "
-        f"({', '.join(_build.SOURCES)})")
+        f"({', '.join(_build.SOURCES)}; {store[0].name})")
     for name in _build.SOURCES:
         if name == "flash_attention":
             flash_ptxas_report()
@@ -769,16 +804,16 @@ def make_engine(label, smi, **knobs):
     return eng
 
 
-def closed_loop(stream, prompts, new_tokens):
-    """8 client threads, 2 of the 16 prompts each, every reply streamed by
-    ``stream(prompt, new_tokens)``. Returns ([(tokens, ttft s, first to
-    last token s)], wall s, process CPU s)."""
+def closed_loop(stream, prompts, new_tokens, threads=8):
+    """``threads`` client threads (8: 2 of the 16 prompts each), every
+    reply streamed by ``stream(prompt, new_tokens)``. Returns ([(tokens,
+    ttft s, first to last token s)], wall s, process CPU s)."""
     results = [None] * len(prompts)
     errors = []
 
     def client(i):
         try:
-            for j in (i, i + 8):
+            for j in range(i, len(prompts), threads):
                 t_start = time.perf_counter()
                 toks, ttft = [], None
                 for tok in stream(prompts[j], new_tokens):
@@ -791,10 +826,11 @@ def closed_loop(stream, prompts, new_tokens):
             errors.append(e)
 
     t0, cpu0 = time.perf_counter(), time.process_time()
-    threads = [threading.Thread(target=client, args=(i,)) for i in range(8)]
-    for th in threads:
+    workers = [threading.Thread(target=client, args=(i,))
+               for i in range(threads)]
+    for th in workers:
         th.start()
-    for th in threads:
+    for th in workers:
         th.join(timeout=900)
     wall, cpu = time.perf_counter() - t0, time.process_time() - cpu0
     if errors:
@@ -1571,7 +1607,8 @@ def handle_closed_loop(label, h, prompts, smi, vocab):
                                smi, vocab)
 
 
-def closed_loop_numbers(label, results, wall, cpu, stats, smi, vocab):
+def closed_loop_numbers(label, results, wall, cpu, stats, smi, vocab,
+                        threads=8):
     """The closed loop's numbers. TPOT is client-side: a request's first
     to last streamed token over its 31 gaps (the engines' own
     ``tpot_ms_p50`` mixes in the one-at-a-time requests they served
@@ -1588,7 +1625,8 @@ def closed_loop_numbers(label, results, wall, cpu, stats, smi, vocab):
            "tpot_ms_p50": tpots[n // 2] * 1e3, "cpu_cores": cpu / wall,
            "engine_tpot_ms_p50": [s["tpot_ms_p50"] for s in stats],
            "requests": [s["requests"] for s in stats], "wall_s": wall}
-    log(f"  {label}: 16 requests x {SERVE_NEW} tokens from 8 threads in "
+    log(f"  {label}: {n} requests x {SERVE_NEW} tokens from {threads} "
+        f"threads in "
         f"{wall} s: {out['requests_s']} requests/s, decode tokens/s "
         f"{out['decode_tokens_s']} (all tokens/s {out['tokens_s']}), p50 "
         f"TTFT {out['ttft_ms_p50']} ms, p50 TPOT {out['tpot_ms_p50']} ms "
@@ -1827,7 +1865,8 @@ def phase_serve(smi):
     ``ray_tpu_torch.init(local_mode=True)`` -> ``serve.run(
     build_llm_deployment(...))`` -> ``handle.remote``, full-depth
     Llama-3-8B bf16. Returns the kernels' launches over the deployments'
-    traffic (the direct engines' comparison runs not counted)."""
+    traffic (the direct engines' comparison runs not counted) and the
+    closed loops' numbers (``direct``, ``pair``, ``one``, ``two``)."""
     import gc
 
     from ray_tpu_torch.models import llama
@@ -1902,7 +1941,376 @@ def phase_serve(smi):
         f"{one['echo_ms']} ms; "
         f"{time.perf_counter() - t0:.1f} s; kernel launches {launches}; on "
         f"{smi}")
-    return launches
+    return launches, {"direct": direct, "pair": pair, "one": one,
+                      "two": two}
+
+
+# --------------------------------------------------------------- phase 13
+
+CLUSTER_NAME = "llm13"
+
+
+def counting_server():
+    """``LLMServer`` with three methods of the script's own, reached
+    through the replica actor's ``handle_request``: the kernel counters,
+    and the pid, card bytes allocated and CPU seconds of the replica's
+    process. Defined in a
+    function, so the cluster ships the class by value to the replica's
+    worker process."""
+    from ray_tpu_torch.serve.llm import LLMServer
+
+    class CountingLLMServer(LLMServer):
+        def zero_launches(self):
+            from ray_tpu_torch import ops
+
+            for fn in ops.KERNELS.values():
+                fn.launches = 0
+
+        def launches(self):
+            from ray_tpu_torch import ops
+
+            return {name: fn.launches for name, fn in ops.KERNELS.items()}
+
+        def process(self):
+            return (os.getpid(), torch.cuda.memory_allocated(),
+                    time.process_time())
+
+    return CountingLLMServer
+
+
+def cluster_deploy(cfg, n_replicas, smi, gpu):
+    """``build_llm_deployment(use_gpu=True, engine_kwargs=dict(ENGINE_KW,
+    cfg=cfg, seed=...))`` on the running cluster, its replicas asking
+    ``{"GPU": gpu}`` each and built on ``counting_server()`` in place of
+    ``LLMServer``: each replica's process draws its own weights on the
+    card from the seed, so no tree travels. Returns (handle, replicas)."""
+    import ray_tpu_torch
+    from ray_tpu_torch import serve as rserve
+    from ray_tpu_torch.serve.llm import build_llm_deployment
+
+    dep = build_llm_deployment(
+        CLUSTER_NAME, num_replicas=n_replicas, use_gpu=True,
+        engine_kwargs=dict(ENGINE_KW, cfg=cfg))
+    dep = dep.options(ray_actor_options={"resources": {"GPU": gpu}})
+    dep._cls = counting_server()
+    t0 = time.perf_counter()
+    h = rserve.run(dep)
+    controller = ray_tpu_torch.get_actor("rtpu-serve-controller")
+    replicas = ray_tpu_torch.get(
+        controller.get_replicas.remote(CLUSTER_NAME), timeout=120)
+    procs = [p[:2] for p in replica_call(replicas, "process")]
+    log(f"  cluster deployment '{CLUSTER_NAME}': {n_replicas} replica(s) "
+        f"of {{'GPU': {gpu}}} each, up in {time.perf_counter() - t0:.1f} s;"
+        f" replica processes (pid, card bytes allocated): {procs}; driver "
+        f"pid {os.getpid()}; on {smi}")
+    tree = cfg.param_count() * 2
+    if any(pid == os.getpid() or mem < tree for pid, mem in procs) or len(
+            {pid for pid, _ in procs}) != n_replicas:
+        raise AssertionError(f"phase 13: each replica must hold its "
+                             f"{tree}-byte tree in a worker process of its "
+                             f"own: {procs}")
+    return h, replicas, procs
+
+
+def replica_call(replicas, method):
+    import ray_tpu_torch
+
+    return ray_tpu_torch.get(
+        [r.handle_request.remote(method, (), {}) for r in replicas],
+        timeout=120)
+
+
+def compute_apps():
+    """``nvidia-smi``'s compute apps as [(pid, used MiB)], and the card's
+    used MiB. In a container the pids may be another namespace's (the
+    chip machine lists every process as pid 1), so callers match pids
+    only when they are ours."""
+    def query(*args):
+        return subprocess.run(
+            ["nvidia-smi", *args, "--format=csv,noheader,nounits"],
+            capture_output=True, text=True, check=True,
+            timeout=60).stdout.strip().splitlines()
+
+    apps = []
+    for line in query("--query-compute-apps=pid,used_memory"):
+        pid, mib = (x.strip() for x in line.split(","))
+        apps.append((int(pid), float(mib)))
+    return apps, float(query("--query-gpu=memory.used")[0])
+
+
+def alive(pid):
+    """True while ``pid`` runs (a zombie counts as gone)."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] != "Z"
+    except FileNotFoundError:
+        return False
+
+
+def cluster_closed_loop(label, h, replicas, prompts, smi, vocab,
+                        threads=8):
+    """The closed loop through the handle; ``cpu_cores`` is the driver's,
+    ``replica_cpu_cores`` each replica process's CPU seconds over the
+    loop's wall time. With 8 threads the 16 requests keep one engine's 8
+    slots full; with 16, two engines' 16."""
+    def stream(prompt, n):
+        return h.options("stream", stream=True).remote(
+            {"prompt_ids": prompt, "max_new_tokens": n})
+
+    cpu0 = [p[2] for p in replica_call(replicas, "process")]
+    results, wall, cpu = closed_loop(stream, prompts, SERVE_NEW, threads)
+    cpu1 = [p[2] for p in replica_call(replicas, "process")]
+    numbers = closed_loop_numbers(label, results, wall, cpu,
+                                  replica_call(replicas, "stats"), smi,
+                                  vocab, threads)
+    numbers["replica_cpu_cores"] = [(b - a) / wall
+                                    for a, b in zip(cpu0, cpu1)]
+    log(f"  {label}: replica processes' CPU cores over the loop "
+        f"{numbers['replica_cpu_cores']}")
+    return numbers
+
+
+def phase13a(smi, name):
+    """The runtime on the card: ``init()`` counts the card, a GPU task
+    sees it, a CPU task's ``resolve_device(None)`` raises, a CUDA bf16
+    tensor round-trips bit-equal through put/get and a GPU task."""
+    import ray_tpu_torch
+
+    res = ray_tpu_torch.cluster_resources()
+    if res.get("GPU") != 1.0:
+        raise AssertionError(f"phase 13a: cluster_resources() {res}")
+
+    @ray_tpu_torch.remote(num_gpus=1)
+    def card_name(x):
+        return torch.cuda.get_device_name(0), os.getpid(), x.device.type, x
+
+    @ray_tpu_torch.remote
+    def cpu_resolve():
+        try:
+            ray_tpu_torch.resolve_device(None)
+        except RuntimeError as e:
+            return os.getpid(), str(e)
+        return os.getpid(), None
+
+    t = _randn((1024, 4096), torch.bfloat16, 130)
+    t0 = time.perf_counter()
+    back = ray_tpu_torch.get(ray_tpu_torch.put(t), timeout=120)
+    put_ms = (time.perf_counter() - t0) * 1e3
+    got_name, gpu_pid, where, echoed = ray_tpu_torch.get(
+        card_name.remote(t), timeout=300)
+    cpu_pid, refused = ray_tpu_torch.get(cpu_resolve.remote(), timeout=300)
+    bits = t.view(torch.int16)
+    if not (back.is_cuda and torch.equal(back.view(torch.int16), bits)):
+        raise AssertionError("phase 13a: put/get changed a CUDA tensor")
+    if not (where == "cuda" and echoed.is_cuda
+            and torch.equal(echoed.view(torch.int16), bits)):
+        raise AssertionError("phase 13a: a GPU task's argument or return "
+                             "changed a CUDA tensor")
+    if got_name != name or refused is None:
+        raise AssertionError(f"phase 13a: GPU task saw {got_name!r}; CPU "
+                             f"task's resolve_device: {refused!r}")
+    log(f"phase 13a runtime: cluster_resources {res}; a GPU task (pid "
+        f"{gpu_pid}) sees {got_name}; a CPU task (pid {cpu_pid}) "
+        f"resolve_device(None) raises ({refused!r}); a [1024, 4096] bf16 "
+        f"CUDA tensor bit-equal through put/get ({put_ms:.1f} ms) and a "
+        f"GPU task's argument and return; on {smi}")
+    return [gpu_pid, cpu_pid]
+
+
+def phase13b(cfg, params, smi, seq, prompts):
+    """One replica in a worker process: the sequence's tokens equal a
+    direct engine's in this process fed the same sequence, the closed
+    loop, an echo deployment's round trip across processes. Returns
+    (launches, numbers, pids)."""
+    from ray_tpu_torch import serve as rserve
+
+    want, direct_ms = direct_sequence(cfg, params, seq, "phase 13b direct",
+                                      smi)
+    h, replicas, procs = cluster_deploy(cfg, 1, smi, 1.0)
+    try:
+        replica_call(replicas, "zero_launches")
+        got, ms = [], []
+        for p in seq:
+            toks, _, t = handle_request(h, p)
+            got.append(toks)
+            ms.append(t)
+        same_tokens("phase 13b, one replica", got, want)
+        numbers = cluster_closed_loop("phase 13b one replica in a worker "
+                                      "process, closed loop", h, replicas,
+                                      prompts, smi, cfg.vocab_size)
+        numbers["saturated"] = cluster_closed_loop(
+            "phase 13b one replica, 16 threads", h, replicas, prompts, smi,
+            cfg.vocab_size, threads=16)
+        (launches,) = replica_call(replicas, "launches")
+        echo = echo_hop()
+        numbers["echo_ms"] = echo[0]
+        log(f"  phase 13b one replica: {len(seq)} requests one at a time, "
+            f"tokens identical to the direct engine's; ms a request, "
+            f"median: handle {median(ms)}, direct {median(direct_ms)}; an "
+            f"echo deployment's round trip across processes: median "
+            f"{echo[0]} ms, p90 {echo[1]} ms; replica launches {launches}; "
+            f"on {smi}")
+    finally:
+        rserve.delete(CLUSTER_NAME)
+    return launches, numbers, [pid for pid, _ in procs]
+
+
+def phase13c(cfg, params, smi, seq, prompts):
+    """Two replicas of ``{"GPU": 0.5}`` in two worker processes on the one
+    card: both hold the 8B tree at once (``nvidia-smi``), the sequence one
+    request at a time (each request's replica read off the replicas'
+    ``stats()``), the closed loop, each replica's launches; every reply
+    then held to a direct engine fed that replica's requests in order.
+    Returns (launches by replica, numbers, pids)."""
+    from ray_tpu_torch import serve as rserve
+
+    h, replicas, procs = cluster_deploy(cfg, 2, smi, 0.5)
+    log_ = []
+    try:
+        apps, used = compute_apps()
+        tree_mib = cfg.param_count() * 2 / 2**20
+        here_mib = torch.cuda.memory_allocated() / 2**20
+        listed = {pid for pid, _ in apps}
+        ours = [pid for pid, _ in procs if pid in listed]
+        log(f"  phase 13c nvidia-smi: compute apps (pid, MiB) {apps}, card "
+            f"memory used {used} MiB; the replicas' pids {procs} "
+            f"({'listed' if ours else 'not in this pid namespace'}); the 8B "
+            f"tree is {tree_mib:.0f} MiB, this process holds "
+            f"{here_mib:.0f} MiB; on {smi}")
+        # Three processes at least hold the card (this one and the two
+        # replicas), and the card holds two trees beyond this process's.
+        if (len(apps) < 3 or used < here_mib + 2 * tree_mib
+                or (ours and len(ours) != 2)):
+            raise AssertionError(f"phase 13c: nvidia-smi must show both "
+                                 f"replica processes holding the tree: "
+                                 f"{apps}, {used} MiB used, vs {procs}")
+        replica_call(replicas, "zero_launches")
+        before = [s["requests"] for s in replica_call(replicas, "stats")]
+        for p in seq:
+            toks, _, _ = handle_request(h, p)
+            after = [s["requests"] for s in replica_call(replicas, "stats")]
+            moved = [i for i in range(2) if after[i] != before[i]]
+            if len(moved) != 1 or after[moved[0]] != before[moved[0]] + 1:
+                raise AssertionError(f"phase 13c: requests by replica "
+                                     f"{before} -> {after}")
+            before = after
+            log_.append((p, toks, moved[0]))
+        numbers = cluster_closed_loop("phase 13c two replicas in two worker "
+                                      "processes, closed loop", h, replicas,
+                                      prompts, smi, cfg.vocab_size)
+        numbers["saturated"] = cluster_closed_loop(
+            "phase 13c two replicas, 16 threads", h, replicas, prompts, smi,
+            cfg.vocab_size, threads=16)
+        if min(numbers["requests"]) < 1:
+            raise AssertionError(f"phase 13c: a replica served nothing: "
+                                 f"{numbers['requests']}")
+        launches = replica_call(replicas, "launches")
+        log(f"  phase 13c: {len(seq)} requests one at a time, by replica "
+            f"{[sum(r == i for *_, r in log_) for i in range(2)]}; launches "
+            f"by replica process {launches}; on {smi}")
+    finally:
+        rserve.delete(CLUSTER_NAME)
+    for r in range(2):
+        mine_seq = [e for e in log_ if e[2] == r]
+        want, _ = direct_sequence(cfg, params, [e[0] for e in mine_seq],
+                                  f"phase 13c replay of replica {r}", smi)
+        same_tokens(f"phase 13c replica {r}", [e[1] for e in mine_seq],
+                    want)
+    log(f"  phase 13c: every reply identical to a direct engine fed its "
+        f"replica's requests in order; on {smi}")
+    return launches, numbers, [pid for pid, _ in procs]
+
+
+def phase_cluster(smi, name, phase12=None):
+    """Phase 13: the cluster runtime on the card. ``ray_tpu_torch.init()``
+    (a head, a node manager, worker processes over the shm store), then
+    Llama-3-8B replicas served from worker processes. Returns the kernels'
+    launches over the deployments' traffic, summed over the replica
+    processes (the direct engines' comparison runs not counted)."""
+    import gc
+
+    import ray_tpu_torch
+    from ray_tpu_torch import serve as rserve
+    from ray_tpu_torch.models import llama
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(llama.LLAMA3_8B, fused_ops=True,
+                              use_decode_kernel=True)
+    # The replicas draw the same tree from ENGINE_KW's seed on their card;
+    # the driver's direct engines read this one (one tree here at most).
+    params = llama.init_params(cfg, _gen(ENGINE_KW["seed"]))
+    prompts, warmup = phase5_prompts(cfg.vocab_size)
+    seq = [warmup] + prompts
+    apps_before = len(compute_apps()[0])
+    rt = ray_tpu_torch.init(object_store_memory=2 << 30)
+    pids = []
+    try:
+        pids += phase13a(smi, name)
+        b_launches, one, b_pids = phase13b(cfg, params, smi, seq, prompts)
+        c_launches, two, c_pids = phase13c(cfg, params, smi, seq, prompts)
+        pids += b_pids + c_pids
+    finally:
+        procs = list(rt._procs)
+        try:
+            rserve.shutdown()
+        finally:
+            ray_tpu_torch.shutdown()
+    pids += [p.pid for p in procs]
+    deadline = time.time() + 30
+    while any(alive(pid) for pid in pids):
+        if time.time() > deadline:
+            raise AssertionError(f"phase 13: cluster processes outlived "
+                                 f"shutdown: {[p for p in pids if alive(p)]}")
+        time.sleep(0.1)
+    apps, _ = compute_apps()
+    if len(apps) > apps_before or any(pid in pids for pid, _ in apps):
+        raise AssertionError(f"phase 13: the card still holds memory of "
+                             f"cluster processes: {apps} (before the "
+                             f"cluster: {apps_before} app(s))")
+    for launches in [b_launches] + c_launches:
+        require_launches("phase 13 replica process", launches,
+                         ("paged_decode_attention",) + TRAIN_ONLY)
+    total = {}
+    for launches in [b_launches] + c_launches:
+        add_counts(total, launches)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    beside = ""
+    if phase12 is not None:
+        beside = (f"; phase 12 in this call (one process, local runtime): "
+                  f"one replica {phase12['one']['decode_tokens_s']} decode "
+                  f"tokens/s, TTFT {phase12['one']['ttft_ms_p50']} ms, TPOT "
+                  f"{phase12['one']['tpot_ms_p50']} ms, CPU cores "
+                  f"{phase12['one']['cpu_cores']}; two replicas "
+                  f"{phase12['two']['decode_tokens_s']}, "
+                  f"{phase12['two']['ttft_ms_p50']}, "
+                  f"{phase12['two']['tpot_ms_p50']}, "
+                  f"{phase12['two']['cpu_cores']}; two direct engines "
+                  f"{phase12['pair']['decode_tokens_s']}, "
+                  f"{phase12['pair']['ttft_ms_p50']}, "
+                  f"{phase12['pair']['tpot_ms_p50']}, "
+                  f"{phase12['pair']['cpu_cores']}; echo hop in one process "
+                  f"{phase12['one']['echo_ms']} ms")
+    log(f"phase 13 cluster: decode tokens/s one replica (worker process) "
+        f"{one['decode_tokens_s']}, two replicas (two processes) "
+        f"{two['decode_tokens_s']} (two/one "
+        f"{two['decode_tokens_s'] / one['decode_tokens_s']}); from 16 "
+        f"threads {one['saturated']['decode_tokens_s']} and "
+        f"{two['saturated']['decode_tokens_s']} (two/one "
+        f"{two['saturated']['decode_tokens_s'] / one['saturated']['decode_tokens_s']}"
+        f", p50 TPOT ms {one['saturated']['tpot_ms_p50']} and "
+        f"{two['saturated']['tpot_ms_p50']}); p50 TTFT ms "
+        f"{one['ttft_ms_p50']}, {two['ttft_ms_p50']}; p50 TPOT ms "
+        f"{one['tpot_ms_p50']}, {two['tpot_ms_p50']}; driver process CPU "
+        f"cores {one['cpu_cores']}, {two['cpu_cores']}; echo hop across "
+        f"processes {one['echo_ms']} ms{beside}; teardown left no process "
+        f"of {len(set(pids))} and no compute app of theirs; "
+        f"{time.perf_counter() - t0:.1f} s; kernel launches {total}; on "
+        f"{smi}")
+    return total
 
 
 # ---------------------------------------------------------------- phase 8
@@ -3478,6 +3886,10 @@ def main() -> int:
         phase_serve(smi)
         log(f"total {time.perf_counter() - t_start:.1f} s on {smi}")
         return 0
+    if args == ["--cluster"]:
+        phase_cluster(smi, name)
+        log(f"total {time.perf_counter() - t_start:.1f} s on {smi}")
+        return 0
     if args == ["--spec-ab"]:
         spec_ab(smi)
         log(f"total {time.perf_counter() - t_start:.1f} s on {smi}")
@@ -3493,7 +3905,8 @@ def main() -> int:
     launches["paged_decode_attention"] = paged["paged_decode_attention"]
     phase_all_knobs(smi)
     tier = phase_engine_tier(smi)
-    served = phase_serve(smi)
+    served, phase12 = phase_serve(smi)
+    cluster = phase_cluster(smi, name, phase12)
     train = phase_train(smi)
     for kernel in TRAIN_ONLY:
         launches[kernel] = train[kernel]
@@ -3503,6 +3916,7 @@ def main() -> int:
     for row in rows:
         if row["name"] in TRAIN_ONLY:
             row["launches_phase10"] = zoo[row["name"]]
+        row["launches_phase13"] = cluster[row["name"]]
     fused_apply_cost(smi)
     log(f"total {time.perf_counter() - t_start:.1f} s on {smi}")
     print(json.dumps({"kernels": rows}), flush=True)

@@ -18,19 +18,29 @@ single-card training step: ``parallel.spmd`` (``init_train_state``,
 backward, and the fused ops' backward; the other model families
 (``models.mixtral``, ``vit``, ``t5``, ``diffusion``); and ``rllib`` in
 its local modes (env runners, PPO/DQN/SAC/IMPALA/BC/CQL learners and
-algorithms, multi-agent PPO); and the in-process actor runtime with the
-serve stack on it: ``init(local_mode=True)`` (``core.local_runtime``: tasks,
-actors, objects on threads), ``serve`` (controller, router, replicas,
-handles, streaming) and ``serve.llm.build_llm_deployment``, so
+algorithms, multi-agent PPO); the two runtimes: ``init()`` starts the
+cluster runtime (``core.cluster_runtime``: a head, a node manager and
+worker processes over the node's shm object store, ``cluster/``), and
+``init(local_mode=True)`` the in-process one (``core.local_runtime``:
+tasks, actors, objects on threads); and the serve stack on either:
+``serve`` (controller, router, replicas, handles, streaming) and
+``serve.llm.build_llm_deployment``, so
 ``serve.run(build_llm_deployment(engine_kwargs=...))`` serves the engine
-through ``handle.remote({"prompt_ids": [...]})``. ``ROADMAP.md`` lists
-what is left (among it every multi-chip path, the cluster runtime and
-what rides it: the disaggregated deployment, remote env runners, learner
+through ``handle.remote({"prompt_ids": [...]})``, each replica in a worker
+process of its own on the cluster. A worker leased with ``GPU`` sees the
+host's cards; a CPU worker sees none. ``ROADMAP.md`` lists what is left
+(among it every multi-chip path, client mode, jobs, and what rides the
+DAG channels: the disaggregated deployment, remote env runners, learner
 gangs).
 
 The tests run the serve path on the CPU (``tests/test_torch_serve*.py``,
 ``device="cpu"`` in ``engine_kwargs``); ``python3 chip_smoke.py --serve``
-runs it on the card at full Llama-3-8B.
+runs it on the card at full Llama-3-8B on the local runtime, and
+``python3 chip_smoke.py --cluster`` on the cluster runtime.
+
+Importing the package does not import ``torch``: the head and node
+processes of a cluster never need it. The modules that make tensors
+import it themselves.
 
 Entry points that make tensors (``init_params``, ``init_kv_cache``,
 ``LLMEngine``, ``spmd.init_train_state``, the ``rllib`` learners,
@@ -41,12 +51,12 @@ versions on the CPU.
 
 from __future__ import annotations
 
-import torch
 
-
-def resolve_device(device=None) -> torch.device:
+def resolve_device(device=None):
     """``None`` -> the CUDA card (raises when there is none); anything
     else -> ``torch.device(device)``."""
+    import torch
+
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(

@@ -1,20 +1,20 @@
 """Public API: init / shutdown / remote / get / put / wait / kill / actors
-(``ray_tpu/api.py``, over the in-process runtime).
+(``ray_tpu/api.py``).
 
 Parity target: python/ray/_private/worker.py public functions in the reference
 (ray.init :1275, get :2635, put :2803, wait :2868, get_actor :3013, remote
  :3256), rebuilt over the runtime interface in core/.
 
-Only ``init(local_mode=True)`` / ``init(address="local")`` starts a runtime
-here: ``LocalRuntime``, tasks on a thread pool and actors on their own
-ordered executors. Every other address, the default ``None`` included (which
-starts a cluster in ``ray_tpu``), raises ``NotImplementedError`` until the
-cluster runtime is ported (ROADMAP.md, queue 1, item 9a).
+``init()`` starts a single-node cluster (a head, a node manager and worker
+processes over the shm object store), ``init("host:port")`` joins one, and
+``init(local_mode=True)`` keeps everything in this process on threads.
+Client mode (``client://``) raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import inspect
+import os
 import threading
 from typing import Any, Dict, List, Optional, Sequence, Union
 
@@ -36,21 +36,30 @@ def init(
     address: Optional[str] = None,
     *,
     num_cpus: Optional[float] = None,
+    num_gpus: Optional[float] = None,
+    resources: Optional[Dict[str, float]] = None,
     local_mode: bool = False,
     ignore_reinit_error: bool = False,
+    object_store_memory: Optional[int] = None,
+    labels: Optional[Dict[str, str]] = None,
     _system_config: Optional[Dict[str, Any]] = None,
 ):
-    """Start the in-process runtime.
+    """Start (or connect to) a runtime.
 
+    - ``address=None``: start a single-node cluster: a head and a node
+      manager process, worker processes, the node's shm object store.
+      ``num_gpus`` takes ``ray_tpu``'s ``num_tpus`` place; without
+      ``num_cpus``/``num_gpus``/``resources`` the node counts this host's
+      CPUs and CUDA cards.
+    - ``address="host:port"``: join an existing cluster's head.
     - ``address="local"`` or ``local_mode=True``: in-process thread runtime.
-    - anything else raises ``NotImplementedError``: the cluster runtime is
-      not ported yet. It never falls back to the local runtime.
+    - ``address="client://..."`` raises ``NotImplementedError`` (client
+      mode is not ported, ROADMAP.md, queue 1, item 9a).
     """
-    if not (local_mode or address == "local"):
+    if address is not None and address.startswith("client://"):
         raise NotImplementedError(
-            f"ray_tpu_torch.init(address={address!r}): only the in-process "
-            "runtime is ported (init(local_mode=True)); the cluster runtime "
-            "is ROADMAP.md, queue 1, item 9a")
+            f"ray_tpu_torch.init(address={address!r}): client mode is not "
+            "ported (ROADMAP.md, queue 1, item 9a)")
     with _init_lock:
         if is_initialized():
             if ignore_reinit_error:
@@ -59,9 +68,26 @@ def init(
                                "ignore_reinit_error=True")
         if _system_config:
             GLOBAL_CONFIG.apply_system_config(_system_config)
-        from ray_tpu_torch.core.local_runtime import LocalRuntime
+        if object_store_memory is not None:
+            GLOBAL_CONFIG.set("object_store_memory_bytes",
+                              int(object_store_memory))
+        if address is None:
+            address = os.environ.get("RTPU_ADDRESS") or None
+        if local_mode or address == "local":
+            from ray_tpu_torch.core.local_runtime import LocalRuntime
 
-        rt = LocalRuntime(num_cpus=num_cpus)
+            rt = LocalRuntime(num_cpus=num_cpus)
+        else:
+            from ray_tpu_torch.core.cluster_runtime import ClusterRuntime
+
+            rt = ClusterRuntime(
+                address=address,
+                num_cpus=num_cpus,
+                num_gpus=num_gpus,
+                resources=resources,
+                object_store_memory=object_store_memory,
+                labels=labels,
+            )
         runtime_context.set_runtime(rt)
         return rt
 
@@ -75,12 +101,17 @@ def shutdown() -> None:
 
 
 def put(value: Any, *, _owner=None) -> ObjectRef:
+    """Seals ``value`` as an object; it cannot change after. A CUDA tensor
+    is staged through the host and comes back onto the getter's card."""
     if isinstance(value, ObjectRef):
         raise TypeError("Calling put() on an ObjectRef is not allowed")
     return require_runtime().put(value, _owner=_owner)
 
 
 def get(refs: Union[ObjectRef, Sequence[ObjectRef]], *, timeout: Optional[float] = None):
+    """The objects' values. A CPU tensor read from the shm store (so is a
+    task's argument) shares the store's pages copy-on-write: writing into
+    it is allowed and changes this value alone, never the object."""
     return require_runtime().get(refs, timeout=timeout)
 
 

@@ -1,3 +1,4 @@
-"""The in-process core runtime: ids, objects, reference counts and the
-thread-based ``LocalRuntime`` (copies of ``ray_tpu/core``'s JAX-free
-modules). The cluster runtime waits for ROADMAP.md, queue 1, item 9a."""
+"""The core runtime: ids, objects, reference counts, the thread-based
+``LocalRuntime`` and the cluster runtime's driver and worker core
+(``ClusterRuntime``, ``ClusterCore``, the shm object store); copies of
+``ray_tpu/core``'s JAX-free modules."""

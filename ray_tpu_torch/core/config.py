@@ -1,18 +1,22 @@
 """Runtime configuration flag table (``ray_tpu/core/config.py``, trimmed to
-the flags the local runtime and serve read).
+the flags the local runtime, the cluster runtime and serve read).
 
 Equivalent of the reference's RAY_CONFIG macro table (reference:
 src/ray/common/ray_config_def.h), as a typed Python registry: every flag is
 declared once with a type and a default (``ray_tpu``'s own), and is
 overridable via ``RTPU_<NAME>`` environment variables and via the
-``_system_config`` dict handed to ``ray_tpu_torch.init``. The flags of the
-cluster runtime, the object store, the proxies, SLOs, QoS and autoscaling
-come with those modules (ROADMAP.md, queue 1, item 9).
+``_system_config`` dict handed to ``ray_tpu_torch.init``. Two defaults
+differ from ``ray_tpu``'s on purpose: ``log_dir`` and
+``object_spilling_dir`` lie under the port's own directories in
+``tempfile.gettempdir()``, so the two packages' clusters never share a
+session directory. The flags of the proxies, SLOs, QoS and autoscaling come
+with those modules (ROADMAP.md, queue 1, item 9).
 """
 
 from __future__ import annotations
 
 import os
+import tempfile
 import threading
 from typing import Any, Dict
 
@@ -169,3 +173,248 @@ _d("serve_snapshot_journal", int, 64,
    "generations of per-replica change sets are journaled per "
    "deployment — long-pollers within the window receive only changed "
    "snapshots (O(touched)); anyone further behind gets a full resync")
+
+# --- cluster runtime: head, node manager, workers, object store ---
+_d("actor_connect_timeout_s", float, 120.0,
+   "waiting for a created actor's address to publish before the first "
+   "method call fails")
+_d("actor_order_states_max", int, 4096,
+   "distinct caller streams tracked per hosted actor (seq horizon + "
+   "reply memo); least-recently-active streams beyond the cap are "
+   "evicted — a dead driver's stream must not pin memo state forever")
+_d("actor_reply_memo_max", int, 1024,
+   "per-(actor, caller) LRU memo of executed calls' result batches: a "
+   "retried call whose results were already computed is answered from "
+   "the memo instead of re-executing (the at-least-once dedup half)")
+_d("actor_restart_queue_timeout_s", float, 60.0,
+   "how long queued actor calls wait for a PENDING/RESTARTING actor to "
+   "come back before failing with ActorDiedError (the restart-pending "
+   "queueing window: callers park, they don't error, while a "
+   "max_restarts recreation is in flight)")
+_d("actor_send_batch_max", int, 256,
+   "max actor calls coalesced into one push_actor_batch frame")
+_d("borrow_buffer_max", int, 100_000,
+   "cap on re-enqueued borrow notifications per unreachable owner")
+_d("borrow_flush_batch_size", int, 512,
+   "borrow registrations buffered per owner before an inline flush "
+   "(between flushes the periodic sweep delivers)")
+_d("cancelled_ids_max", int, 8192,
+   "FIFO-bounded remembered cancelled task ids (dedup for re-dispatch)")
+_d("clock_sync_period_beats", int, 10,
+   "node managers probe the head clock every N heartbeat laps and keep "
+   "an RTT-corrected EWMA offset estimate (trace_dump aligns per-node "
+   "event clocks with it); 0 disables probing")
+_d("dispatcher_idle_linger_s", float, 2.0,
+   "how long an idle per-key dispatcher thread lingers before exiting "
+   "(covers sync submit-get loops without a thread spawn per call)")
+_d("done_flusher_idle_ttl_s", float, 60.0,
+   "per-owner completion flusher thread exits after this idle time")
+_d("event_stats_enabled", bool, True, "per-handler latency accounting")
+_d("head_demand_window_max", int, 512,
+   "ring of recent unmet demands kept for the autoscaler demand report")
+_d("head_index_min_nodes", int, 64,
+   "node count at which the head switches its pick scoring and lease "
+   "census onto the O(touched) indexed paths (util buckets, implicated-"
+   "node prefilter); below it the exact full scans run — small clusters "
+   "and unit tests keep byte-identical behavior")
+_d("head_restart_actor_grace_s", float, 10.0,
+   "after a head restart, how long a recovered-ALIVE actor's host node "
+   "gets to re-register before the actor is declared dead and re-driven "
+   "through its max_restarts policy (covers the all-holders-dead case: "
+   "host node and head died together, so no worker_dead_at report ever "
+   "arrives)")
+_d("head_supervisor_poll_s", float, 0.5,
+   "driver-side head supervisor liveness poll period")
+_d("health_check_failure_threshold", int, 5, "missed pings before node is dead")
+_d("health_check_period_ms", int, 1000, "controller -> nodelet ping period")
+_d("lease_backoff_base_s", float, 0.1,
+   "declined-lease backoff floor per scheduling key")
+_d("lease_backoff_max_s", float, 0.5,
+   "declined-lease backoff ceiling per scheduling key")
+_d("lease_block_enabled", bool, True,
+   "owner-routed lease blocks: after the first head-mediated pick for a "
+   "scheduling key the head grants the owner a pre-negotiated block "
+   "(node, count, TTL) and repeat dispatch goes node-direct, skipping "
+   "the head in steady state; off = every lease pays a pick_node "
+   "round trip")
+_d("lease_block_renew_lowwater", float, 0.25,
+   "remaining/size fraction at which the owner renews its block in the "
+   "background (ahead of exhaustion, so the dispatch path never stalls "
+   "on the renew round trip)")
+_d("lease_block_size", int, 16,
+   "lease admissions pre-negotiated per block grant: each unit lets one "
+   "request_lease skip the head; bigger blocks raise the steady-state "
+   "head bypass rate (1 - 1/size) but pin placement to one node longer")
+_d("lease_block_ttl_ms", int, 10_000,
+   "lease-block validity: the node refuses admissions against an "
+   "expired block (the owner falls back to a head pick) and the expiry "
+   "sweep releases it, so a dead owner's block can never pin admission "
+   "state forever")
+_d("lease_grant_dedup_max", int, 4096,
+   "node-side FIFO window of lease ids for duplicate-grant detection")
+_d("lease_grant_push_timeout_s", float, 60.0,
+   "head -> node deadline for pushing a granted actor lease spec")
+_d("lease_linger_ms", int, 100,
+   "how long an idle lease is kept before returning the worker to its "
+   "node (covers sync submit-get loops); long lingers serialize worker "
+   "handoff between competing submitters")
+_d("lease_queue_block_ms", int, 3_000,
+   "how long a saturated node queues a lease request before declining "
+   "(spillback); reference: tasks queue at the raylet")
+_d("lease_timeout_ms", int, 10_000, "worker lease validity")
+_d("log_dir", str, os.path.join(tempfile.gettempdir(), "ray_tpu_torch", "logs"),
+   "per-process log files (the port's own, under $TMPDIR)")
+_d("log_monitor_poll_s", float, 0.5,
+   "driver log-shipper scan period over worker log files")
+_d("log_to_driver", bool, True, "ship worker stdout/stderr lines to the driver")
+_d("max_concurrent_worker_spawns", int, 4,
+   "cold worker spawns in flight per node (zygote forks are not "
+   "bounded by this; reference: worker_maximum_startup_concurrency)")
+_d("max_lineage_bytes", int, 64 * 1024**2, "lineage table cap before eviction")
+_d("max_pending_lease_requests_per_scheduling_key", int, 10, "lease pipelining cap")
+_d("max_tasks_in_flight_per_worker", int, 16,
+   "pipelined task pushes per leased worker (reference: "
+   "RAY_max_tasks_in_flight_per_worker); bigger batches amortize frame + "
+   "ack cost for short tasks, smaller keeps load balancing tight")
+_d("memory_monitor_refresh_ms", int, 1000,
+   "memory monitor sample period; 0 disables "
+   "(reference: RAY_memory_monitor_refresh_ms)")
+_d("memory_usage_threshold", float, 0.95,
+   "node memory fraction above which the memory monitor kills the "
+   "worst worker (reference: RAY_memory_usage_threshold); 1.0 disables")
+_d("node_boot_timeout_s", float, 30.0,
+   "seconds to wait for a spawned head/node process to print its address")
+_d("object_dir_journal_max", int, 8192,
+   "per-node directory mutation journal entries kept for cursor-delta "
+   "republish; a head further behind than the journal floor gets a "
+   "full snapshot instead of a replay")
+_d("object_dir_shards", int, 16,
+   "lock shards of the head object directory (oid-hash partitioned): "
+   "directory churn from object_batch frames contends on shard locks, "
+   "never on the scheduler-critical head lock")
+_d("object_locality_cache_max", int, 65_536,
+   "owner-side oid -> (node, size) locality cache entries (populated from "
+   "task completions and local puts; consulted at dispatch)")
+_d("object_notify_flush_ms", int, 5,
+   "flush window for batched object_added/object_removed notifies to the "
+   "head: puts coalesce a burst's directory updates into one object_batch "
+   "frame (0 flushes immediately, still batched per sweep)")
+_d("object_poll_interval_s", float, 0.2,
+   "sleep between remote-object readiness probes in get()/wait() "
+   "fallback polling")
+_d("object_spilling_dir", str,
+   os.path.join(tempfile.gettempdir(), "ray_tpu_torch_spill"),
+   "spill directory (the port's own, under $TMPDIR)")
+_d("object_spilling_enabled", bool, True, "spill shm objects to disk under pressure")
+_d("object_store_inline_max_bytes", int, 100 * 1024,
+   "results <= this are inlined in RPC replies / memory store instead of shm")
+_d("object_store_memory_bytes", int, 2 * 1024**3, "per-node shm store size")
+_d("object_store_prefault", bool, False,
+   "madvise(POPULATE_WRITE) the store at creation from a background thread "
+   "(costs ~1 cpu-s/GB once; enable on dedicated hosts for full put speed)")
+_d("object_store_shards", int, 8,
+   "shm store arena shards: each has its own process-shared mutex, slot "
+   "stripe and free list, so concurrent writers stop serializing on one "
+   "lock. Ceiling — tiny stores shrink it so every sub-arena stays "
+   "usefully large. NOTE: a single object cannot exceed one sub-arena "
+   "(~capacity/shards); lower this for giant-object workloads")
+_d("object_store_slots", int, 1 << 16,
+   "shm store object-table slots (max resident objects per node)")
+_d("object_transfer_chunk_bytes", int, 4 * 1024**2, "node-to-node object push chunk")
+_d("pg_bundle_retry_sleep_s", float, 0.1,
+   "head retry pause between placement-group bundle placement passes")
+_d("pipeline_short_task_s", float, 0.05,
+   "exec-time EWMA below this pipelines tasks onto busy workers (RTT "
+   "amortization); above it, one task per lease (parallelism first)")
+_d("pull_fanout_max_holders", int, 4,
+   "max holder nodes a chunked pull fans out across in parallel "
+   "(reference: object_manager Pull spreads chunk requests over copies)")
+_d("pull_fanout_min_bytes", int, 8 * 1024**2,
+   "objects at least this large pull chunks from multiple holders in "
+   "parallel; smaller ones single-stream from the nearest holder")
+_d("push_ack_idle_poll_s", float, 0.01,
+   "push-ack reaper pause when no ack is outstanding-but-ready")
+_d("push_ack_timeout_s", float, 5.0,
+   "deadline for a worker's ack of a pushed task group before the "
+   "group re-dispatches elsewhere")
+_d("put_create_retry_deadline_s", float, 60.0,
+   "how long put() waits out a concurrent writer holding the same "
+   "object slot before failing")
+_d("recent_tasks_ring", int, 512,
+   "per-owner recent task completions kept for the local state API")
+_d("recovering_ids_max", int, 4096,
+   "FIFO window of object ids currently under lineage reconstruction "
+   "(dedups concurrent recovery triggers)")
+_d("rpc_connect_timeout_s", float, 10.0, "TCP connect timeout")
+_d("rpc_control_timeout_s", float, 5.0,
+   "standard control-RPC deadline (lease return, bundle release, "
+   "object-location queries, drains)")
+_d("rpc_listen_backlog", int, 128, "server socket accept backlog")
+_d("rpc_recv_chunk_bytes", int, 1 << 20,
+   "max bytes per socket recv() in the frame reader")
+_d("rpc_retry_delay_ms", int, 100, "base retry backoff")
+_d("rpc_retry_max_attempts", int, 5, "retryable RPC attempts")
+_d("rpc_retry_min_window_s", float, 8.0,
+   "retrying_call keeps retrying INSTANT connection failures at least "
+   "this long before giving up (attempt counting alone exhausts in "
+   "~3s of backoff — less than a head/node respawn under chaos); slow "
+   "failures (timeouts) still stop after rpc_retry_max_attempts")
+_d("rpc_scatter_min_bytes", int, 64 * 1024,
+   "payloads whose pickle-5 out-of-band buffers total at least this ride "
+   "the scatter frame form: buffers go straight to sendmsg (never "
+   "flattened host-side) and land via recv_into on the receiver")
+_d("rpc_state_timeout_s", float, 10.0,
+   "registration/report RPC deadline (node/worker register, ref "
+   "bookkeeping, location publishes)")
+_d("scheduler_locality_defer_max_s", float, 3.0,
+   "max age a queued task is deferred waiting for a lease on its inputs' "
+   "holder node; past it the task dispatches to any free lease (a holder "
+   "wedged on one long task must not indefinitely delay its queue)")
+_d("scheduler_locality_enabled", bool, True,
+   "score candidate nodes by locally-resident input bytes when picking a "
+   "node for a task (reference: the raylet's locality-aware lease policy); "
+   "disable to fall back to pure pack-then-spread")
+_d("scheduler_locality_max_hint_objects", int, 16,
+   "max input-object ids shipped with a pick_node lease request as the "
+   "locality hint (largest inputs dominate; a long tail adds only bytes)")
+_d("scheduler_locality_spill_threshold", float, 0.8,
+   "holder-node utilization above which locality yields to the hybrid "
+   "policy — the spillback guard: a loaded holder must not starve tasks "
+   "that could run elsewhere")
+_d("scheduler_locality_wait_ms", int, 1000,
+   "how long a locality-hinted lease request queues at a momentarily-full "
+   "holder node before declining (the requester then excludes it and "
+   "spills back) — waiting briefly beats migrating the input bytes")
+_d("scheduler_spread_threshold", float, 0.5,
+   "hybrid policy: pack onto a node until utilization crosses this, then spread")
+_d("spill_restore_poll_s", float, 0.05,
+   "pull-manager pause between spilled-object restore attempts")
+_d("streaming_ahead_max", int, 64,
+   "default producer window: items delivered ahead of the consumer before "
+   "the streaming-generator producer pauses (reference: "
+   "_generator_backpressure_num_objects); per-task override via the "
+   "generator_backpressure_num_objects task option")
+_d("streaming_item_timeout_s", float, 600.0,
+   "how long ObjectRefGenerator.__next__ waits for the next yield before "
+   "raising GetTimeoutError (slow-but-healthy producers need headroom)")
+_d("task_event_outbox_max", int, 10_000,
+   "completed-task events buffered between flushes to the head")
+_d("task_events_buffer_size", int, 10_000, "ring buffer of per-task state events")
+_d("task_max_retries_default", int, 3, "default retries for retriable tasks")
+_d("transfer_pin_ttl_s", float, 30.0,
+   "owner-side lifetime extension for refs serialized into messages "
+   "(bridges the serialize -> add_borrower registration gap)")
+_d("worker_exec_pool_size", int, 64,
+   "worker task-execution thread pool (tasks beyond the lease slot "
+   "queue; blocked tasks yield the slot)")
+_d("worker_graceful_shutdown_s", float, 2.0,
+   "SIGTERM-to-SIGKILL grace for workers at node shutdown")
+_d("worker_pool_idle_ttl_s", float, 60.0, "idle worker reap time")
+_d("worker_pool_min_workers", int, 0, "prestarted workers per node")
+_d("worker_seen_tasks_max", int, 20_000,
+   "executed-task dedup window per worker (at-least-once pushes)")
+_d("worker_zygote_enabled", bool, True,
+   "default-env CPU workers fork from a pre-imported zygote process "
+   "(linux; ~10ms/worker instead of ~0.4s interpreter+import CPU)")
+_d("zygote_spawn_timeout_s", float, 60.0,
+   "deadline for a zygote fork round-trip (first covers import warmup)")

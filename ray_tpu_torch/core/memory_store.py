@@ -1,11 +1,11 @@
-"""In-process object store (``ray_tpu/core/memory_store.py``, without the
-cluster runtime's shm-store stubs and batch puts).
+"""In-process object store for small / inlined results.
 
 Equivalent of the reference's CoreWorkerMemoryStore
 (reference: src/ray/core_worker/store_provider/memory_store/memory_store.h):
-holds values keyed by ObjectID, wakes blocked getters, and fires async
-callbacks registered before the value arrived. In the local runtime every
-value lives here.
+holds deserialized values keyed by ObjectID, wakes blocked getters, and fires
+async callbacks registered before the value arrived.  Values larger than the
+inline threshold never land here — they go to the node's shared-memory store
+(ray_tpu_torch/core/object_store.py) and this store holds only a location stub.
 """
 
 from __future__ import annotations
@@ -19,15 +19,26 @@ from ray_tpu_torch.exceptions import GetTimeoutError
 
 
 class _Record:
-    __slots__ = ("value", "is_exception")
+    __slots__ = ("value", "is_exception", "in_plasma")
 
-    def __init__(self, value: Any, is_exception: bool = False):
+    def __init__(self, value: Any, is_exception: bool = False, in_plasma: bool = False):
         self.value = value
         self.is_exception = is_exception
+        self.in_plasma = in_plasma
+
+
+class PlasmaStub:
+    """Marker stored here when the real bytes live in the shm store."""
+
+    __slots__ = ("object_id",)
+
+    def __init__(self, object_id: ObjectID):
+        self.object_id = object_id
 
 
 class MemoryStore:
     def __init__(self):
+
         self._lock = threading.Lock()
         self._cv = threading.Condition(self._lock)
         self._objects: Dict[ObjectID, _Record] = {}
@@ -37,7 +48,7 @@ class MemoryStore:
         with self._cv:
             if object_id in self._objects:
                 return  # idempotent: retries may double-store
-            rec = _Record(value, is_exception)
+            rec = _Record(value, is_exception, isinstance(value, PlasmaStub))
             self._objects[object_id] = rec
             callbacks = self._callbacks.pop(object_id, [])
             self._cv.notify_all()
@@ -49,6 +60,35 @@ class MemoryStore:
                 # crash the delivery thread or strand later callbacks.
                 pass
 
+    def put_batch(self, items) -> None:
+        """items: [(object_id, value, is_exception)]. One lock acquisition
+        and one notify_all for a whole completion batch — per-put wakeups
+        were a measurable tax at high completion rates."""
+        fire: List[tuple] = []
+        with self._cv:
+            for object_id, value, is_exception in items:
+                if object_id in self._objects:
+                    continue  # idempotent: retries may double-store
+                rec = _Record(value, is_exception,
+                              isinstance(value, PlasmaStub))
+                self._objects[object_id] = rec
+                cbs = self._callbacks.pop(object_id, None)
+                if cbs:
+                    fire.append((cbs, rec))
+            self._cv.notify_all()
+        for cbs, rec in fire:
+            for cb in cbs:
+                try:
+                    cb(rec)
+                except Exception:
+                    # A failing callback must not abort the rest of the
+                    # batch — unrelated waiters would hang forever.
+                    pass
+
+    def contains(self, object_id: ObjectID) -> bool:
+        with self._lock:
+            return object_id in self._objects
+
     def get_async(self, object_id: ObjectID, callback: Callable[[_Record], None]) -> None:
         with self._lock:
             rec = self._objects.get(object_id)
@@ -56,6 +96,21 @@ class MemoryStore:
                 self._callbacks.setdefault(object_id, []).append(callback)
                 return
         callback(rec)
+
+    def remove_callback(self, object_id: ObjectID,
+                        callback: Callable[[_Record], None]) -> None:
+        """Deregister a pending get_async callback (e.g. wait() timed out):
+        without this, poll-style wait loops would accumulate one closure per
+        call until the object finally arrives."""
+        with self._lock:
+            cbs = self._callbacks.get(object_id)
+            if cbs is not None:
+                try:
+                    cbs.remove(callback)
+                except ValueError:
+                    pass
+                if not cbs:
+                    del self._callbacks[object_id]
 
     def get(
         self,
@@ -79,8 +134,11 @@ class MemoryStore:
         object_ids: List[ObjectID],
         num_returns: int,
         timeout: Optional[float],
+        return_all: bool = False,
     ) -> Set[ObjectID]:
-        """Returns the set of ready ids (>= num_returns unless timeout)."""
+        """Returns the set of ready ids (>= num_returns unless timeout).
+        With ``return_all``, once the threshold is met the whole list is
+        scored (batch long-poll servers want every ready id per wake)."""
         deadline = None if timeout is None else time.monotonic() + timeout
         with self._cv:
             while True:
@@ -92,7 +150,7 @@ class MemoryStore:
                 for oid in object_ids:
                     if oid in objs:
                         ready.add(oid)
-                        if len(ready) >= num_returns:
+                        if len(ready) >= num_returns and not return_all:
                             return ready
                 if len(ready) >= num_returns:
                     return ready
@@ -101,11 +159,25 @@ class MemoryStore:
                     return ready
                 self._cv.wait(timeout=remaining)
 
-    def delete(self, object_ids: List[ObjectID]) -> None:
+    def objects_view(self):
+        """The live id->record dict for GIL-atomic membership probes (the
+        wait() hot path fuses readiness into its validation pass; callers
+        must only do `in` checks, never read values or iterate)."""
+        return self._objects
+
+    def delete(self, object_ids: List[ObjectID]) -> List[ObjectID]:
+        """Returns the subset whose record was MEMORY-RESIDENT (present
+        and not a plasma stub): a released small result needs no shm-store
+        delete / unlink syscalls — the caller can skip them (hot on the
+        task-release path: every small task return pays this)."""
+        memory_only: List[ObjectID] = []
         with self._lock:
             for oid in object_ids:
-                self._objects.pop(oid, None)
+                rec = self._objects.pop(oid, None)
                 self._callbacks.pop(oid, None)
+                if rec is not None and not rec.in_plasma:
+                    memory_only.append(oid)
+        return memory_only
 
     def size(self) -> int:
         with self._lock:

@@ -1,15 +1,34 @@
 """Process-global runtime holder + public runtime context.
 
-Parity: python/ray/runtime_context.py (get_runtime_context) in the reference
-(``ray_tpu/core/runtime_context.py``).
+Parity: python/ray/runtime_context.py (get_runtime_context) in the reference.
 """
 
 from __future__ import annotations
 
+import contextvars
 import threading
+from typing import Optional
 
 _lock = threading.Lock()
 _runtime = None
+
+# Per-execution-context task info for cluster workers (task_id, actor_id,
+# resources) — set by the worker's execution loop around user code. A
+# ContextVar (not threading.local) so asyncio-actor coroutines interleaving
+# on one event-loop thread each see their OWN task context.
+_worker_ctx: "contextvars.ContextVar[Optional[dict]]" = (
+    contextvars.ContextVar("rtpu_worker_ctx", default=None))
+
+
+def current_worker_context() -> dict:
+    return _worker_ctx.get() or {}
+
+
+def set_worker_context(ctx: Optional[dict]):
+    """Returns the previous context; pass it back to restore."""
+    prev = _worker_ctx.get()
+    _worker_ctx.set(ctx)
+    return prev
 
 
 def get_runtime():
@@ -26,8 +45,7 @@ def require_runtime():
     rt = get_runtime()
     if rt is None:
         raise RuntimeError(
-            "ray_tpu_torch has not been initialized; call "
-            "ray_tpu_torch.init() first."
+            "ray_tpu_torch has not been initialized; call ray_tpu_torch.init() first."
         )
     return rt
 

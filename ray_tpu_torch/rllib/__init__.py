@@ -5,8 +5,8 @@ learners and algorithms, offline BC and CQL, multi-agent PPO, the numpy
 envs and replay buffers. Learners, runners and configs take ``device``
 (None = the card; ``"cpu"`` runs on the CPU). Remote env runners, learner
 gangs, IMPALA's asynchronous runners and ``OfflineData`` over a
-``ray_tpu.data`` ``Dataset`` ride ``ray_tpu``'s runtime and raise
-``NotImplementedError`` until the port has it.
+``ray_tpu.data`` ``Dataset`` ride the cluster runtime's actors and
+collectives, and raise ``NotImplementedError`` until the port has them.
 """
 
 from ray_tpu_torch.rllib.dqn import DQN, DQNConfig, DQNLearner

@@ -26,9 +26,10 @@ from ray_tpu_torch import resolve_device
 from ray_tpu_torch.rllib import models
 from ray_tpu_torch.rllib.env import make_env
 
-#: What a remote mode raises: the actor runtime is not ported yet.
-RUNTIME_ITEM = ("ray_tpu's actor runtime, which the port has not copied "
-                "(ROADMAP.md, queue 1, item 6)")
+#: What a remote mode raises: the cluster runtime is ported, the remote
+#: runners, learner gangs and collectives on it are not yet.
+RUNTIME_ITEM = ("the remote runner and learner actors on the cluster "
+                "runtime, not ported yet (ROADMAP.md, queue 1, item 7)")
 
 
 def obs_tensor(obs: np.ndarray, device: torch.device) -> torch.Tensor:

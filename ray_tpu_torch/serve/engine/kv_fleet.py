@@ -26,7 +26,7 @@ Differences from ``ray_tpu``: ``page_object_id`` returns the 28 bytes of
 and the stores key on them; ``GLOBAL_CONFIG``'s defaults are the module
 constants below; ``resolve_store`` returns the explicit store or the
 process-local one. ``ClusterKVPageStore`` (the shm object store and the
-head directory) waits for the port of the cluster runtime (ROADMAP).
+head directory) is still to port (ROADMAP.md, queue 1, item 9c).
 """
 
 from __future__ import annotations

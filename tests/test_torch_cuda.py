@@ -973,3 +973,103 @@ def test_rllib_ppo_and_sac_updates_on_the_card_match_the_cpu(card):
             for n, (g, w) in enumerate(zip(got, want)):
                 assert g.device.type == "cuda"
                 _rl_close(g.detach(), w.detach(), f"{i}.{n}")
+
+
+# ------------------------------------------------------ the cluster runtime
+
+
+@pytest.fixture
+def card_cluster(card):
+    """``ray_tpu_torch.init()`` on the card's host: the node counts its
+    CPUs and cards."""
+    import ray_tpu_torch
+
+    rt = ray_tpu_torch.init(object_store_memory=512 << 20)
+    try:
+        yield rt
+    finally:
+        ray_tpu_torch.shutdown()
+        for p in rt._procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=10)
+
+
+def test_cluster_gpu_actor_builds_an_engine_on_the_card(card_cluster):
+    """A GPU-leased actor builds a ``tiny_config`` engine on its card (its
+    own weights from a seed, drawn by the card's generator) and serves the
+    tokens of an engine on the CPU over the same weights, drawn here on the
+    card from the same seed and copied; a CPU pool task sees no card."""
+    import ray_tpu_torch
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.serve.llm import LLMEngine
+
+    assert ray_tpu_torch.cluster_resources().get("GPU", 0) >= 1.0
+    kw = dict(max_batch=2, max_len=64, prompt_buckets=[8, 16, 32],
+              decode_chunk=4, prefix_block=8)
+    cfg = llama.tiny_config(max_seq_len=64, fused_ops=True)
+    drawn = llama.init_params(cfg, torch.Generator("cuda").manual_seed(3),
+                              "cuda")
+    on_cpu = {k: ({n: w.cpu() for n, w in v.items()}
+                  if isinstance(v, dict) else v.cpu())
+              for k, v in drawn.items()}
+
+    @ray_tpu_torch.remote(num_gpus=1)
+    class OnCard:
+        def __init__(self):
+            self.engine = LLMEngine(cfg, seed=3, **kw)
+
+        def generate(self, prompt):
+            return (self.engine.device.type,
+                    self.engine.generate(prompt, max_new_tokens=8)
+                    ["token_ids"])
+
+    @ray_tpu_torch.remote
+    def cpu_task():
+        import torch
+
+        try:
+            ray_tpu_torch.resolve_device(None)
+            raised = False
+        except RuntimeError:
+            raised = True
+        return torch.cuda.is_available(), raised
+
+    a = OnCard.remote()
+    where, got = ray_tpu_torch.get(a.generate.remote([5, 9, 3, 7]),
+                                   timeout=300)
+    cpu_engine = LLMEngine(cfg, on_cpu, device="cpu", **kw)
+    try:
+        want = cpu_engine.generate([5, 9, 3, 7], max_new_tokens=8)
+    finally:
+        cpu_engine.close()
+    assert where == "cuda" and got == want["token_ids"]
+    assert ray_tpu_torch.get(cpu_task.remote(), timeout=120) == (False, True)
+    ray_tpu_torch.kill(a)
+
+
+def test_cluster_cuda_tensor_round_trip(card_cluster):
+    """A CUDA bf16 tensor through put/get and through a GPU task's
+    argument and return comes back on the card, bit-equal; a CPU task
+    that is handed one raises."""
+    import ray_tpu_torch
+
+    t = torch.randn(257, 33, device="cuda").to(torch.bfloat16)
+    back = ray_tpu_torch.get(ray_tpu_torch.put(t), timeout=60)
+    assert back.is_cuda and torch.equal(back.view(torch.int16),
+                                        t.view(torch.int16))
+
+    @ray_tpu_torch.remote(num_gpus=1)
+    def on_card(x):
+        return x.device.type, x * 1
+
+    where, out = ray_tpu_torch.get(on_card.remote(t), timeout=300)
+    assert where == "cuda" and out.is_cuda
+    assert torch.equal(out.view(torch.int16), t.view(torch.int16))
+
+    @ray_tpu_torch.remote
+    def on_cpu(x):
+        return x
+
+    with pytest.raises(Exception, match="without a card"):
+        ray_tpu_torch.get(on_cpu.remote(t), timeout=120)

@@ -553,7 +553,7 @@ def test_ppo_train_result_and_weights():
     lambda: LearnerGroup(lambda: None, num_learners=2),
 ], ids=["env_runner_group", "ppo", "learner_group"])
 def test_remote_modes_raise(build):
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(NotImplementedError, match="item 7"):
         build()
 
 

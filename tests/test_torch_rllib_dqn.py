@@ -235,7 +235,7 @@ def test_epsilon_greedy_runner_actions():
     lambda: DQNConfig(device=CPU).learners(num_learners=2).build(),
 ], ids=["runners", "learners"])
 def test_dqn_remote_modes_raise(build):
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(NotImplementedError, match="item 7"):
         build()
 
 

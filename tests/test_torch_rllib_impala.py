@@ -283,7 +283,7 @@ def test_multi_agent_config_checks_and_remote_mode():
         MultiAgentPPOConfig(env=_cartpole_pair, policies=("p", "q"),
                             policy_mapping={"a0": "p", "a1": "p"},
                             device=CPU).build()
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(NotImplementedError, match="item 7"):
         MultiAgentPPOConfig(env=_cartpole_pair, num_env_runners=2,
                             device=CPU).build()
 

@@ -165,7 +165,7 @@ def test_sac_runner_and_remote_modes():
             lambda: SACConfig(device=CPU).env_runners(
                 num_env_runners=2).build(),
             lambda: SACConfig(device=CPU).learners(num_learners=2).build()):
-        with pytest.raises(NotImplementedError, match="item 6"):
+        with pytest.raises(NotImplementedError, match="item 7"):
             build()
 
 
@@ -282,7 +282,7 @@ def test_offline_data_refuses_a_runtime_dataset():
     class Dataset(_Blocks):
         __module__ = "ray_tpu.data.dataset"
 
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(NotImplementedError, match="item 7"):
         OfflineData(Dataset([]))
     with pytest.raises(TypeError):
         OfflineData([1, 2, 3])

@@ -5,14 +5,20 @@ True)``: ``core/``, ``actor.py``, ``remote_function.py``, ``api.py``,
 The local-mode cases of ``tests/test_core_api.py`` (its ``local_init``
 module, all 37) run once on each package, with the same values and the
 same exception classes by name. Then: each flag of the port's trimmed
-config equals ``ray_tpu``'s ``GLOBAL_CONFIG`` default; ``init`` at any
-cluster address raises; the ``GPU`` resource under its override; actor
+config equals ``ray_tpu``'s ``GLOBAL_CONFIG`` default (the two session
+paths excepted, which are the port's own); ``init`` at each of
+``ray_tpu``'s addresses does what ``ray_tpu``'s does; the ``GPU``
+resource under its override; actor
 ``.bind`` raises; arguments pass by reference; the ``__ray_shutdown__``
 hook runs once.
 """
 
 import asyncio
 import importlib
+import os
+import pathlib
+import socket
+import tempfile
 import threading
 import time
 
@@ -551,10 +557,21 @@ def test_distributed_queue(rt):
 # ------------------------------------------------------- the port's own
 
 
+#: Flags whose default is the port's own on purpose: the session's log
+#: and spill directories, so the two packages' clusters never share one.
+_OWN_DEFAULTS = ("log_dir", "object_spilling_dir")
+
+
 @pytest.mark.parametrize("name", sorted(TCFG._flags))
 def test_config_default_equals_ray_tpu(name):
     assert TCFG._flags[name].type is JCFG._flags[name].type
-    assert TCFG._flags[name].default == JCFG._flags[name].default
+    if name in _OWN_DEFAULTS:
+        path = TCFG._flags[name].default
+        assert path != JCFG._flags[name].default
+        assert path.startswith(tempfile.gettempdir())
+        assert "ray_tpu_torch" in path
+    else:
+        assert TCFG._flags[name].default == JCFG._flags[name].default
 
 
 def test_system_config_applies_and_unknown_flag_raises():
@@ -567,15 +584,73 @@ def test_system_config_applies_and_unknown_flag_raises():
         TCFG.set("serve_handle_timeout_s",
                  TCFG._flags["serve_handle_timeout_s"].default)
     with pytest.raises(KeyError):
-        TCFG.set("object_store_memory_bytes", 1)  # not a flag of the port
+        TCFG.set("rpc_chaos_failure_prob", 0.5)  # not a flag of the port
+
+
+def _closed_port():
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _alive(pid):
+    """True while ``pid`` runs (a zombie counts as gone)."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] != "Z"
+    except FileNotFoundError:
+        return False
 
 
 @pytest.mark.parametrize("kw", [{}, {"address": None}, {"address": "auto"},
-                                {"address": "10.0.0.1:6379"},
-                                {"address": "client://10.0.0.1:10001"}])
+                                {"address": "127.0.0.1:closed"},
+                                {"address": "client://127.0.0.1:10001"}])
 def test_init_at_a_cluster_address_raises(kw):
-    with pytest.raises(NotImplementedError, match="cluster runtime"):
-        ray_tpu_torch.init(**kw)
+    """``init`` at each of ``ray_tpu``'s addresses does what ``ray_tpu``'s
+    does (``ray_tpu/api.py:60-85``): no address starts a cluster (a head, a
+    node manager, workers), and its shutdown leaves no process and no shm
+    segment; ``"auto"`` and an unreachable ``host:port`` raise
+    ``RuntimeError`` when the joining node cannot reach a head, within a
+    bounded wait; ``client://`` raises ``NotImplementedError`` (client mode
+    is not ported). The name is the one this test had while every address
+    raised."""
+    kw = dict(kw)
+    if kw.get("address") == "127.0.0.1:closed":
+        kw["address"] = f"127.0.0.1:{_closed_port()}"
+    address = kw.get("address")
+    if address is None:
+        rt = ray_tpu_torch.init(num_cpus=1, object_store_memory=32 << 20,
+                                **kw)
+        try:
+            procs = list(rt._procs)
+            segments = [n.store_name for n in rt._nodes]
+
+            @ray_tpu_torch.remote
+            def pid():
+                return os.getpid()
+
+            worker = ray_tpu_torch.get(pid.remote(), timeout=60)
+            assert ray_tpu_torch.cluster_resources()["CPU"] == 1.0
+            assert len(procs) == 2 and worker not in (os.getpid(),
+                                                      *(p.pid for p in procs))
+        finally:
+            ray_tpu_torch.shutdown()
+        assert not ray_tpu_torch.is_initialized()
+        deadline = time.monotonic() + 10
+        while any(_alive(p) for p in (worker, *(p.pid for p in procs))):
+            assert time.monotonic() < deadline, "a cluster process outlived it"
+            time.sleep(0.1)
+        for name in segments:
+            assert not pathlib.Path("/dev/shm", name.lstrip("/")).exists()
+        return
+    if address.startswith("client://"):
+        with pytest.raises(NotImplementedError, match="client mode"):
+            ray_tpu_torch.init(**kw)
+    else:
+        t0 = time.monotonic()
+        with pytest.raises(RuntimeError, match="before printing ADDRESS"):
+            ray_tpu_torch.init(**kw)
+        assert time.monotonic() - t0 < 30
     assert not ray_tpu_torch.is_initialized()
 
 
