@@ -2,7 +2,7 @@
 """Run the PyTorch/CUDA port (``ray_tpu_torch``) end to end on one CUDA
 card and check it.
 
-    python3 chip_smoke.py              # phases 1-13, the smoke
+    python3 chip_smoke.py              # phases 1-14, the smoke
     python3 chip_smoke.py --spec-ab    # phases 1-2, then speculation off
                                        # against on (bf16), no result line
     python3 chip_smoke.py --flash [DIR]     # phases 1-2, the flash kernels
@@ -15,7 +15,9 @@ card and check it.
     python3 chip_smoke.py --rllib           # phases 1 and 11, no result line
     python3 chip_smoke.py --serve           # phases 1-2 and 12, no result
                                             # line
-    python3 chip_smoke.py --cluster         # phases 1-2 and 13, no result
+    python3 chip_smoke.py --cluster         # phases 1-2, 13 and 14, no
+                                            # result line
+    python3 chip_smoke.py --disagg          # phases 1-2 and 14, no result
                                             # line
 
 ``--flash`` runs against the package of the checkout at DIR (default:
@@ -125,7 +127,32 @@ script exits non-zero without printing its last line:
     kernels, no paged or flash kernel. Teardown leaves no process the
     cluster started alive and no compute app beyond those before it.
     Decode tokens/s, TTFT, TPOT and the driver's and replicas' CPU cores,
-    beside phase 12's in the same call.
+    beside phase 12's in the same call. 13b's direct engine takes the
+    sequence twice (phase 14 sends it twice).
+14. Disaggregated serving and the cluster fleet tier, on phase 13's
+    cluster, full-depth Llama-3-8B bf16, phase 5's engine configuration.
+    (a) ``build_llm_deployment(disaggregated=True, use_gpu=True)`` with
+    each pool's replicas asking ``{"GPU": 0.5}``: one prefill and one
+    decode replica in two worker processes on the one card, each drawing
+    the weights from the seed. Phase 5's warm-up and 16 prompts one at a
+    time as replies, then again as streams, tokens identical to 13b's
+    direct engine over the same two passes; every edge a ring; the
+    prefill replica launches no decode kernel, the decode replica one a
+    layer and step; the handoff's ms a page from the replicas' own
+    timestamps (the prefill replica's channel write to the decode
+    replica's synchronized install, split at the engine's
+    ``install_async``), beside phase 9a's in-process handoff and 13a's
+    store round trip; the 8-client closed loop beside 13b's one replica.
+    Then the same with ``paged_decode=True`` on both sides: tokens
+    identical, the paged kernel launches and the contiguous one does not.
+    (b) Two colocated ``{"GPU": 0.5}`` replicas with the fleet tier on,
+    both on ``ClusterKVPageStore``: phase 9b's traffic sent to each
+    replica directly (the first spills a shared prefix's blocks under
+    eviction, the second pulls them), tokens identical to a fleet-off
+    direct engine's, spilled and pulled blocks, no rejects; pull ms a
+    page in the pulling replica (a hit in the node's shm arena across
+    processes) beside phase 9b's. Teardown is phase 13's check over both
+    phases' processes.
 8. Training, after the engines are gone: full-depth Llama-3-8B in bf16
    (random weights from a seed), ``spmd.init_train_state`` ->
    ``make_train_step(default_optimizer(lr=1e-4, warmup=1))``, 5 steps on
@@ -175,9 +202,9 @@ script exits non-zero without printing its last line:
    paged kernel, phase 8's for the flash kernels, each kernel's
    launches over phase 9 as ``launches_phase9``, over phase 12's
    deployments as ``launches_phase12``, summed over phase 13's replica
-   processes as ``launches_phase13``, and the flash rows' launches a
-   step of phase 10b as ``launches_phase10``) is printed just before the
-   last line.
+   processes as ``launches_phase13`` and over phase 14's as
+   ``launches_phase14``, and the flash rows' launches a step of phase 10b
+   as ``launches_phase10``) is printed just before the last line.
 
 The last line is ``{"ok": true, "device": {...}}``. Needs one card; exits
 non-zero at once without one.
@@ -250,6 +277,11 @@ KERNEL_META = {
     "flash_attention_bwd": ("ray_tpu_torch/csrc/flash_attention.cu",
                             "ray_tpu/ops/attention.py:162"),
 }
+
+
+# Numbers a later phase reports beside its own, in the same call: phase
+# 9a's handoff ms a page, 9b's pull ms a page, 13a's put/get round trip.
+MEASURED = {}
 
 
 def log(msg: str) -> None:
@@ -1305,6 +1337,8 @@ def phase9a(cfg, params, smi, paged, want=None):
         f"tokens) {median(inst_ms)}; on {smi}")
     if not paged:
         split = [handoff_split(pre, dec, n) for n in n_pages]
+        MEASURED["9a_ms_page"] = median([sum(x) / n
+                                         for x, n in zip(split, n_pages)])
         log(f"  phase 9a handoff transfer at each request's page count, "
             f"median ms: export {median([x[0] for x in split])}, host "
             f"{median([x[1] for x in split])}, install "
@@ -1402,6 +1436,7 @@ def phase9b(cfg, params, smi):
         t2 = time.perf_counter()
         get_ms.append((t1 - t0) * 1e3 / 2)
         inst_ms.append((t2 - t1) * 1e3 / 2)
+    MEASURED["9b_ms_page"] = (median(get_ms), median(inst_ms))
     log(f"  phase 9b: {len(sets)} pulls token-identical to the fleet-off "
         f"engine (its local prefix hits {c_hits}); spilled "
         f"{st1['kv_fleet_spilled_blocks']} blocks (kv_spill syncs "
@@ -2012,11 +2047,11 @@ def cluster_deploy(cfg, n_replicas, smi, gpu):
     return h, replicas, procs
 
 
-def replica_call(replicas, method):
+def replica_call(replicas, method, *args):
     import ray_tpu_torch
 
     return ray_tpu_torch.get(
-        [r.handle_request.remote(method, (), {}) for r in replicas],
+        [r.handle_request.remote(method, args, {}) for r in replicas],
         timeout=120)
 
 
@@ -2109,6 +2144,7 @@ def phase13a(smi, name):
     if got_name != name or refused is None:
         raise AssertionError(f"phase 13a: GPU task saw {got_name!r}; CPU "
                              f"task's resolve_device: {refused!r}")
+    MEASURED["13a_put_get_ms"] = put_ms
     log(f"phase 13a runtime: cluster_resources {res}; a GPU task (pid "
         f"{gpu_pid}) sees {got_name}; a CPU task (pid {cpu_pid}) "
         f"resolve_device(None) raises ({refused!r}); a [1024, 4096] bf16 "
@@ -2120,12 +2156,15 @@ def phase13a(smi, name):
 def phase13b(cfg, params, smi, seq, prompts):
     """One replica in a worker process: the sequence's tokens equal a
     direct engine's in this process fed the same sequence, the closed
-    loop, an echo deployment's round trip across processes. Returns
-    (launches, numbers, pids)."""
+    loop, an echo deployment's round trip across processes. The direct
+    engine then takes the sequence a second time (phase 14 sends it twice,
+    as replies and as streams). Returns (launches, numbers, pids, the
+    direct engine's tokens over both passes)."""
     from ray_tpu_torch import serve as rserve
 
-    want, direct_ms = direct_sequence(cfg, params, seq, "phase 13b direct",
-                                      smi)
+    want2, direct_ms = direct_sequence(cfg, params, seq + seq,
+                                       "phase 13b direct", smi)
+    want, direct_ms = want2[:len(seq)], direct_ms[:len(seq)]
     h, replicas, procs = cluster_deploy(cfg, 1, smi, 1.0)
     try:
         replica_call(replicas, "zero_launches")
@@ -2152,7 +2191,7 @@ def phase13b(cfg, params, smi, seq, prompts):
             f"on {smi}")
     finally:
         rserve.delete(CLUSTER_NAME)
-    return launches, numbers, [pid for pid, _ in procs]
+    return launches, numbers, [pid for pid, _ in procs], want2
 
 
 def phase13c(cfg, params, smi, seq, prompts):
@@ -2221,12 +2260,15 @@ def phase13c(cfg, params, smi, seq, prompts):
     return launches, numbers, [pid for pid, _ in procs]
 
 
-def phase_cluster(smi, name, phase12=None):
-    """Phase 13: the cluster runtime on the card. ``ray_tpu_torch.init()``
-    (a head, a node manager, worker processes over the shm store), then
-    Llama-3-8B replicas served from worker processes. Returns the kernels'
-    launches over the deployments' traffic, summed over the replica
-    processes (the direct engines' comparison runs not counted)."""
+def phase_cluster(smi, name, phase12=None, only14=False):
+    """Phases 13 and 14 on one cluster runtime on the card.
+    ``ray_tpu_torch.init()`` (a head, a node manager, worker processes over
+    the shm store), then Llama-3-8B replicas served from worker processes:
+    phase 13's colocated replicas, then phase 14's disaggregated pair and
+    fleet pair (``only14``: phase 14 alone, its direct engine run here).
+    Returns the kernels' launches over each phase's deployments' traffic,
+    summed over the replica processes (the direct engines' comparison runs
+    not counted): (phase 13's or None, phase 14's)."""
     import gc
 
     import ray_tpu_torch
@@ -2245,12 +2287,22 @@ def phase_cluster(smi, name, phase12=None):
     seq = [warmup] + prompts
     apps_before = len(compute_apps()[0])
     rt = ray_tpu_torch.init(object_store_memory=2 << 30)
-    pids = []
+    pids, one = [], None
     try:
-        pids += phase13a(smi, name)
-        b_launches, one, b_pids = phase13b(cfg, params, smi, seq, prompts)
-        c_launches, two, c_pids = phase13c(cfg, params, smi, seq, prompts)
-        pids += b_pids + c_pids
+        if only14:
+            want, _ = direct_sequence(cfg, params, seq + seq,
+                                      "phase 14 direct", smi)
+        else:
+            pids += phase13a(smi, name)
+            b_launches, one, b_pids, want = phase13b(cfg, params, smi, seq,
+                                                     prompts)
+            c_launches, two, c_pids = phase13c(cfg, params, smi, seq,
+                                               prompts)
+            pids += b_pids + c_pids
+        t14 = time.perf_counter()
+        total14, d_pids = phase14(cfg, params, smi, seq, prompts, want, one)
+        t14 = time.perf_counter() - t14
+        pids += d_pids
     finally:
         procs = list(rt._procs)
         try:
@@ -2269,15 +2321,20 @@ def phase_cluster(smi, name, phase12=None):
         raise AssertionError(f"phase 13: the card still holds memory of "
                              f"cluster processes: {apps} (before the "
                              f"cluster: {apps_before} app(s))")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phases 13-14 teardown left no process of {len(set(pids))} and no "
+        f"compute app of theirs; phase 14 took {t14:.1f} s of "
+        f"{time.perf_counter() - t0:.1f} s; on {smi}")
+    if only14:
+        return None, total14
     for launches in [b_launches] + c_launches:
         require_launches("phase 13 replica process", launches,
                          ("paged_decode_attention",) + TRAIN_ONLY)
     total = {}
     for launches in [b_launches] + c_launches:
         add_counts(total, launches)
-    del params
-    gc.collect()
-    torch.cuda.empty_cache()
     beside = ""
     if phase12 is not None:
         beside = (f"; phase 12 in this call (one process, local runtime): "
@@ -2306,11 +2363,454 @@ def phase_cluster(smi, name, phase12=None):
         f"{one['ttft_ms_p50']}, {two['ttft_ms_p50']}; p50 TPOT ms "
         f"{one['tpot_ms_p50']}, {two['tpot_ms_p50']}; driver process CPU "
         f"cores {one['cpu_cores']}, {two['cpu_cores']}; echo hop across "
-        f"processes {one['echo_ms']} ms{beside}; teardown left no process "
-        f"of {len(set(pids))} and no compute app of theirs; "
+        f"processes {one['echo_ms']} ms{beside}; kernel launches {total}; "
+        f"on {smi}")
+    return total, total14
+
+
+# --------------------------------------------------------------- phase 14
+
+DISAGG_NAME = "llm14"
+FLEET_NAME = "llm14b"
+HALF_CARD = {"resources": {"GPU": 0.5}}
+
+
+def _replica_launches(self):
+    from ray_tpu_torch import ops
+
+    return {name: fn.launches for name, fn in ops.KERNELS.items()}
+
+
+def _replica_zero_launches(self):
+    from ray_tpu_torch import ops
+
+    for fn in ops.KERNELS.values():
+        fn.launches = 0
+
+
+def _replica_process(self):
+    return os.getpid(), torch.cuda.memory_allocated(), time.process_time()
+
+
+def disagg_servers():
+    """The disaggregated pools' classes with methods of the script's own,
+    reached through the replica actor's ``handle_request``: the kernel
+    counters, the process, each edge's transport, and the handoff's
+    timestamps on the host's one clock — the prefill replica's just
+    before and just after each channel write (with the handoff's page
+    count), the decode replica's when the install loop hands the received
+    handoff to the engine, and just after the engine installed it,
+    synchronized (only while ``set_timing(True)``: the closed loop runs
+    without the sync).
+    Defined in a function, so the cluster ships the classes by value to
+    the replicas' worker processes."""
+    from ray_tpu_torch.serve.llm import DecodeLLMServer, PrefillLLMServer
+
+    class TimedPrefill(PrefillLLMServer):
+        launches = _replica_launches
+        zero_launches = _replica_zero_launches
+        process = _replica_process
+
+        def __init__(self, decode_handle, **kw):
+            super().__init__(decode_handle, **kw)
+            self.writes = []
+
+        def _negotiate_edge(self, replica, epoch):
+            edge = super()._negotiate_edge(replica, epoch)
+            send, writes = edge["writer"].send, self.writes
+
+            def timed_send(value, timeout=None):
+                t0 = time.time()
+                seq = send(value, timeout=timeout)
+                writes.append((t0, len(value[1]["pages_k"]), time.time()))
+                return seq
+
+            edge["writer"].send = timed_send
+            return edge
+
+        def transports(self):
+            with self._lock:
+                edges = list(self._edges.values())
+            return [(e["writer"].channel.transport,
+                     e["reader"].channel.transport) for e in edges]
+
+        def take_writes(self):
+            out, self.writes = self.writes, []
+            return out
+
+    class TimedDecode(DecodeLLMServer):
+        launches = _replica_launches
+        zero_launches = _replica_zero_launches
+        process = _replica_process
+
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            self.recvs, self.installs, self.timing = [], [], False
+            install_async = self.engine.install_async
+            install = self.engine._install_one
+
+            def timed_install_async(payload):
+                if self.timing:
+                    self.recvs.append(time.time())
+                return install_async(payload)
+
+            def timed_install(req, payload):
+                install(req, payload)
+                if self.timing:
+                    torch.cuda.synchronize()
+                    self.installs.append(time.time())
+
+            self.engine.install_async = timed_install_async
+            self.engine._install_one = timed_install
+
+        def set_timing(self, on):
+            self.timing, self.recvs, self.installs = on, [], []
+
+        def take_installs(self):
+            out = (self.recvs, self.installs)
+            self.recvs, self.installs = [], []
+            return out
+
+        def transports(self):
+            with self._lock:
+                return [e["info"]["transport"] for e in self._edges.values()]
+
+    return TimedPrefill, TimedDecode
+
+
+def disagg_deploy(cfg, smi, **knobs):
+    """``build_llm_deployment(disaggregated=True, use_gpu=True,
+    engine_kwargs=dict(ENGINE_KW, cfg=cfg, **knobs))`` on the running
+    cluster, each pool's replicas asking ``{"GPU": 0.5}`` (one prefill and
+    one decode replica on the one card) and built on
+    ``disagg_servers()``' classes. Each replica draws the weights from the
+    seed on its card. Returns (handle, prefill replicas, decode replicas,
+    pids)."""
+    import ray_tpu_torch
+    from ray_tpu_torch import serve as rserve
+    from ray_tpu_torch.serve.llm import build_llm_deployment
+
+    dep = build_llm_deployment(
+        DISAGG_NAME, disaggregated=True, use_gpu=True,
+        engine_kwargs=dict(ENGINE_KW, cfg=cfg, **knobs))
+    prefill_cls, decode_cls = disagg_servers()
+    decode = dep._init_args[0].options(ray_actor_options=HALF_CARD)
+    decode._cls = decode_cls
+    dep = dep.options(ray_actor_options=HALF_CARD)
+    dep._cls, dep._init_args = prefill_cls, (decode,)
+    t0 = time.perf_counter()
+    h = rserve.run(dep)
+    controller = ray_tpu_torch.get_actor("rtpu-serve-controller")
+    pre, dec = (ray_tpu_torch.get(controller.get_replicas.remote(name),
+                                  timeout=120)
+                for name in (DISAGG_NAME, f"{DISAGG_NAME}-decode"))
+    procs = [p[:2] for p in replica_call(pre + dec, "process")]
+    log(f"  disaggregated deployment '{DISAGG_NAME}', knobs {knobs or 'none'}"
+        f": {len(pre)} prefill and {len(dec)} decode replica(s) of "
+        f"{HALF_CARD['resources']} each, up in "
+        f"{time.perf_counter() - t0:.1f} s; replica processes (pid, card "
+        f"bytes allocated): {procs}; on {smi}")
+    tree = cfg.param_count() * 2
+    if (len(pre), len(dec)) != (1, 1) or any(
+            pid == os.getpid() or mem < tree for pid, mem in procs) or len(
+            {pid for pid, _ in procs}) != 2:
+        raise AssertionError(f"phase 14: each replica must hold its "
+                             f"{tree}-byte tree in a worker process of its "
+                             f"own: {procs}")
+    return h, pre, dec, [pid for pid, _ in procs]
+
+
+def handoff_ms_page(writes, recvs, installs):
+    """ms a page of each sequential handoff: from the prefill replica's
+    write to the decode replica's synchronized install, and its three
+    parts: the write (pickling and the ring or spill-file copy), the
+    delivery (the reader's wake, the copy out and the unpickling, up to
+    the engine's ``install_async``) and the engine (the install queue's
+    wait and the install itself)."""
+    if not len(writes) == len(recvs) == len(installs):
+        raise AssertionError(f"phase 14a: {len(writes)} channel writes, "
+                             f"{len(recvs)} receipts, {len(installs)} "
+                             "installs")
+    return [tuple((b - a) * 1e3 / n for a, b in
+                  ((t0, t3), (t0, t1), (t1, t2), (t2, t3)))
+            for (t0, n, t1), t2, t3 in zip(writes, recvs, installs)]
+
+
+def phase14a(cfg, smi, seq, prompts, want, paged):
+    """One prefill and one decode replica on the card: the sequence one
+    request at a time as replies, then as streams, tokens identical to the
+    direct engine's over the same two passes; ring edges; the prefill
+    replica launches no decode kernel, the decode replica one a layer and
+    step (the paged one with ``paged_decode``); the handoff's ms a page;
+    the closed loop (the first pass only). Returns (launches, numbers,
+    pids)."""
+    from ray_tpu_torch import serve as rserve
+
+    tag = "14a paged" if paged else "14a"
+    kernel = "paged_decode_attention" if paged else "decode_attention"
+    other = "decode_attention" if paged else "paged_decode_attention"
+    h, pre, dec, pids = disagg_deploy(cfg, smi, paged_decode=paged)
+    numbers = {}
+    try:
+        replica_call(pre + dec, "zero_launches")
+        replica_call(dec, "set_timing", True)
+        replica_call(pre, "take_writes")
+        steps0 = replica_call(dec, "stats")[0]["dispatches"]["decode"]
+        replies = [handle_request(h, p)[0] for p in seq]
+        (writes,) = replica_call(pre, "take_writes")
+        ((recvs, installs),) = replica_call(dec, "take_installs")
+        replica_call(dec, "set_timing", False)
+        (pre_counts,), (dec_counts,) = (replica_call(pre, "launches"),
+                                        replica_call(dec, "launches"))
+        dec_st = replica_call(dec, "stats")[0]
+        streams = [handle_request(h, p, stream=True)[0] for p in seq]
+        transports = (replica_call(pre, "transports")[0],
+                      replica_call(dec, "transports")[0])
+        if not paged:
+            numbers = cluster_closed_loop(
+                f"phase {tag} disaggregated, closed loop", h, dec, prompts,
+                smi, cfg.vocab_size)
+    finally:
+        rserve.delete(DISAGG_NAME)
+        rserve.delete(f"{DISAGG_NAME}-decode")
+    same_tokens(f"phase {tag} replies", replies, want[:len(seq)])
+    same_tokens(f"phase {tag} streams", streams, want[len(seq):])
+    if transports != ([("ring", "ring")], ["ring"]):
+        raise AssertionError(f"phase {tag}: edge transports {transports}")
+    require_launches(f"phase {tag} prefill replica", pre_counts,
+                     ("decode_attention", "paged_decode_attention")
+                     + TRAIN_ONLY)
+    require_launches(f"phase {tag} decode replica", dec_counts,
+                     (other,) + TRAIN_ONLY)
+    steps = (dec_st["dispatches"]["decode"] - steps0) * ENGINE_KW[
+        "decode_chunk"]
+    if dec_counts[kernel] != cfg.n_layers * steps:
+        raise AssertionError(f"phase {tag}: {dec_counts[kernel]} {kernel} "
+                             f"launches for {steps} decode steps of "
+                             f"{cfg.n_layers} layers")
+    split = handoff_ms_page(writes, recvs, installs)
+    per_page = [x[0] for x in split]
+    pages = [w[1] for w in writes]
+    numbers["handoff_ms_page"] = median(per_page)
+    numbers["handoff_split_ms_page"] = tuple(
+        median([x[i] for x in split]) for i in (1, 2, 3))
+    log(f"  phase {tag}: {len(seq)} requests as replies, then as streams, "
+        f"tokens identical to the direct engine's; edges (prefill kv, "
+        f"result; decode) {transports}; prefill replica launches "
+        f"{pre_counts}; decode replica launches {dec_counts} "
+        f"({dec_counts[kernel]} {kernel} = {cfg.n_layers} layers x {steps} "
+        f"steps); on {smi}")
+    log(f"  phase {tag} handoff, the prefill replica's channel write to the "
+        f"decode replica's synchronized install, ms a page: median "
+        f"{median(per_page)}, min {min(per_page)}, max {max(per_page)} over "
+        f"{len(pages)} handoffs of {min(pages)}-{max(pages)} pages of "
+        f"{page_bytes(cfg)} bytes; of it, medians: the write (pickling, the "
+        f"ring or spill-file copy) {numbers['handoff_split_ms_page'][0]}, "
+        f"the delivery (the reader's wake, the copy out, unpickling) "
+        f"{numbers['handoff_split_ms_page'][1]}, the engine (install queue "
+        f"wait and install) {numbers['handoff_split_ms_page'][2]}; on "
+        f"{smi}")
+    return {"pre": pre_counts, "dec": dec_counts}, numbers, pids
+
+
+def page_bytes(cfg):
+    """Bytes of one K+V page: every layer's rows of one prefix block."""
+    return (cfg.n_layers * cfg.n_kv_heads * PAGE * cfg.head_dim
+            * cfg.dtype.itemsize * 2)
+
+
+def fleet_server():
+    """``LLMServer`` with the kernel counters, the process, its page
+    store's class and a pull probe (store get + unpack, then the install,
+    a page at a time), reached through ``handle_request``."""
+    from ray_tpu_torch.serve.llm import LLMServer
+
+    class FleetServer(LLMServer):
+        launches = _replica_launches
+        zero_launches = _replica_zero_launches
+        process = _replica_process
+
+        def store_kind(self):
+            return type(self.engine._fleet).__name__
+
+        def fleet_ns(self):
+            return self.engine._fleet_ns
+
+        def pull_ms(self, chain, calls=5):
+            """Median ms a page of the store get + unpack (host) and of
+            the install (to the card) of ``chain``'s pages, run into slot
+            0 once this replica serves no more requests."""
+            from ray_tpu_torch.serve.engine import kv_fleet
+
+            eng, get_ms, inst_ms = self.engine, [], []
+            for _ in range(calls):
+                t0 = time.perf_counter()
+                pages = [kv_fleet.unpack_page(eng._fleet.get(
+                    kv_fleet.page_object_id(eng._fleet_ns, hh)))
+                    for hh in chain]
+                t1 = time.perf_counter()
+                eng.loop.install_page(
+                    eng.cache, torch.cat([p["k_page"] for p in pages], 2),
+                    torch.cat([p["v_page"] for p in pages], 2), 0, 0)
+                torch.cuda.synchronize()
+                t2 = time.perf_counter()
+                get_ms.append((t1 - t0) * 1e3 / len(chain))
+                inst_ms.append((t2 - t1) * 1e3 / len(chain))
+            return median(get_ms), median(inst_ms)
+
+    return FleetServer
+
+
+def phase14b(cfg, params, smi):
+    """Two colocated ``{"GPU": 0.5}`` replicas with the fleet tier on
+    (``kv_fleet_min_prefix_blocks=0``), both on ``ClusterKVPageStore``:
+    phase 9b's traffic sent to each replica directly — the first serves
+    A_i (a 32-token prefix X_i and a tail), then two disjoint prompts that
+    evict and spill X_i's blocks into the node's shm store; the second
+    serves B_i (X_i and another tail), pulling them. Tokens identical to
+    a fleet-off direct engine that serves A_i then B_i (a local prefix hit
+    at the same depth); spilled and pulled blocks, no rejects; pull ms a
+    page. Returns (launches, pids)."""
+    import ray_tpu_torch
+    from ray_tpu_torch import serve as rserve
+    from ray_tpu_torch.core.runtime_context import get_runtime
+    from ray_tpu_torch.serve.engine import kv_fleet
+    from ray_tpu_torch.serve.engine.kv_manager import chain_hashes
+    from ray_tpu_torch.serve.llm import build_llm_deployment
+
+    rng = np.random.RandomState(9)
+    v, n_new = cfg.vocab_size, 24
+    sets = []
+    for _ in range(3):
+        x = rng.randint(0, v, 32).tolist()
+        sets.append((x + rng.randint(0, v, 8).tolist(),
+                     x + rng.randint(0, v, 12).tolist(),
+                     [rng.randint(0, v, 40).tolist() for _ in range(2)]))
+    c = phase9_engine(cfg, params, "phase 14b fleet-off", smi, max_batch=2)
+    try:
+        want = [(c.generate(a, max_new_tokens=n_new,
+                            timeout=600)["token_ids"],
+                 c.generate(b, max_new_tokens=n_new,
+                            timeout=600)["token_ids"])
+                for a, b, _ in sets]
+    finally:
+        c.close()
+    dep = build_llm_deployment(
+        FLEET_NAME, num_replicas=2, use_gpu=True,
+        engine_kwargs=dict(ENGINE_KW, cfg=cfg, max_batch=2,
+                           kv_fleet_min_prefix_blocks=0))
+    dep = dep.options(ray_actor_options=HALF_CARD)
+    dep._cls = fleet_server()
+    rserve.run(dep)
+    controller = ray_tpu_torch.get_actor("rtpu-serve-controller")
+    f1, f2 = ray_tpu_torch.get(controller.get_replicas.remote(FLEET_NAME),
+                               timeout=120)
+    store = kv_fleet.ClusterKVPageStore(get_runtime())
+    try:
+        pids = [p[0] for p in replica_call([f1, f2], "process")]
+        kinds = replica_call([f1, f2], "store_kind")
+        replica_call([f1, f2], "zero_launches")
+
+        def call(r, prompt, n):
+            return ray_tpu_torch.get(r.handle_request.remote(
+                "__call__", ({"prompt_ids": prompt, "max_new_tokens": n},),
+                {}), timeout=600)["token_ids"]
+
+        ns = replica_call([f1], "fleet_ns")[0]
+        for i, (a, b, evictors) in enumerate(sets):
+            got_a = call(f1, a, n_new)
+            for e in evictors:
+                call(f1, e, 8)
+            oid = kv_fleet.page_object_id(ns, chain_hashes(a, PAGE)[1])
+            deadline = time.time() + 60
+            while not store.contains(oid):
+                if time.time() > deadline:
+                    raise AssertionError("phase 14b: A's blocks never "
+                                         f"spilled: {store.stats()}")
+                time.sleep(0.01)
+            got_b = call(f2, b, n_new)
+            if (got_a, got_b) != want[i]:
+                raise AssertionError(f"phase 14b set {i}: fleet tokens "
+                                     f"{got_a} / {got_b} vs fleet-off "
+                                     f"{want[i]}")
+        l1, l2 = replica_call([f1, f2], "launches")
+        st1, st2 = replica_call([f1, f2], "stats")
+        get_ms, inst_ms = replica_call(
+            [f2], "pull_ms", chain_hashes(sets[0][1], PAGE)[:2])[0]
+    finally:
+        rserve.delete(FLEET_NAME)
+    if kinds != ["ClusterKVPageStore"] * 2:
+        raise AssertionError(f"phase 14b: the replicas' page stores {kinds}")
+    if not (st1["kv_fleet_spilled_blocks"] > 0
+            and st2["kv_fleet_pulled_blocks"] > 0
+            and st1["kv_fleet_rejects"] == st2["kv_fleet_rejects"] == 0):
+        raise AssertionError(f"phase 14b: spilled "
+                             f"{st1['kv_fleet_spilled_blocks']}, pulled "
+                             f"{st2['kv_fleet_pulled_blocks']}, rejects "
+                             f"{st1['kv_fleet_rejects']}/"
+                             f"{st2['kv_fleet_rejects']}")
+    counts = {}
+    for launches in (l1, l2):
+        require_launches("phase 14b replica", launches,
+                         ("paged_decode_attention",) + TRAIN_ONLY)
+        add_counts(counts, launches)
+    log(f"  phase 14b: {len(sets)} pulls across two replica processes "
+        f"token-identical to the fleet-off engine; page stores {kinds}; "
+        f"spilled {st1['kv_fleet_spilled_blocks']} blocks, pulled "
+        f"{st2['kv_fleet_pulled_blocks']} in {st2['kv_fleet_hits']} hits, "
+        f"rejects 0; store {store.stats()}; launches {l1}, {l2}; on {smi}")
+    log(f"  phase 14b pull ms per page, median of 5 in the pulling replica "
+        f"(the get is a hit in the node's own shm arena, across processes, "
+        f"not a pull from another node): store get + unpack {get_ms} "
+        f"(host), install {inst_ms} (to the card, in a two-page run); the "
+        f"engine's probe kv_fleet_pull_ms_per_page "
+        f"{st2['kv_fleet_pull_ms_per_page']}, prefill ms per block "
+        f"{st2['kv_fleet_prefill_ms_per_block']}; on {smi}")
+    return counts, pids, (get_ms, inst_ms)
+
+
+def phase14(cfg, params, smi, seq, prompts, want, one=None):
+    """Phase 14, on the running cluster: 14a the disaggregated deployment,
+    plain then ``paged_decode=True``; 14b the cluster fleet tier. Returns
+    (the kernels' launches over its replica processes, pids)."""
+    t0 = time.perf_counter()
+    total, pids = {}, []
+    launches, numbers, p = phase14a(cfg, smi, seq, prompts, want, False)
+    pids += p
+    for counts in launches.values():
+        add_counts(total, counts)
+    launches, paged, p = phase14a(cfg, smi, seq, prompts, want, True)
+    pids += p
+    for counts in launches.values():
+        add_counts(total, counts)
+    counts, p, pull = phase14b(cfg, params, smi)
+    pids += p
+    add_counts(total, counts)
+
+    def earlier(key, fmt):
+        return fmt(MEASURED[key]) if key in MEASURED else "not run"
+
+    beside = ""
+    if one is not None:
+        beside = (f"; 13b's one colocated replica in this call: "
+                  f"{one['decode_tokens_s']} decode tokens/s, TTFT "
+                  f"{one['ttft_ms_p50']} ms, TPOT {one['tpot_ms_p50']} ms")
+    log(f"phase 14 disaggregated serving and the cluster fleet tier: "
+        f"handoff ms a page {numbers['handoff_ms_page']} (write, delivery, "
+        f"engine {numbers['handoff_split_ms_page']}; paged "
+        f"{paged['handoff_ms_page']}; a page is {page_bytes(cfg)} bytes); "
+        f"in this call phase 9a's in-process handoff ms a page "
+        f"{earlier('9a_ms_page', str)} and 13a's store put/get of an "
+        f"8388608-byte CUDA tensor "
+        f"{earlier('13a_put_get_ms', str)} ms; closed loop "
+        f"{numbers['decode_tokens_s']} decode tokens/s, TTFT "
+        f"{numbers['ttft_ms_p50']} ms, TPOT {numbers['tpot_ms_p50']} ms"
+        f"{beside}; 14b pull ms a page: get + unpack {pull[0]}, install "
+        f"{pull[1]}, against phase 9b's in one process "
+        f"{earlier('9b_ms_page', str)}; "
         f"{time.perf_counter() - t0:.1f} s; kernel launches {total}; on "
         f"{smi}")
-    return total
+    return total, pids
 
 
 # ---------------------------------------------------------------- phase 8
@@ -3886,8 +4386,8 @@ def main() -> int:
         phase_serve(smi)
         log(f"total {time.perf_counter() - t_start:.1f} s on {smi}")
         return 0
-    if args == ["--cluster"]:
-        phase_cluster(smi, name)
+    if args in (["--cluster"], ["--disagg"]):
+        phase_cluster(smi, name, only14=args == ["--disagg"])
         log(f"total {time.perf_counter() - t_start:.1f} s on {smi}")
         return 0
     if args == ["--spec-ab"]:
@@ -3906,7 +4406,7 @@ def main() -> int:
     phase_all_knobs(smi)
     tier = phase_engine_tier(smi)
     served, phase12 = phase_serve(smi)
-    cluster = phase_cluster(smi, name, phase12)
+    cluster, disagg = phase_cluster(smi, name, phase12)
     train = phase_train(smi)
     for kernel in TRAIN_ONLY:
         launches[kernel] = train[kernel]
@@ -3917,6 +4417,7 @@ def main() -> int:
         if row["name"] in TRAIN_ONLY:
             row["launches_phase10"] = zoo[row["name"]]
         row["launches_phase13"] = cluster[row["name"]]
+        row["launches_phase14"] = disagg[row["name"]]
     fused_apply_cost(smi)
     log(f"total {time.perf_counter() - t_start:.1f} s on {smi}")
     print(json.dumps({"kernels": rows}), flush=True)

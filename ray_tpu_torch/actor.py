@@ -1,6 +1,5 @@
 """Actor decorator machinery: ActorClass, ActorHandle, ActorMethod
-(``ray_tpu/actor.py``; ``.bind`` into a compiled DAG waits for the DAG
-channels, ROADMAP.md, queue 1, item 9b).
+(``ray_tpu/actor.py``).
 
 Parity target: python/ray/actor.py in the reference (ActorClass._remote,
 ActorHandle._actor_method_call), redesigned without code generation: handles
@@ -31,11 +30,10 @@ class ActorMethod:
         return ActorMethod(self._handle, self._method_name, num_returns)
 
     def bind(self, *args, **kwargs):
-        """Author a compiled-DAG node (reference: ray.dag .bind syntax):
-        not ported yet."""
-        raise NotImplementedError(
-            "actor method .bind (compiled DAGs) is not ported yet: "
-            "ROADMAP.md, queue 1, item 9b (the DAG channels)")
+        """Author a compiled-DAG node (reference: ray.dag .bind syntax)."""
+        from ray_tpu_torch.dag.dag_node import ClassMethodNode
+
+        return ClassMethodNode(self._handle, self._method_name, args, kwargs)
 
     def __call__(self, *args, **kwargs):
         raise TypeError(

@@ -28,13 +28,20 @@ object_manager.h:206,214 Push/Pull), re-architected:
   manager in `object_transfer_chunk_bytes` chunks and seals it locally
 - worker death detection -> head actor-death reporting
 
-The GPU rule, in place of ``ray_tpu``'s TPU slot: a lease that asks for
-``GPU`` gets a worker from the GPU pool, spawned cold (``Popen``, never
-from the zygote) with the host's cards visible. Several GPU workers may
-share a card: CUDA has no one-process-per-host limit like multi-controller
-JAX's, and fractional ``GPU`` requests (``{"GPU": 0.5}``) are accounted
-like any other resource. A CPU pool worker gets ``CUDA_VISIBLE_DEVICES=""``
-(and ``RTPU_GPUS=0``), so code there that asks for the card raises.
+The GPU rule, in place of ``ray_tpu``'s TPU slot: the node counts its
+cards (``GPU``, one a card) and assigns each GPU lease its card indices,
+as ``ray_tpu`` sets a process's chips through ``TPU_VISIBLE_CHIPS``. A
+lease of n whole ``GPU`` takes n idle cards; a fractional lease
+(``{"GPU": 0.5}``) takes the fullest card it still fits on, so fractional
+leases share one index. A lease that no card fits waits like any other.
+The lease gets a worker from the GPU pool of exactly those cards, spawned
+cold (``Popen``, never from the zygote) with ``CUDA_VISIBLE_DEVICES`` set
+to them before its first CUDA call, so ``resolve_device(None)`` is the
+lease's card. A worker takes only leases of its own cards. Several GPU
+workers may share a card only through fractional leases: CUDA has no
+one-process-per-host limit like multi-controller JAX's. A CPU pool worker
+gets ``CUDA_VISIBLE_DEVICES=""`` (and ``RTPU_GPUS=0``), so code there that
+asks for the card raises.
 
 A copy of ``ray_tpu/cluster/node_manager.py`` without ``ray_tpu``'s
 flight recorder, metrics registry and exporter, tracing, RPC and resource
@@ -43,7 +50,9 @@ witnesses.
 
 from __future__ import annotations
 
+import collections
 import logging
+import math
 import os
 import subprocess
 import sys
@@ -149,7 +158,8 @@ class _ForkedProc:
 
 class WorkerProc:
     def __init__(self, proc, worker_id: str,
-                 gpu: bool = False, env_hash: str = ""):
+                 cards: Optional[Tuple[int, ...]] = None,
+                 env_hash: str = ""):
         self.proc = proc
         self.worker_id = worker_id
         self.address: Optional[str] = None  # set on register
@@ -157,8 +167,13 @@ class WorkerProc:
         self.idle_since = time.monotonic()
         self.lease_id: Optional[str] = None
         self.is_actor_host = False
-        self.gpu = gpu
+        # The card indices a GPU-pool worker sees (None: a CPU worker).
+        self.cards = cards
         self.env_hash = env_hash
+
+    @property
+    def gpu(self) -> bool:
+        return self.cards is not None
 
 
 class Lease:
@@ -178,6 +193,8 @@ class Lease:
         # schedule (reference: NotifyDirectCallTaskBlocked — without this,
         # N blocked parents over N CPUs deadlock their own children).
         self.blocked = 0
+        # [(card index, share)] of a GPU lease, held until the lease ends.
+        self.card_shares: List[Tuple[int, float]] = []
 
 
 class NodeManager:
@@ -206,18 +223,27 @@ class NodeManager:
         # oldest-first when a worker registers or is returned — a racing
         # herd of cv-waiters would let a hot scheduling key starve nested
         # tasks' lease requests indefinitely.
-        import collections
-
         self._worker_waiters = collections.deque()
         # env_hash -> error string for runtime envs whose materialization
         # failed: lease requests for them FAIL FAST with
         # RuntimeEnvSetupError instead of timing out into an endless
         # spillback-and-reinstall loop.
         self._env_failures: Dict[str, str] = {}
-        # GPU pool: workers spawned with the host's cards visible.
-        self._gpu_idle: List[WorkerProc] = []
-        self._gpu_waiters = collections.deque()
-        self._gpu_spawning = 0
+        # The node's cards: the load of each (GPU shares of its leases),
+        # and the id each index stands for in this process's
+        # CUDA_VISIBLE_DEVICES (the index itself when that is unset).
+        n_cards = resources.get("GPU", 0)
+        n_cards = max(1, int(n_cards)) if n_cards > 0 else 0
+        self._card_load: List[float] = [0.0] * n_cards
+        visible = [c.strip() for c in os.environ.get(
+            "CUDA_VISIBLE_DEVICES", "").split(",") if c.strip()]
+        self._card_ids = [visible[i] if i < len(visible) else str(i)
+                          for i in range(n_cards)]
+        # GPU pools, one for each set of cards: workers spawned with
+        # exactly those cards visible, and the leases waiting for one.
+        self._gpu_idle: Dict[Tuple[int, ...], List[WorkerProc]] = {}
+        self._gpu_waiters = collections.deque()  # (ev, slot, cards)
+        self._gpu_spawning: Dict[Tuple[int, ...], int] = {}
         self._lease_grant_order = collections.deque()
         # Pull manager (reference: object_manager/pull_manager.h): dedups
         # concurrent pulls of one object onto a single in-flight transfer
@@ -700,14 +726,11 @@ class NodeManager:
                     pool = self._idle.get(w.env_hash)
                     if pool and w in pool:
                         pool.remove(w)
-                    if w in self._gpu_idle:
-                        self._gpu_idle.remove(w)
+                    if w.gpu and w in self._gpu_idle.get(w.cards, ()):
+                        self._gpu_idle[w.cards].remove(w)
                     if not w.ready.is_set():
                         # Died before registering: free its spawn slot.
-                        if w.gpu:
-                            self._gpu_spawning = max(0, self._gpu_spawning - 1)
-                        else:
-                            self._spawning = max(0, self._spawning - 1)
+                        self._spawn_done(w.cards)
             if dead:
                 self._idle_cv.notify_all()
         for w in dead:
@@ -716,8 +739,10 @@ class NodeManager:
     def _on_worker_dead(self, w: WorkerProc) -> None:
         with self._lock:
             lease = self._leases.pop(w.lease_id, None) if w.lease_id else None
-            if lease is not None and lease.blocked == 0:
-                self._release_resources(lease)
+            if lease is not None:
+                self._free_cards(lease)
+                if lease.blocked == 0:
+                    self._release_resources(lease)
             # Reclaim leases this worker REQUESTED (nested submission):
             # the lessee is gone, nobody will ever return them.
             if w.address:
@@ -725,6 +750,7 @@ class NodeManager:
                            if l.lessee == w.address]
                 for l in orphans:
                     self._leases.pop(l.lease_id, None)
+                    self._free_cards(l)
                     if l.blocked == 0:
                         self._release_resources(l)
                     lw = l.worker
@@ -733,7 +759,7 @@ class NodeManager:
                             and not lw.is_actor_host
                             and lw.proc.poll() is None and lw.ready.is_set()
                             and lw not in self._idle.get(lw.env_hash, ())
-                            and lw not in self._gpu_idle):
+                            and lw not in self._gpu_idle.get(lw.cards, ())):
                         self._hand_worker(lw)
         # The worker may have hosted actors: the head tracks actor->address,
         # workers report their hosted actors at registration; simplest robust
@@ -804,28 +830,37 @@ class NodeManager:
 
         while not self._stop.is_set():
             try:
-                gpu, runtime_env = self._spawn_requests.get(timeout=1.0)
+                cards, runtime_env = self._spawn_requests.get(timeout=1.0)
             except _queue.Empty:
                 continue
             try:
-                self._spawn_worker_inner(gpu=bool(gpu),
+                self._spawn_worker_inner(cards=cards,
                                          runtime_env=runtime_env)
             except BaseException:  # noqa: BLE001
                 with self._idle_cv:
-                    if gpu:
-                        self._gpu_spawning = max(0, self._gpu_spawning - 1)
-                    else:
-                        self._spawning = max(0, self._spawning - 1)
+                    self._spawn_done(cards)
                     self._idle_cv.notify_all()
 
-    def _spawn_worker(self, gpu: bool = False, runtime_env=None) -> None:
+    def _spawn_worker(self, cards: Optional[Tuple[int, ...]] = None,
+                      runtime_env=None) -> None:
         """Fire-and-forget spawn via the dedicated spawner thread (PDEATHSIG
         must be armed from a long-lived thread). The worker joins the idle
         pool when it registers; callers wait on _idle_cv, never on a
-        specific spawn."""
-        self._spawn_requests.put((1 if gpu else 0, runtime_env))
+        specific spawn. ``cards``: a GPU-pool worker's card indices."""
+        self._spawn_requests.put((cards, runtime_env))
 
-    def _spawn_worker_inner(self, gpu: bool = False,
+    def _spawn_done(self, cards: Optional[Tuple[int, ...]]) -> None:
+        """A spawn registered or failed: free its slot (lock held)."""
+        if cards is None:
+            self._spawning = max(0, self._spawning - 1)
+            return
+        left = self._gpu_spawning.get(cards, 0) - 1
+        if left > 0:
+            self._gpu_spawning[cards] = left
+        else:
+            self._gpu_spawning.pop(cards, None)
+
+    def _spawn_worker_inner(self, cards: Optional[Tuple[int, ...]] = None,
                             runtime_env=None) -> WorkerProc:
         from ray_tpu_torch.core.runtime_env import (apply_to_spawn_env,
                                               resolve_python_executable,
@@ -841,7 +876,13 @@ class NodeManager:
         # fork-with-threads deadlocks)
         env["RTPU_WORKER_ID"] = worker_id
         spawn_cwd = apply_to_spawn_env(runtime_env, env) or os.getcwd()
-        if not gpu:
+        gpu = cards is not None
+        if gpu:
+            # GPU pool worker: its lease's cards and no others, set
+            # before the interpreter starts, so before any CUDA call.
+            env["CUDA_VISIBLE_DEVICES"] = ",".join(
+                self._card_ids[i] for i in cards)
+        else:
             # CPU pool worker: no card is visible, so a task there that
             # asks for one (resolve_device(None)) raises instead of
             # quietly sharing a GPU worker's card.
@@ -863,7 +904,7 @@ class NodeManager:
                 and py == sys.executable):
             forked = self._zygote_spawn(worker_id, env)
             if forked is not None:
-                w = WorkerProc(forked, worker_id, gpu=False,
+                w = WorkerProc(forked, worker_id,
                                env_hash=runtime_env_hash(runtime_env))
                 with self._lock:
                     self._workers[worker_id] = w
@@ -894,7 +935,7 @@ class NodeManager:
             logf.close()  # Popen failed: the log fd would leak per retry
             raise
         logf.close()  # the child holds its own dup of the log fd
-        w = WorkerProc(proc, worker_id, gpu=gpu,
+        w = WorkerProc(proc, worker_id, cards=cards,
                        env_hash=runtime_env_hash(runtime_env))
         with self._lock:
             self._workers[worker_id] = w
@@ -1020,10 +1061,7 @@ class NodeManager:
                 return True  # duplicate (retry after lost ack)
             w.address = address
             w.ready.set()
-            if w.gpu:
-                self._gpu_spawning = max(0, self._gpu_spawning - 1)
-            else:
-                self._spawning = max(0, self._spawning - 1)
+            self._spawn_done(w.cards)
             self._hand_worker(w)
             # Demand still outstrips supply: keep the spawn pipeline full
             # FOR THE OLDEST WAITER'S ENV (a default-env refill would never
@@ -1036,31 +1074,37 @@ class NodeManager:
             self._idle_cv.notify_all()
         return True
 
-    def _pop_worker(self, timeout: float, gpu: bool = False,
+    def _pop_worker(self, timeout: float,
+                    cards: Optional[Tuple[int, ...]] = None,
                     runtime_env=None) -> Optional[WorkerProc]:
         """Claim an idle worker FIFO-fairly, spawning more (bounded
         concurrency — worker startup is CPU-heavy) while demand outstrips
-        the pool. GPU leases draw from the GPU pool (one spawn in flight
-        per waiting lease); runtime envs draw only from their own
-        env-hash pool (two envs never share a worker)."""
+        the pool. GPU leases (``cards``) draw from the pool of exactly
+        their cards (one spawn in flight per waiting lease); runtime envs
+        draw only from their own env-hash pool (two envs never share a
+        worker)."""
         from ray_tpu_torch.core.runtime_env import runtime_env_hash
 
         ev = threading.Event()
         slot: List[Optional[WorkerProc]] = [None]
-        if gpu:
+        if cards is not None:
+            entry = (ev, slot, cards)
             with self._idle_cv:
-                if self._gpu_idle and not self._gpu_waiters:
-                    return self._gpu_idle.pop()
-                self._gpu_waiters.append((ev, slot))
-                if self._gpu_spawning < min(len(self._gpu_waiters),
-                                            self._max_concurrent_spawns):
-                    self._gpu_spawning += 1
-                    self._spawn_worker(gpu=True)
+                pool = self._gpu_idle.get(cards)
+                if pool and not any(e[2] == cards
+                                    for e in self._gpu_waiters):
+                    return pool.pop()
+                self._gpu_waiters.append(entry)
+                waiting = sum(e[2] == cards for e in self._gpu_waiters)
+                spawning = self._gpu_spawning.get(cards, 0)
+                if spawning < min(waiting, self._max_concurrent_spawns):
+                    self._gpu_spawning[cards] = spawning + 1
+                    self._spawn_worker(cards=cards)
             if ev.wait(timeout):
                 return slot[0]
             with self._idle_cv:
                 try:
-                    self._gpu_waiters.remove((ev, slot))
+                    self._gpu_waiters.remove(entry)
                 except ValueError:
                     pass
                 return slot[0]
@@ -1096,13 +1140,15 @@ class NodeManager:
         """Give an available worker to the oldest SAME-ENV waiter, else
         idle it into its env pool. Caller must hold the lock."""
         if w.gpu:
-            while self._gpu_waiters:
-                ev, slot = self._gpu_waiters.popleft()
-                slot[0] = w
-                ev.set()
-                return
+            for entry in list(self._gpu_waiters):
+                ev, slot, cards = entry
+                if cards == w.cards:
+                    self._gpu_waiters.remove(entry)
+                    slot[0] = w
+                    ev.set()
+                    return
             w.idle_since = time.monotonic()
-            self._gpu_idle.append(w)
+            self._gpu_idle.setdefault(w.cards, []).append(w)
             return
         for entry in list(self._worker_waiters):
             _ev, _slot, env_hash, _renv = entry
@@ -1141,6 +1187,38 @@ class NodeManager:
                 self._hb_wake.set()  # push the new view to the head now
                 return key
         return None
+
+    def _fit_cards(self, amount: float) -> Optional[List[Tuple[int, float]]]:
+        """The cards a GPU lease of ``amount`` would take, counted per card
+        as Ray counts GPU instances (lock held): n whole ``GPU`` need n
+        idle cards, a fraction needs one card with room for it and takes
+        the fullest such card, so fractions share one index. None when
+        nothing fits now: the lease waits (then spills back) as for any
+        other shortage, even where the node's ``GPU`` count would admit
+        it, since fractions left on several cards add up to no free card
+        (and a blocked lease's credit frees no card)."""
+        load = self._card_load
+        if amount <= 0 or not load:
+            return []
+        if amount >= 1:
+            n = math.ceil(amount - 1e-9)
+            idle = [i for i in range(len(load)) if load[i] <= 1e-9]
+            if len(idle) < n:
+                return None
+            return [(i, amount / n) for i in idle[:n]]
+        fits = [i for i in range(len(load))
+                if load[i] + amount <= 1.0 + 1e-9]
+        if not fits:
+            return None
+        return [(max(fits, key=lambda i: (load[i], -i)), amount)]
+
+    def _free_cards(self, lease: Lease) -> None:
+        """The lease ended: its cards' shares go back (lock held)."""
+        for i, share in lease.card_shares:
+            self._card_load[i] = max(0.0, self._card_load[i] - share)
+        if lease.card_shares:
+            self._avail_cond.notify_all()
+        lease.card_shares = []
 
     def _release_resources(self, lease: Lease) -> None:
         # lease.pg holds the RESOLVED pool key from _try_acquire.
@@ -1276,8 +1354,12 @@ class NodeManager:
         deadline = time.monotonic() + block_ms / 1000.0
         with self._lock:
             while True:
-                resolved = self._try_acquire(resources, pg)
+                shares = self._fit_cards(resources.get("GPU", 0))
+                resolved = (None if shares is None
+                            else self._try_acquire(resources, pg))
                 if resolved is not None:
+                    for i, share in shares:
+                        self._card_load[i] += share
                     break
                 remaining = deadline - time.monotonic()
                 if remaining <= 0:
@@ -1287,23 +1369,28 @@ class NodeManager:
                 self._avail_cond.wait(min(remaining, 0.25))
         from ray_tpu_torch.exceptions import RuntimeEnvSetupError
 
+        cards = tuple(i for i, _ in shares) if shares else None
         try:
             w = self._pop_worker(timeout=cfg.lease_timeout_ms / 1000.0,
-                                 gpu=resources.get("GPU", 0) > 0,
-                                 runtime_env=runtime_env)
+                                 cards=cards, runtime_env=runtime_env)
         except RuntimeEnvSetupError as e:
             lease = Lease("", None, resources, resolved)
+            lease.card_shares = shares
             with self._lock:
+                self._free_cards(lease)
                 self._release_resources(lease)
             # Dict reply: unambiguous vs the (addr, lease_id) grant tuple.
             return {"env_error": str(e)}
         if w is None:
             lease = Lease("", None, resources, resolved)
+            lease.card_shares = shares
             with self._lock:
+                self._free_cards(lease)
                 self._release_resources(lease)
             return None
         lease_id = uuid.uuid4().hex
         lease = Lease(lease_id, w, resources, resolved, lessee)
+        lease.card_shares = shares
         w.lease_id = lease_id
         with self._lock:
             self._leases[lease_id] = lease
@@ -1330,6 +1417,7 @@ class NodeManager:
             while len(self._returned_order) > 4096:
                 self._returned_leases.discard(
                     self._returned_order.popleft())
+            self._free_cards(lease)
             if lease.blocked == 0:  # blocked leases already released
                 self._release_resources(lease)
             w = lease.worker

@@ -791,12 +791,22 @@ class WorkerRuntime(ClusterCore):
                 actor_ctx=actor_ctx)
             return
         if spec["method"] == "__rtpu_dag_loop__":
-            self._send_results(
-                owner, task_id, return_ids,
-                error=capture_exception(NotImplementedError(
-                    "compiled DAGs are not ported yet: ROADMAP.md, queue 1, "
-                    "item 9b (the DAG channels)")),
-                actor_ctx=actor_ctx)
+            # Compiled-DAG bootstrap (dag/compiled_dag.py): run the
+            # shipped per-actor schedule on a dedicated thread — the actor
+            # keeps serving normal calls while the DAG loop blocks on
+            # channel reads.
+            from ray_tpu_torch.dag.compiled_dag import run_actor_dag_loop
+
+            schedule = spec["args"][0]
+            stop = threading.Event()
+            hosted.dag_stops = getattr(hosted, "dag_stops", [])
+            hosted.dag_stops.append(stop)
+            threading.Thread(
+                target=run_actor_dag_loop,
+                args=(hosted.instance, schedule, stop), daemon=True,
+                name=f"dag-loop-{hosted.actor_id.hex()[:8]}").start()
+            self._send_results(owner, task_id, return_ids, value=True,
+                               actor_ctx=actor_ctx)
             return
         try:
             if spec.get("undecodable") is not None:
@@ -882,6 +892,8 @@ class WorkerRuntime(ClusterCore):
             hosted = self._hosted.pop(actor_id, None)
         if hosted is not None:
             hosted.dead = True
+            for stop in getattr(hosted, "dag_stops", []):
+                stop.set()
             hosted.pool.shutdown(wait=False, cancel_futures=True)
             for gpool in hosted.group_pools.values():
                 gpool.shutdown(wait=False, cancel_futures=True)

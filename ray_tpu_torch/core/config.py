@@ -1,5 +1,6 @@
 """Runtime configuration flag table (``ray_tpu/core/config.py``, trimmed to
-the flags the local runtime, the cluster runtime and serve read).
+the flags the local runtime, the cluster runtime, the compiled DAGs and
+serve read).
 
 Equivalent of the reference's RAY_CONFIG macro table (reference:
 src/ray/common/ray_config_def.h), as a typed Python registry: every flag is
@@ -54,6 +55,8 @@ class Config:
         self._exported_env: dict = {}
 
     def define(self, name: str, typ: type, default: Any, doc: str = "") -> None:
+        if name in self._flags:
+            raise ValueError(f"config flag defined twice: {name}")
         flag = _Flag(name, typ, default, doc)
         self._flags[name] = flag
         env = os.environ.get(_ENV_PREFIX + name.upper())
@@ -146,6 +149,10 @@ _d("serve_router_ttft_weight", float, 0.0,
    "pre-disagg router; the disaggregated prefill pool sets it so "
    "admission pressure on a slow-prefilling replica steers arrivals "
    "away before the SLO gate has to shed them")
+_d("serve_disagg_max_redirects", int, 2,
+   "disaggregated serving: how many times a prefill replica re-routes "
+   "one request's KV handoff after a decode-replica death before "
+   "failing the request")
 _d("serve_snapshot_ttl_s", float, 5.0,
    "replica load snapshots older than this are treated as absent "
    "(scored routing falls back to pow-2 rather than trust a dead "
@@ -173,6 +180,42 @@ _d("serve_snapshot_journal", int, 64,
    "generations of per-replica change sets are journaled per "
    "deployment — long-pollers within the window receive only changed "
    "snapshots (O(touched)); anyone further behind gets a full resync")
+
+# --- compiled DAGs ---
+_d("dag_channel_capacity", int, 8,
+   "compiled-DAG channel slots: executions pipeline up to this depth "
+   "before the driver's next execute() blocks")
+_d("dag_teardown_timeout_s", float, 10.0,
+   "teardown handshake: wait for each loop to consume its stop sentinel")
+_d("dag_ring_bytes", int, 1 << 20,
+   "same-node compiled-DAG channel ring size (data bytes of the shm "
+   "mmap ring each edge maps); records bigger than dag_ring_spill_bytes "
+   "spill to a side file so one huge payload never has to fit")
+_d("dag_ring_spill_bytes", int, 1 << 18,
+   "ring records larger than this many payload bytes spill to a side "
+   "file next to the ring (the ring carries the reference); the writer "
+   "pins the spill until the reader consumes it and reclaims it on "
+   "teardown — a reader death can never leak the payload")
+_d("dag_spill_reclaim_grace_s", float, 5.0,
+   "how long a closing writer waits for the reader to consume pending "
+   "spill side-files before reclaiming (unlinking) them; a reader that "
+   "already closed is not waited for — the grace only covers a LIVE "
+   "reader mid-read")
+_d("dag_channel_dir", str, "",
+   "directory for same-node channel rings/spills ('' = /dev/shm when "
+   "present, else the system temp dir). Both endpoints of an edge must "
+   "resolve the same directory — it IS the rendezvous namespace")
+_d("dag_negotiate_timeout_s", float, 30.0,
+   "one-time channel negotiation budget: ring-file rendezvous attach "
+   "and head-mediated cross-node endpoint lookup both give up (with "
+   "peer-liveness context in the error) after this long")
+_d("dag_overlap_comm", bool, False,
+   "compiled DAGs: run channel writes on a dedicated sender thread so "
+   "compute for step n+1 overlaps the send of step n (reference: "
+   "overlap_gpu_communication, dag/context.py:78 — also opt-in there). "
+   "Wins when send latency and compute can genuinely run in parallel "
+   "(multi-core hosts, cross-node channels); on single-core hosts the "
+   "thread hop costs more than it saves")
 
 # --- cluster runtime: head, node manager, workers, object store ---
 _d("actor_connect_timeout_s", float, 120.0,

@@ -21,12 +21,15 @@ numpy, which has no bfloat16: bf16 pages travel as their uint16 bits and
 the frame records the dtype, so ``unpack_page`` gives back the cache's
 dtype bit for bit. The CRC covers those bytes.
 
+Two stores: ``LocalKVPageStore`` (one process) and ``ClusterKVPageStore``
+(the cluster runtime's shm object store and the head's object directory,
+so replicas in different worker processes share pages); ``resolve_store``
+picks the cluster one when a cluster runtime is attached.
+
 Differences from ``ray_tpu``: ``page_object_id`` returns the 28 bytes of
-``ray_tpu.core.ids.ObjectID``'s binary (the port has no ``ObjectID``),
-and the stores key on them; ``GLOBAL_CONFIG``'s defaults are the module
-constants below; ``resolve_store`` returns the explicit store or the
-process-local one. ``ClusterKVPageStore`` (the shm object store and the
-head directory) is still to port (ROADMAP.md, queue 1, item 9c).
+``ray_tpu.core.ids.ObjectID``'s binary, and the stores key on them (the
+cluster store wraps them in the port's own ``ObjectID``);
+``GLOBAL_CONFIG``'s defaults are the module constants below.
 """
 
 from __future__ import annotations
@@ -225,7 +228,86 @@ def local_store() -> LocalKVPageStore:
         return _local_singleton
 
 
+class ClusterKVPageStore:
+    """Page tier over the cluster runtime's object plane. Puts land in the
+    node's shm arena and register in the head's object directory through
+    the same batched object-notify path as task outputs; gets try the
+    local arena (memcpy), then one directory-guided ``pull_object``
+    through the node manager. Eviction needs no new code: the arena's LRU
+    spills cold pages to disk and ``get`` restores them."""
+
+    def __init__(self, core, pull_timeout_ms: int = 2000):
+        self._core = core          # ClusterCore (driver or worker runtime)
+        self._pull_timeout_ms = int(pull_timeout_ms)
+
+    @staticmethod
+    def _oid(oid: bytes):
+        from ray_tpu_torch.core.ids import ObjectID
+
+        return ObjectID(oid)
+
+    def put(self, oid: bytes, payload: bytes) -> bool:
+        store = self._core.store
+        key = self._oid(oid)
+        try:
+            if store.contains(key):
+                return False
+            store.put_bytes(key, payload)
+        except Exception:
+            # Duplicate create (a sibling replica on this node raced the
+            # same chain hash) or arena pressure: the page tier is a
+            # cache — a failed put is a skipped optimization, never an
+            # error the engine should see.
+            return False
+        self._core._queue_object_notify("add", oid, len(payload))
+        return True
+
+    def get(self, oid: bytes, remote: bool = True) -> Optional[bytes]:
+        store = self._core.store
+        key = self._oid(oid)
+        raw = store.get_bytes(key)
+        if raw is not None or not remote:
+            return raw
+        try:
+            holders = self._core.head.call(
+                "object_locations", oid,
+                getattr(self._core, "node_id", None), timeout=2)
+        except Exception:  # directory unreachable == tier miss
+            return None
+        if not holders:
+            return None
+        try:
+            ok = bool(self._core.node.call(
+                "pull_object", oid, self._pull_timeout_ms, None,
+                timeout=self._pull_timeout_ms / 1e3 + 2))
+        except Exception:  # failed peer pull == tier miss
+            return None
+        return store.get_bytes(key) if ok else None
+
+    def contains(self, oid: bytes) -> bool:
+        return self._core.store.contains(self._oid(oid))
+
+    def delete(self, oid: bytes) -> bool:
+        if self._core.store.delete(self._oid(oid)):
+            self._core._queue_object_notify("rm", oid)
+            return True
+        return False
+
+    def stats(self) -> Dict[str, int]:
+        used, _cap, n, ev = self._core.store.stats()
+        return {"objects": n, "bytes": used, "evictions": ev}
+
+
 def resolve_store(explicit=None):
-    """The page tier for an engine: an explicit store instance, else the
-    process-local one."""
-    return explicit if explicit is not None else local_store()
+    """Pick the page tier for an engine: an explicit store instance
+    (tests), else the cluster shm store when a cluster runtime is
+    attached, else the process-local one."""
+    if explicit is not None:
+        return explicit
+    from ray_tpu_torch.core.runtime_context import get_runtime
+
+    rt = get_runtime()
+    if (rt is not None and getattr(rt, "store", None) is not None
+            and getattr(rt, "node", None) is not None):
+        return ClusterKVPageStore(rt)
+    return local_store()

@@ -14,8 +14,10 @@ library built from its own source out of its tree for that test, as its
 own notes prescribe), worker processes that load neither JAX nor
 ``ray_tpu``, tensors across processes, and the GPU rule of the node
 manager: a CPU worker sees no card, a GPU lease on a node without ``GPU``
-never runs, and two ``{"GPU": 0.5}`` actors share one node's card in two
-processes.
+never runs, two ``{"GPU": 0.5}`` actors share one node's card in two
+processes, and on a node of two cards two ``{"GPU": 1}`` leases see
+different cards (``CUDA_VISIBLE_DEVICES``) while two ``{"GPU": 0.5}``
+leases share one.
 
 Every ``get`` and ``wait`` has a timeout, and the fixtures shut every
 runtime down in a ``finally``.
@@ -487,6 +489,135 @@ def test_fractional_gpu_actors_share_a_card_in_two_processes(cluster):
     for h in (a, b):
         ray_tpu_torch.kill(h)
     cluster.remove_node(node)
+
+
+def _two_card_node(cluster):
+    """A node of two cards, as ``RTPU_GPUS=2`` declares them on a host
+    without one."""
+    return cluster.add_node(num_cpus=2, resources={"GPU": 2.0})
+
+
+def _actor_cards(gpu):
+    """Two actors of ``{"GPU": gpu}``: (pid, node, CUDA_VISIBLE_DEVICES)
+    of each one's worker process."""
+
+    @ray_tpu_torch.remote(resources={"GPU": gpu})
+    class Holder:
+        def where(self):
+            import os
+
+            return (os.getpid(), ray_tpu_torch.get_runtime_context().node_id,
+                    os.environ.get("CUDA_VISIBLE_DEVICES"))
+
+    hs = [Holder.remote(), Holder.remote()]
+    try:
+        return ray_tpu_torch.get([h.where.remote() for h in hs], timeout=90)
+    finally:
+        for h in hs:
+            ray_tpu_torch.kill(h)
+
+
+def test_whole_gpu_leases_get_different_cards(cluster):
+    """Each ``{"GPU": 1}`` lease on a two-card node gets its own card: the
+    two actors' worker processes see different ``CUDA_VISIBLE_DEVICES``
+    (before the repair both saw every card and allocated on card 0)."""
+    node = _two_card_node(cluster)
+    try:
+        (pa, na, va), (pb, nb, vb) = _actor_cards(1.0)
+        assert pa != pb and na == nb == node.node_id
+        assert sorted([va, vb]) == ["0", "1"]
+    finally:
+        cluster.remove_node(node)
+
+
+def test_fractional_gpu_leases_share_one_card(cluster):
+    """Two ``{"GPU": 0.5}`` leases on a two-card node share one card index
+    (each in a worker process of its own), and a whole-card lease then
+    takes the other card."""
+    node = _two_card_node(cluster)
+    try:
+        (pa, na, va), (pb, nb, vb) = _actor_cards(0.5)
+        assert pa != pb and na == nb == node.node_id
+        assert va == vb and va in ("0", "1")
+
+        @ray_tpu_torch.remote(resources={"GPU": 0.5})
+        class Half:
+            def where(self):
+                import os
+
+                return os.environ.get("CUDA_VISIBLE_DEVICES")
+
+        @ray_tpu_torch.remote(num_gpus=1)
+        def whole():
+            import os
+
+            return os.environ.get("CUDA_VISIBLE_DEVICES")
+
+        halves = [Half.remote(), Half.remote()]
+        try:
+            got = ray_tpu_torch.get([h.where.remote() for h in halves],
+                                    timeout=90)
+            assert got[0] == got[1]
+            assert ray_tpu_torch.get(whole.remote(), timeout=90) == (
+                {"0", "1"} - {got[0]}).pop()
+        finally:
+            for h in halves:
+                ray_tpu_torch.kill(h)
+    finally:
+        cluster.remove_node(node)
+
+
+def test_whole_gpu_lease_waits_for_an_idle_card(cluster, tmp_path):
+    """Fractions left on both cards of a two-card node add up to one
+    ``GPU`` but free no card: halves A and B pack onto one card, C takes
+    the other, A ends. A ``{"GPU": 1}`` task then waits (it never lands
+    beside B or C) until B ends, and runs on B's card."""
+    node = _two_card_node(cluster)
+    marker = tmp_path / "ran"
+
+    @ray_tpu_torch.remote(resources={"GPU": 0.5})
+    class Half:
+        def where(self):
+            import os
+
+            return os.environ.get("CUDA_VISIBLE_DEVICES")
+
+    @ray_tpu_torch.remote(num_gpus=1)
+    def whole(path):
+        import os
+
+        open(path, "w").close()
+        return os.environ.get("CUDA_VISIBLE_DEVICES")
+
+    def gpu_free(want):
+        deadline = time.monotonic() + 30
+        while ray_tpu_torch.available_resources().get("GPU", 0.0) != want:
+            assert time.monotonic() < deadline, "GPU count never settled"
+            time.sleep(0.1)
+
+    hs = []
+    try:
+        a, b = Half.remote(), Half.remote()
+        hs += [a, b]
+        va, vb = ray_tpu_torch.get([a.where.remote(), b.where.remote()],
+                                   timeout=90)
+        assert va == vb
+        c = Half.remote()
+        hs.append(c)
+        vc = ray_tpu_torch.get(c.where.remote(), timeout=90)
+        assert vc != va
+        ray_tpu_torch.kill(a)
+        gpu_free(1.0)
+        ref = whole.remote(str(marker))
+        with pytest.raises(ray_tpu_torch.exceptions.GetTimeoutError):
+            ray_tpu_torch.get(ref, timeout=8)
+        assert not marker.exists()
+        ray_tpu_torch.kill(b)
+        assert ray_tpu_torch.get(ref, timeout=90) == va
+    finally:
+        for h in hs:
+            ray_tpu_torch.kill(h)
+        cluster.remove_node(node)
 
 
 def test_gpu_lease_without_a_gpu_never_runs(cluster, tmp_path):

@@ -1073,3 +1073,88 @@ def test_cluster_cuda_tensor_round_trip(card_cluster):
 
     with pytest.raises(Exception, match="without a card"):
         ray_tpu_torch.get(on_cpu.remote(t), timeout=120)
+
+
+def test_cluster_torch_host_communicator_carries_a_cuda_tensor(
+        card_cluster):
+    """A CUDA bf16 tensor sent through ``TorchHostCommunicator`` between
+    two GPU actors crosses the ring through the host and arrives on the
+    receiver's card, bit-equal to the sender's."""
+    import ray_tpu_torch
+    from ray_tpu_torch.dag import TorchHostCommunicator
+
+    @ray_tpu_torch.remote(resources={"GPU": 0.5})
+    class Rank:
+        def __init__(self, comm):
+            self.comm = comm
+
+        def send(self):
+            g = torch.Generator("cuda").manual_seed(7)
+            t = torch.randn(129, 257, generator=g, device="cuda")
+            self.comm.send(t.to(torch.bfloat16), 1)
+            return True
+
+        def recv(self):
+            x = self.comm.recv(0, timeout=120)
+            return (type(self.comm).__name__, x.device.type, x.dtype,
+                    x.cpu())
+
+    comms = TorchHostCommunicator.create_group(2)
+    ranks = [Rank.remote(c) for c in comms]
+    try:
+        sent, (kind, where, dtype, got) = ray_tpu_torch.get(
+            [ranks[0].send.remote(), ranks[1].recv.remote()], timeout=300)
+    finally:
+        for r in ranks:
+            ray_tpu_torch.kill(r)
+        for ch in comms[0]._channels.values():
+            ch.close(unlink=True)
+    g = torch.Generator("cuda").manual_seed(7)
+    want = torch.randn(129, 257, generator=g, device="cuda").to(
+        torch.bfloat16).cpu()
+    assert sent and kind == "TorchHostCommunicator"
+    assert where == "cuda" and dtype == torch.bfloat16
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+
+
+def test_cluster_disaggregated_deployment_on_the_card(card_cluster):
+    """``build_llm_deployment(disaggregated=True)`` with a prefill and a
+    decode replica of ``{"GPU": 0.5}`` on the one card (each drawing the
+    weights from the seed on its card) gives the tokens of a colocated
+    replica drawn from the same seed, in replies and streams; every
+    request went through the prefill replica."""
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.serve.llm import build_llm_deployment
+
+    cfg = llama.tiny_config(max_seq_len=64, fused_ops=True)
+    ek = dict(cfg=cfg, seed=3, max_batch=2, max_len=64,
+              prompt_buckets=[8, 16, 32], decode_chunk=4, prefix_block=8)
+    half = {"resources": {"GPU": 0.5}}
+    prompts = [[5, 9, 3, 7], list(range(1, 20)), [4] * 12]
+    try:
+        colo = serve.run(build_llm_deployment(
+            "colo", engine_kwargs=ek).options(ray_actor_options=half))
+        want = [colo.remote({"prompt_ids": p, "max_new_tokens": 8})
+                .result(timeout=300)["token_ids"] for p in prompts]
+        serve.delete("colo")
+        dep = build_llm_deployment("pd", disaggregated=True,
+                                   engine_kwargs=ek)
+        dep = dep.options(ray_actor_options=half)
+        dep._init_args = (dep._init_args[0].options(ray_actor_options=half),)
+        h = serve.run(dep)
+        got = [h.remote({"prompt_ids": p, "max_new_tokens": 8})
+               .result(timeout=300)["token_ids"] for p in prompts]
+        streamed = [list(h.options("stream", stream=True).remote(
+            {"prompt_ids": p, "max_new_tokens": 8})) for p in prompts]
+        import ray_tpu_torch
+
+        controller = ray_tpu_torch.get_actor("rtpu-serve-controller")
+        (pre,) = ray_tpu_torch.get(controller.get_replicas.remote("pd"),
+                                   timeout=60)
+        stats = ray_tpu_torch.get(pre.handle_request.remote("stats", (), {}),
+                                  timeout=60)
+    finally:
+        serve.shutdown()
+    assert got == want and streamed == want
+    assert stats["requests"] == 2 * len(prompts)

@@ -9,9 +9,12 @@ engine gives ``ray_tpu``'s greedy tokens on the same weights; corrupted
 payloads and chain mismatches are refused and recomputed; the min-blocks
 gate; the fleet-off engine is the engine without the knob; snapshot and
 crossover stats; a preempted session resumed on another engine through
-the tier. Left out: the ``RTPU_DEBUG_RES`` balance case (the witness is
-not ported), the router's fleet term and the cluster tier (they need the
-serve runtime and a cluster).
+the tier. Cluster tier, on the port's cluster runtime: a page put by one
+worker process is got by another under the same ``page_object_id``,
+``resolve_store`` picks ``ClusterKVPageStore`` under a runtime, and the
+counterpart of ``test_fleet_pages_survive_replica_sigkill``. Left out: the
+``RTPU_DEBUG_RES`` balance case (the witness is not ported) and the
+router's fleet term.
 """
 
 import time
@@ -423,3 +426,168 @@ def test_eviction_under_preemption_cross_replica_resume(tiny, jax_ref):
     assert list(lo.generated) + out["token_ids"] == jax_ref(P1, 24)
     assert st["kv_fleet_hits"] >= 1
     assert st["kv_fleet_pulled_blocks"] >= 1
+
+
+# ----------------------------------------------------------- cluster tier
+
+
+@pytest.fixture(scope="module")
+def fleet_cluster():
+    """The port's cluster runtime (head, node manager, worker processes
+    over its shm store), for the ``ClusterKVPageStore`` cases."""
+    import ray_tpu_torch
+    from ray_tpu_torch import serve
+
+    rt = ray_tpu_torch.init(num_cpus=8, object_store_memory=128 << 20)
+    try:
+        yield rt
+    finally:
+        try:
+            serve.shutdown()
+        finally:
+            ray_tpu_torch.shutdown()
+            for p in rt._procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait(timeout=10)
+
+
+def test_cluster_store_page_crosses_worker_processes(fleet_cluster):
+    """A bf16 page put by one worker process is got by another under the
+    same ``page_object_id`` (a local-arena hit: one node), bit for bit;
+    the driver sees it too, and a delete removes it."""
+    import ray_tpu_torch
+
+    @ray_tpu_torch.remote
+    class Holder:
+        def put(self, oid, block, chain, k, v):
+            import os
+
+            from ray_tpu_torch.core.runtime_context import get_runtime
+
+            store = kv_fleet.ClusterKVPageStore(get_runtime())
+            payload = kv_fleet.pack_page(block, chain, k, v,
+                                         kv_fleet.page_crc(k, v))
+            return os.getpid(), store.put(oid, payload), store.put(
+                oid, payload)
+
+        def get(self, oid):
+            import os
+
+            from ray_tpu_torch.core.runtime_context import get_runtime
+
+            store = kv_fleet.ClusterKVPageStore(get_runtime())
+            raw = store.get(oid)
+            return os.getpid(), kv_fleet.unpack_page(raw)
+
+    g = torch.Generator().manual_seed(5)
+    k = torch.randn(2, 2, BLOCK, 16, generator=g).to(torch.bfloat16)
+    v = torch.randn(2, 2, BLOCK, 16, generator=g).to(torch.bfloat16)
+    block, chain = list(range(BLOCK)), chain_hashes(list(range(BLOCK)),
+                                                    BLOCK)
+    ns = kv_fleet.fleet_namespace(tllama.tiny_config(max_seq_len=128),
+                                  BLOCK, None, 0)
+    oid = kv_fleet.page_object_id(ns, chain[-1])
+    a, b = Holder.remote(), Holder.remote()
+    try:
+        pid_a, first, again = ray_tpu_torch.get(
+            a.put.remote(oid, block, chain, k, v), timeout=60)
+        assert (first, again) == (True, False)  # the second put dedups
+        pid_b, page = ray_tpu_torch.get(b.get.remote(oid), timeout=60)
+    finally:
+        for h in (a, b):
+            ray_tpu_torch.kill(h)
+    assert pid_a != pid_b
+    assert page["k_page"].dtype == torch.bfloat16
+    for got, want in ((page["k_page"], k), (page["v_page"], v)):
+        assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+    assert list(page["tokens"]) == block and list(page["chain"]) == chain
+    store = kv_fleet.ClusterKVPageStore(fleet_cluster)
+    assert store.contains(oid) and store.stats()["objects"] >= 1
+    assert store.delete(oid) and not store.contains(oid)
+    assert store.get(oid) is None
+
+
+def test_resolve_store_picks_the_cluster_store(fleet_cluster):
+    """Under a cluster runtime an engine's default page tier is the
+    cluster store, in the driver and in a worker process."""
+    import ray_tpu_torch
+
+    @ray_tpu_torch.remote
+    def kind():
+        return type(kv_fleet.resolve_store()).__name__
+
+    assert isinstance(kv_fleet.resolve_store(),
+                      kv_fleet.ClusterKVPageStore)
+    explicit = kv_fleet.LocalKVPageStore()
+    assert kv_fleet.resolve_store(explicit) is explicit
+    assert ray_tpu_torch.get(kind.remote(), timeout=60) == \
+        "ClusterKVPageStore"
+
+
+def test_fleet_pages_survive_replica_sigkill(fleet_cluster, tiny, jax_ref):
+    """Churn: a killed replica's cache dies with it, but its SPILLED pages
+    live in the node's shm arena — still pullable, and the replies stay
+    ``ray_tpu``'s tokens through the restart."""
+    import ray_tpu_torch
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.exceptions import ActorDiedError
+    from ray_tpu_torch.serve.llm import build_llm_deployment
+
+    ek = dict(cfg=tiny[2], params=tiny[3], device="cpu",
+              kv_fleet_min_prefix_blocks=0, **BASE)
+    h = serve.run(build_llm_deployment(name="kvfleet", num_replicas=2,
+                                       engine_kwargs=ek))
+    try:
+        for p in (P1, P2):
+            out = h.remote({"prompt_ids": p,
+                            "max_new_tokens": 8}).result(timeout=180)
+            assert out["token_ids"] == jax_ref(p, 8)
+        # Single-slot engines evict on each new prompt: one more round of
+        # P2/P1 makes every replica that held P1 spill it.
+        for p in (P2, P1, P2):
+            out = h.remote({"prompt_ids": p,
+                            "max_new_tokens": 8}).result(timeout=180)
+            assert out["token_ids"] == jax_ref(p, 8)
+
+        ns = kv_fleet.fleet_namespace(tiny[2], BLOCK, None, 0)
+        store = kv_fleet.ClusterKVPageStore(fleet_cluster)
+        want = chain_hashes(P1, BLOCK)
+
+        def pullable():
+            return all(kv_fleet.unpack_page(
+                store.get(kv_fleet.page_object_id(ns, hh)) or b"")
+                is not None for hh in want[:3])
+
+        deadline = time.time() + 60
+        while time.time() < deadline and not pullable():
+            time.sleep(0.2)
+        assert pullable(), "P1's spilled pages never landed in the store"
+
+        controller = ray_tpu_torch.get_actor("rtpu-serve-controller")
+        replicas = ray_tpu_torch.get(
+            controller.get_replicas.remote("kvfleet"), timeout=30)
+        assert len(replicas) == 2
+        ray_tpu_torch.kill(replicas[0])
+        # The dead replica's pages REMAIN pullable from the node store.
+        assert pullable()
+
+        # Requests racing the controller's death report may land on the
+        # corpse — that window is the router's to close, not this tier's,
+        # so a transient ActorDiedError retries until the set converges.
+        def gen(p, deadline):
+            while True:
+                try:
+                    return h.remote({"prompt_ids": p, "max_new_tokens": 8}
+                                    ).result(timeout=180)
+                except ActorDiedError:
+                    if time.time() > deadline:
+                        raise
+                    time.sleep(0.5)
+
+        deadline = time.time() + 120
+        for _trip in range(3):
+            for p in (P1, P2):
+                assert gen(p, deadline)["token_ids"] == jax_ref(p, 8)
+    finally:
+        serve.delete("kvfleet")

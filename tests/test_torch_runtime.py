@@ -587,6 +587,18 @@ def test_system_config_applies_and_unknown_flag_raises():
         TCFG.set("rpc_chaos_failure_prob", 0.5)  # not a flag of the port
 
 
+def test_config_define_twice_raises():
+    """One definition a flag: a second ``define`` of a name is refused and
+    leaves the first in place."""
+    from ray_tpu_torch.core.config import Config
+
+    cfg = Config()
+    cfg.define("x_flag", int, 1)
+    with pytest.raises(ValueError, match="defined twice: x_flag"):
+        cfg.define("x_flag", int, 2)
+    assert cfg.x_flag == 1
+
+
 def _closed_port():
     with socket.socket() as sock:
         sock.bind(("127.0.0.1", 0))
@@ -676,7 +688,14 @@ def test_gpu_resource_counts_the_cards(monkeypatch):
     assert got == (float(torch.cuda.device_count()) or None)
 
 
-def test_actor_bind_raises_not_implemented():
+def test_actor_bind_raises_not_implemented(monkeypatch):
+    """``.bind`` builds a compiled-DAG node, as ``ray_tpu``'s does. The
+    local runtime places no actor on a node, so compiling over its actors
+    raises what ``ray_tpu``'s local runtime raises, a ``TimeoutError``
+    once the placement wait ends (60 s there and here; cut to 0.2 s for
+    the test)."""
+    from ray_tpu_torch.dag import ClassMethodNode, InputNode, compiled_dag
+
     ray_tpu_torch.init(local_mode=True)
     try:
         @ray_tpu_torch.remote
@@ -685,8 +704,18 @@ def test_actor_bind_raises_not_implemented():
                 return x
 
         a = A.remote()
-        with pytest.raises(NotImplementedError, match="9b"):
-            a.f.bind(1)
+        with InputNode() as inp:
+            node = a.f.bind(inp)
+        assert isinstance(node, ClassMethodNode)
+        assert (node.actor, node.method_name, node.args, node.kwargs) == (
+            a, "f", (inp,), {})
+        assert node.upstream() == [inp]
+        const = a.f.bind(1, k=2)
+        assert const.args == (1,) and const.kwargs == {"k": 2}
+        assert compiled_dag.PLACEMENT_TIMEOUT_S == 60.0
+        monkeypatch.setattr(compiled_dag, "PLACEMENT_TIMEOUT_S", 0.2)
+        with pytest.raises(TimeoutError, match="not placed"):
+            node.experimental_compile()
     finally:
         ray_tpu_torch.shutdown()
 

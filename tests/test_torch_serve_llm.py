@@ -8,8 +8,9 @@ tokens identical, streaming and not. Then the port's deployment on its
 own: two replicas with prefix affinity (``cached_prefix_len``), the
 replica load snapshot's keys against ``ray_tpu``'s, the params tree
 passed by reference down to each replica's engine, ``disaggregated=True``
-raising, ``use_gpu`` without a card failing at the replica's constructor,
-and no engine thread left after ``serve.shutdown()``.
+building ``ray_tpu``'s two pools, ``use_gpu`` without a card failing at the
+replica's constructor, and no engine thread left after
+``serve.shutdown()``.
 """
 
 import time
@@ -173,8 +174,31 @@ def test_params_reach_each_replica_by_reference(weights, runtime):
 
 
 def test_disaggregated_raises():
-    with pytest.raises(NotImplementedError, match="9b"):
-        build_llm_deployment(disaggregated=True)
+    """``disaggregated=True`` builds ``ray_tpu``'s two pools: the prefill
+    pool, bound to the decode pool, each asking one ``GPU`` a replica with
+    ``use_gpu`` where ``ray_tpu``'s asks one ``TPU`` with ``use_tpu``."""
+    from ray_tpu_torch.serve.llm import DecodeLLMServer, PrefillLLMServer
+
+    ek = dict(max_batch=2, seed=0)
+    dep = build_llm_deployment("pd", use_gpu=True, disaggregated=True,
+                               num_prefill_replicas=2,
+                               num_decode_replicas=3, engine_kwargs=ek)
+    jdep = jbuild("pd", use_tpu=True, disaggregated=True,
+                  num_prefill_replicas=2, num_decode_replicas=3,
+                  engine_kwargs=ek)
+    (decode,), (jdecode,) = dep._init_args, jdep._init_args
+    assert dep._cls is PrefillLLMServer and decode._cls is DecodeLLMServer
+    assert dep._init_kwargs == decode._init_kwargs == ek
+    for got, want in ((dep, jdep), (decode, jdecode)):
+        assert got.name == want.name
+        opts = dict(got._config)
+        assert opts.pop("ray_actor_options") == {"resources": {"GPU": 1.0}}
+        jopts = dict(want._config)
+        assert jopts.pop("ray_actor_options") == {"resources": {"TPU": 1.0}}
+        assert opts == jopts
+    assert (dep.name, decode.name) == ("pd", "pd-decode")
+    assert (dep._config["num_replicas"], decode._config["num_replicas"]) \
+        == (2, 3)
 
 
 def test_use_gpu_without_a_card_fails_at_the_replica(weights, runtime):
