@@ -2,7 +2,7 @@
 """Run the PyTorch/CUDA port (``ray_tpu_torch``) end to end on one CUDA
 card and check it.
 
-    python3 chip_smoke.py              # phases 1-14, the smoke
+    python3 chip_smoke.py              # phases 1-15, the smoke
     python3 chip_smoke.py --spec-ab    # phases 1-2, then speculation off
                                        # against on (bf16), no result line
     python3 chip_smoke.py --flash [DIR]     # phases 1-2, the flash kernels
@@ -19,6 +19,8 @@ card and check it.
                                             # result line
     python3 chip_smoke.py --disagg          # phases 1-2 and 14, no result
                                             # line
+    python3 chip_smoke.py --train           # phases 1-2, 8 and 15, no
+                                            # result line
 
 ``--flash`` runs against the package of the checkout at DIR (default:
 this one): the flash kernels against their plain versions at phase 3's
@@ -159,6 +161,26 @@ script exits non-zero without printing its last line:
    one batch of B=1, S=2048 from a numpy seed; finite losses and gradient
    norms, a falling loss, the kernels' launch counts per step, step time,
    tokens/s, MFU, peak memory and the device time by group.
+15. The trainer, after phase 8 (``ray_tpu_torch.train`` on the cluster
+    runtime, ``ray_tpu_torch.init()``, each run one worker process leased
+    ``{"GPU": 1}``, which sees the card alone): (a) phase 8's training
+    (Llama-3-8B bf16, ``_gen(11)``, ``RandomState(8)`` tokens, 5 steps)
+    as the loop of ``DataParallelTrainer(..., ScalingConfig(num_workers=1,
+    use_gpu=True))``: the worker is another process, its kernel launches
+    equal phase 8's and its losses are within 2e-3 of phase 8's; its step
+    ms beside phase 8's direct step, a round's overhead (the driver's time
+    between rounds less the worker's step), tokens/s, MFU, peak memory.
+    (b) Llama-3.2-1B at its published widths and depth, bf16, 4 steps,
+    the whole state (``spmd.train_state_tree``, ~9 GB) saved every 2 steps
+    by ``train.save_pytree`` and loaded straight back bit-equal; the first
+    attempt fails at step 3 and ``FailureConfig(max_failures=1)`` restarts
+    it from the checkpoint (``load_pytree(device="cuda")`` ->
+    ``train_state_from_tree``), its losses at steps 2-3 within 2e-3 of an
+    uninterrupted run in this process; the checkpoint's bytes, save and
+    load ms and GB/s, the free disk. (c) ``TorchTrainer`` on the GPU
+    worker: backend NCCL, a world of one, an ``all_reduce`` of a CUDA
+    tensor, one DDP step of a small module on the card equal to the same
+    step without DDP. Prints the phase's time.
 10. The model zoo, after phase 8: (a) Mixtral, 2 layers at
     MIXTRAL_8X7B's widths in f32, B=1, S=256: the loss and every gradient
     through the flash kernels against the plain route, and every token's
@@ -203,7 +225,8 @@ script exits non-zero without printing its last line:
    launches over phase 9 as ``launches_phase9``, over phase 12's
    deployments as ``launches_phase12``, summed over phase 13's replica
    processes as ``launches_phase13`` and over phase 14's as
-   ``launches_phase14``, and the flash rows' launches a step of phase 10b
+   ``launches_phase14``, phase 15a's trainer worker's over its 5 steps as
+   ``launches_phase15``, and the flash rows' launches a step of phase 10b
    as ``launches_phase10``) is printed just before the last line.
 
 The last line is ``{"ok": true, "device": {...}}``. Needs one card; exits
@@ -2924,6 +2947,9 @@ def phase_train(smi):
     steady = sorted(walls[1:-1])[len(walls[1:-1]) // 2]
     tokens_s = TRAIN_B * TRAIN_S / steady
     flops = cfg.flops_per_token(TRAIN_S) * TRAIN_B * TRAIN_S
+    MEASURED["phase8"] = {"losses": losses, "step_ms": steady * 1e3,
+                          "per_step": per_step, "flops": flops,
+                          "peak": peak}
     groups, others = train_breakdown(prof)
     busy = sum(groups.values()) / 1e3
     log(f"  phase 8 step: {steady * 1e3} ms (median of steps 1-"
@@ -2948,6 +2974,399 @@ def phase_train(smi):
     del state, metrics, step
     gc.collect()
     torch.cuda.empty_cache()
+    return launches
+
+
+# --------------------------------------------------------------- phase 15
+
+# Phase 15b: Llama-3.2-1B's whole state checkpointed every CKPT_EVERY
+# steps of CKPT_STEPS, the first attempt failing at step CKPT_FAIL_AT.
+CKPT_STEPS, CKPT_EVERY, CKPT_FAIL_AT = 4, 2, 3
+
+
+def trainer_loops():
+    """Phase 15's train loops, defined in a function so that the cluster
+    ships them by value to the trainer's GPU worker process (which loads
+    no part of this script). Each reports what the driver checks."""
+    def llama8b_loop(config):
+        """Phase 8's setup and steps in the worker: Llama-3-8B bf16 from
+        ``_gen(11)``, ``RandomState(8)`` tokens, 5 steps; each step's loss,
+        grad norm, wall ms (synchronized, before the host reads the loss,
+        as phase 8 times it), the kernels' launches so far, peak memory,
+        the process and its visible cards."""
+        import importlib
+
+        from ray_tpu_torch import train
+        from ray_tpu_torch.models import llama
+        from ray_tpu_torch.parallel import spmd
+
+        # Not ``from ray_tpu_torch import ops``: cloudpickle would then take
+        # ``torch.ops`` for a submodule this function uses and fail on it.
+        kernels = importlib.import_module("ray_tpu_torch.ops").KERNELS
+
+        cfg = dataclasses.replace(llama.LLAMA3_8B, fused_ops=True)
+        tx = spmd.default_optimizer(lr=1e-4, warmup=1)
+        state = spmd.init_train_state(cfg, _gen(11), tx)
+        tokens = torch.from_numpy(np.random.RandomState(8).randint(
+            0, cfg.vocab_size, (TRAIN_B, TRAIN_S))).to("cuda")
+        step = spmd.make_train_step(cfg, tx)
+        torch.cuda.reset_peak_memory_stats()
+        for fn in kernels.values():
+            fn.launches = 0
+        for i in range(TRAIN_STEPS):
+            t = time.perf_counter()
+            state, metrics = step(state, tokens)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            train.report({
+                "step": i, "loss": metrics["loss"].item(),
+                "grad_norm": metrics["grad_norm"].item(),
+                "step_ms": wall * 1e3,
+                "launches": {n: fn.launches for n, fn in kernels.items()},
+                "peak": torch.cuda.max_memory_allocated(), "pid": os.getpid(),
+                "visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+                "device": torch.cuda.get_device_name(0)})
+
+    def ckpt_loop(config):
+        """Llama-3.2-1B bf16 trained from ``_gen(12)`` on ``RandomState(9)``
+        tokens, rank 0 saving the whole state every CKPT_EVERY steps and
+        loading it straight back (every leaf must be ``torch.equal`` to
+        the live one); the first attempt fails at CKPT_FAIL_AT, the second
+        resumes from the trainer's checkpoint onto the card."""
+        import tempfile
+
+        from ray_tpu_torch import train
+        from ray_tpu_torch.models import _tree, llama
+        from ray_tpu_torch.parallel import spmd
+
+        cfg = dataclasses.replace(llama.LLAMA3_1B, fused_ops=True)
+        tx = spmd.default_optimizer(lr=1e-4, warmup=1)
+        ckpt = train.get_checkpoint()
+        load_ms = rebuild_ms = warm_ms = None
+        if ckpt is not None:
+            # The process's first fused AdamW, timed apart: what
+            # train_state_from_tree's tx.init pays once per process.
+            t = time.perf_counter()
+            torch.optim.AdamW([torch.zeros(1, device="cuda")], fused=True)
+            torch.cuda.synchronize()
+            warm_ms = (time.perf_counter() - t) * 1e3
+            t = time.perf_counter()
+            tree = train.load_pytree(ckpt.path, device="cuda")
+            torch.cuda.synchronize()
+            load_ms = (time.perf_counter() - t) * 1e3
+            t = time.perf_counter()
+            state = spmd.train_state_from_tree(tree, cfg, tx)
+            torch.cuda.synchronize()
+            rebuild_ms = (time.perf_counter() - t) * 1e3
+            del tree
+        else:
+            state = spmd.init_train_state(cfg, _gen(12), tx)
+        start = state.step
+        tokens = torch.from_numpy(np.random.RandomState(9).randint(
+            0, cfg.vocab_size, (TRAIN_B, TRAIN_S))).to("cuda")
+        step = spmd.make_train_step(cfg, tx)
+        for i in range(start, config["num_steps"]):
+            state, metrics = step(state, tokens)
+            payload = {"step": i, "start": start,
+                       "loss": metrics["loss"].item(), "load_ms": load_ms,
+                       "rebuild_ms": rebuild_ms, "warm_ms": warm_ms,
+                       "pid": os.getpid()}
+            if i == config["fail_at"] and ckpt is None:
+                raise RuntimeError("phase 15b: injected failure")
+            rank = train.get_context().get_world_rank()
+            if (i + 1) % config["every"] or rank:
+                train.report(payload)
+                continue
+            d = tempfile.mkdtemp(prefix="ckpt_", dir=config["stage"])
+            t = time.perf_counter()
+            tree = spmd.train_state_tree(state)
+            train.save_pytree(tree, d)
+            save_ms = (time.perf_counter() - t) * 1e3
+            t = time.perf_counter()
+            back = train.load_pytree(d, device="cuda")
+            torch.cuda.synchronize()
+            back_ms = (time.perf_counter() - t) * 1e3
+            live, got = _tree.leaves(tree), _tree.leaves(back)
+            equal = len(live) == len(got) and all(
+                torch.equal(a, b) and a.dtype == b.dtype
+                if isinstance(a, torch.Tensor) else a == b
+                for a, b in zip(live, got))
+            nbytes = sum(os.path.getsize(os.path.join(d, f))
+                         for f in os.listdir(d))
+            del tree, back, live, got
+            train.report(dict(payload, save_ms=save_ms, back_ms=back_ms,
+                              equal=equal, bytes=nbytes,
+                              leaves=len(os.listdir(d)) - 1),
+                         checkpoint=train.Checkpoint(d))
+
+    def nccl_loop(config):
+        """One rank of NCCL on the worker's card: the backend, an
+        all_reduce of a CUDA tensor, and one DDP step of a small module on
+        the card against the same step without DDP."""
+        import torch.distributed as dist
+        from torch.nn.parallel import DistributedDataParallel
+
+        from ray_tpu_torch import train
+        from ray_tpu_torch.train.torch import prepare_model
+
+        t = torch.arange(4, dtype=torch.float32, device="cuda") + 1
+        dist.all_reduce(t)
+        torch.manual_seed(0)
+        plain = torch.nn.Linear(64, 16).to("cuda")
+        model = prepare_model(torch.nn.Linear(64, 16).to("cuda"))
+        model.load_state_dict(plain.state_dict())
+        ddp = DistributedDataParallel(model, device_ids=[0])
+        x = torch.randn(32, 64, device="cuda")
+        for m in (plain, ddp):
+            opt = torch.optim.SGD(m.parameters(), lr=0.1)
+            torch.nn.functional.mse_loss(m(x), x[:, :16]).backward()
+            opt.step()
+        train.report({
+            "backend": dist.get_backend(), "world": dist.get_world_size(),
+            "all_reduce": t.tolist(), "on": str(t.device),
+            "prepared_is_module": model is ddp.module,
+            "params_on": sorted({str(p.device) for p in ddp.parameters()}),
+            "ddp_equals_plain": all(
+                torch.equal(a, b) for a, b in zip(ddp.module.parameters(),
+                                                  plain.parameters())),
+            "pid": os.getpid(),
+            "visible": os.environ.get("CUDA_VISIBLE_DEVICES")})
+
+    return llama8b_loop, ckpt_loop, nccl_loop
+
+
+class RoundClock:
+    """The driver's clock at each lockstep round the trainer delivers
+    (``BackendExecutor.get_next_round`` wrapped while a fit runs)."""
+
+    def __init__(self):
+        from ray_tpu_torch.train import backend_executor
+
+        self.times = []
+        self._cls = backend_executor.BackendExecutor
+        self._orig = self._cls.get_next_round
+
+    def __enter__(self):
+        orig, times = self._orig, self.times
+
+        def timed(executor, *args, **kwargs):
+            out = orig(executor, *args, **kwargs)
+            times.append(time.perf_counter())
+            return out
+
+        self._cls.get_next_round = timed
+        return self
+
+    def __exit__(self, *exc):
+        self._cls.get_next_round = self._orig
+
+
+def phase15a(smi, loop, phase8):
+    """Phase 8's training through ``DataParallelTrainer`` in a GPU worker
+    process: the launches, losses and step time against phase 8's."""
+    from ray_tpu_torch.train import (DataParallelTrainer, RunConfig,
+                                     ScalingConfig)
+
+    with RoundClock() as clock:
+        t0 = time.perf_counter()
+        result = DataParallelTrainer(
+            loop, scaling_config=ScalingConfig(num_workers=1, use_gpu=True),
+            run_config=RunConfig(name="phase15a",
+                                 storage_path=phase8["storage"])).fit()
+        fit_s = time.perf_counter() - t0
+    if result.error is not None:
+        raise AssertionError(f"phase 15a: {result.error}")
+    rounds = result.metrics_dataframe
+    if [r["step"] for r in rounds] != list(range(TRAIN_STEPS)):
+        raise AssertionError(f"phase 15a: rounds {rounds}")
+    last = rounds[-1]
+    if last["pid"] == os.getpid():
+        raise AssertionError("phase 15a: the loop ran in the driver")
+    want = {n: c * TRAIN_STEPS for n, c in phase8["per_step"].items()}
+    if last["launches"] != want:
+        raise AssertionError(f"phase 15a: the worker's launches "
+                             f"{last['launches']}, expected {want}")
+    losses = [r["loss"] for r in rounds]
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, phase8["losses"])]
+    log(f"  phase 15a losses {losses}; phase 8's {phase8['losses']}; "
+        f"largest relative difference {max(rel)}, bit-equal "
+        f"{losses == phase8['losses']}; grad norms "
+        f"{[r['grad_norm'] for r in rounds]}")
+    if max(rel) > MODEL_TOL:
+        raise AssertionError(f"phase 15a: losses differ from phase 8's by "
+                             f"{max(rel)} > {MODEL_TOL}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[1]:
+        raise AssertionError(f"phase 15a: the loss did not fall: {losses}")
+    walls = [r["step_ms"] for r in rounds]
+    steady = median(walls[1:-1])
+    gaps = [b - a for a, b in zip(clock.times, clock.times[1:])]
+    overhead = [g * 1e3 - w for g, w in zip(gaps[:TRAIN_STEPS - 1],
+                                            walls[1:])]
+    log(f"  phase 15a trainer step: {steady} ms (median of steps 1-"
+        f"{TRAIN_STEPS - 2}; step 0 {walls[0]} ms) against phase 8's "
+        f"direct step {phase8['step_ms']} ms in this call, ratio "
+        f"{steady / phase8['step_ms']}; {TRAIN_B * TRAIN_S / steady * 1e3} "
+        f"tokens/s, MFU {phase8['flops'] / (steady / 1e3) / BF16_FLOPS}; "
+        f"a round's overhead (the driver's time between rounds less the "
+        f"worker's step) ms {overhead}, median {median(overhead)}; peak "
+        f"memory {last['peak'] / 1e9} GB (phase 8 {phase8['peak'] / 1e9} "
+        f"GB); worker pid {last['pid']} (driver {os.getpid()}), "
+        f"CUDA_VISIBLE_DEVICES={last['visible']!r}, {last['device']}; fit "
+        f"{fit_s:.1f} s; launches {last['launches']}; on {smi}")
+    return last["launches"]
+
+
+def phase15b(smi, loop, storage):
+    """Checkpoints, a failure and a resume at Llama-3.2-1B: the direct
+    uninterrupted run here, then the trainer's two attempts."""
+    import shutil
+
+    from ray_tpu_torch.models import _tree, llama
+    from ray_tpu_torch.parallel import spmd
+    from ray_tpu_torch.train import (CheckpointConfig, DataParallelTrainer,
+                                     FailureConfig, RunConfig, ScalingConfig)
+
+    cfg = dataclasses.replace(llama.LLAMA3_1B, fused_ops=True)
+    assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+            cfg.d_ff, cfg.vocab_size, cfg.dtype) == (
+        16, 2048, 32, 8, 8192, 128256, torch.bfloat16)
+    tx = spmd.default_optimizer(lr=1e-4, warmup=1)
+    state = spmd.init_train_state(cfg, _gen(12), tx)
+    tokens = torch.from_numpy(np.random.RandomState(9).randint(
+        0, cfg.vocab_size, (TRAIN_B, TRAIN_S))).to("cuda")
+    step = spmd.make_train_step(cfg, tx)
+    direct = []
+    for _ in range(CKPT_STEPS):
+        state, metrics = step(state, tokens)
+        direct.append(metrics["loss"].item())
+    state_bytes = sum(t.numel() * t.element_size() for t in _tree.leaves(
+        spmd.train_state_tree(state)) if isinstance(t, torch.Tensor))
+    del state, metrics, step
+    free_card()
+    stage = os.path.join(storage, "stage")
+    os.makedirs(stage)
+    free = shutil.disk_usage(storage).free
+    log(f"  phase 15b: Llama-3.2-1B bf16, {cfg.param_count() / 1e9:.3f}B "
+        f"params, whole state {state_bytes / 1e9} GB; free disk under the "
+        f"storage path {free / 1e9} GB; direct losses {direct}")
+    t0 = time.perf_counter()
+    result = DataParallelTrainer(
+        loop, train_loop_config={"num_steps": CKPT_STEPS,
+                                 "every": CKPT_EVERY,
+                                 "fail_at": CKPT_FAIL_AT, "stage": stage},
+        scaling_config=ScalingConfig(num_workers=1, use_gpu=True),
+        run_config=RunConfig(
+            name="phase15b", storage_path=storage,
+            checkpoint_config=CheckpointConfig(num_to_keep=1),
+            failure_config=FailureConfig(max_failures=1))).fit()
+    fit_s = time.perf_counter() - t0
+    if result.error is not None:
+        raise AssertionError(f"phase 15b: {result.error}")
+    rounds = result.metrics_dataframe
+    steps = [(r["start"], r["step"]) for r in rounds]
+    if steps != [(0, 0), (0, 1), (0, 2), (2, 2), (2, 3)]:
+        raise AssertionError(f"phase 15b: rounds (start, step) {steps}")
+    saves = [r for r in rounds if "save_ms" in r]
+    if len(saves) != 2 or not all(r["equal"] for r in saves):
+        raise AssertionError(f"phase 15b: a checkpoint did not load back "
+                             f"bit-equal: {saves}")
+    resumed = [r["loss"] for r in rounds[3:]]
+    rel = [abs(a - b) / abs(b) for a, b in zip(resumed, direct[2:])]
+    log(f"  phase 15b resumed losses (steps 2-3) {resumed} against the "
+        f"uninterrupted run's {direct[2:]}: largest relative difference "
+        f"{max(rel)}, bit-equal {resumed == direct[2:]}; first attempt "
+        f"{[r['loss'] for r in rounds[:3]]}")
+    if max(rel) > MODEL_TOL:
+        raise AssertionError(f"phase 15b: the resumed losses differ by "
+                             f"{max(rel)} > {MODEL_TOL}")
+    for r in saves:
+        log(f"  phase 15b checkpoint after step {r['step']}: {r['bytes']} "
+            f"bytes in {r['leaves']} leaf files, bit-equal on load; save "
+            f"(tree + host copy + write) {r['save_ms']} ms, "
+            f"{r['bytes'] / r['save_ms'] / 1e6} GB/s; load onto the card "
+            f"{r['back_ms']} ms, {r['bytes'] / r['back_ms'] / 1e6} GB/s")
+    load_ms = rounds[3]["load_ms"]
+    log(f"  phase 15b resume in a new worker: load_pytree onto the card "
+        f"{load_ms} ms ({saves[0]['bytes'] / load_ms / 1e6} GB/s), then "
+        f"train_state_from_tree {rounds[3]['rebuild_ms']} ms (after the "
+        f"process's first fused AdamW, {rounds[3]['warm_ms']} ms); fit "
+        f"{fit_s:.1f} s (two attempts); on {smi}")
+
+
+def phase15c(smi, loop):
+    """``TorchTrainer`` on one GPU worker: NCCL, a world of one."""
+    from ray_tpu_torch.train import RunConfig, ScalingConfig, TorchTrainer
+
+    trainer = TorchTrainer(
+        loop, scaling_config=ScalingConfig(num_workers=1, use_gpu=True),
+        run_config=RunConfig(name="phase15c",
+                             storage_path=MEASURED["phase15_storage"]))
+    t0 = time.perf_counter()
+    result = trainer.fit()
+    if result.error is not None:
+        raise AssertionError(f"phase 15c: {result.error}")
+    m = result.metrics
+    ok = (trainer.backend == m["backend"] == "nccl" and m["world"] == 1
+          and m["all_reduce"] == [1.0, 2.0, 3.0, 4.0]
+          and m["on"].startswith("cuda") and m["prepared_is_module"]
+          and m["params_on"] == ["cuda:0"] and m["ddp_equals_plain"]
+          and m["pid"] != os.getpid())
+    if not ok:
+        raise AssertionError(f"phase 15c: {m}")
+    log(f"  phase 15c TorchTrainer: backend {m['backend']}, world "
+        f"{m['world']}, all_reduce of a CUDA tensor {m['all_reduce']}, one "
+        f"DDP step on {m['params_on']} equal to the plain step; worker "
+        f"CUDA_VISIBLE_DEVICES={m['visible']!r}; fit "
+        f"{time.perf_counter() - t0:.1f} s; on {smi}")
+
+
+def phase_trainer(smi):
+    """Phase 15, after phase 8: ``ray_tpu_torch.train`` on the cluster
+    runtime, one GPU worker process at a time (15a Llama-3-8B through the
+    trainer, 15b Llama-3.2-1B checkpoints with a failure and a resume, 15c
+    ``TorchTrainer`` on NCCL). Returns the 15a worker's launches."""
+    import gc
+    import shutil
+    import tempfile
+
+    import ray_tpu_torch
+
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    if held >= 2 * 2**30:
+        raise AssertionError(f"phase 15: {held} bytes still allocated "
+                             "before the trainer's worker starts")
+    phase8 = dict(MEASURED["phase8"])
+    storage = tempfile.mkdtemp(prefix="rtt_phase15_")
+    MEASURED["phase15_storage"] = phase8["storage"] = storage
+    llama8b_loop, ckpt_loop, nccl_loop = trainer_loops()
+    rt = ray_tpu_torch.init(object_store_memory=1 << 30)
+    procs = list(rt._procs)
+    try:
+        t = time.perf_counter()
+        launches = phase15a(smi, llama8b_loop, phase8)
+        log(f"phase 15a took {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        phase15b(smi, ckpt_loop, storage)
+        log(f"phase 15b took {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        phase15c(smi, nccl_loop)
+        log(f"phase 15c took {time.perf_counter() - t:.1f} s")
+    finally:
+        try:
+            ray_tpu_torch.shutdown()
+        finally:
+            shutil.rmtree(storage, ignore_errors=True)
+    deadline = time.time() + 30
+    while any(alive(p.pid) for p in procs):
+        if time.time() > deadline:
+            raise AssertionError("phase 15: cluster processes outlived "
+                                 "shutdown")
+        time.sleep(0.1)
+    log(f"phase 15 trainer: 15a-15c passed in {time.perf_counter() - t0:.1f}"
+        f" s; on {smi}")
     return launches
 
 
@@ -4390,6 +4809,11 @@ def main() -> int:
         phase_cluster(smi, name, only14=args == ["--disagg"])
         log(f"total {time.perf_counter() - t_start:.1f} s on {smi}")
         return 0
+    if args == ["--train"]:
+        phase_train(smi)
+        phase_trainer(smi)
+        log(f"total {time.perf_counter() - t_start:.1f} s on {smi}")
+        return 0
     if args == ["--spec-ab"]:
         spec_ab(smi)
         log(f"total {time.perf_counter() - t_start:.1f} s on {smi}")
@@ -4408,6 +4832,7 @@ def main() -> int:
     served, phase12 = phase_serve(smi)
     cluster, disagg = phase_cluster(smi, name, phase12)
     train = phase_train(smi)
+    trainer = phase_trainer(smi)
     for kernel in TRAIN_ONLY:
         launches[kernel] = train[kernel]
     zoo = phase_zoo(smi)
@@ -4418,6 +4843,7 @@ def main() -> int:
             row["launches_phase10"] = zoo[row["name"]]
         row["launches_phase13"] = cluster[row["name"]]
         row["launches_phase14"] = disagg[row["name"]]
+        row["launches_phase15"] = trainer[row["name"]]
     fused_apply_cost(smi)
     log(f"total {time.perf_counter() - t_start:.1f} s on {smi}")
     print(json.dumps({"kernels": rows}), flush=True)

@@ -27,24 +27,31 @@ tasks, actors, objects on threads); and the serve stack on either:
 ``serve.llm.build_llm_deployment``, so
 ``serve.run(build_llm_deployment(engine_kwargs=...))`` serves the engine
 through ``handle.remote({"prompt_ids": [...]})``, each replica in a worker
-process of its own on the cluster. A worker leased with ``GPU`` sees the
-host's cards; a CPU worker sees none. ``ROADMAP.md`` lists what is left
-(among it every multi-chip path, client mode, jobs, and what rides the
-DAG channels: the disaggregated deployment, remote env runners, learner
-gangs).
+process of its own on the cluster; ``dag`` (compiled DAGs over shm rings)
+and the disaggregated deployment over it
+(``build_llm_deployment(disaggregated=True)``); and ``train``
+(``DataParallelTrainer``, ``TorchTrainer`` on NCCL or gloo, lockstep
+``report()``, checkpoints of the whole training state through
+``spmd.train_state_tree``, group restarts, elastic resizes). A worker
+leased with ``GPU`` sees its lease's cards alone (``CUDA_VISIBLE_DEVICES``,
+set by the node manager), so its own card is ``cuda:0``; a CPU worker
+sees none. ``ROADMAP.md`` lists what is left (among it every multi-chip
+path, ``data``, ``tune``, client mode, jobs, remote env runners and
+learner gangs).
 
 The tests run the serve path on the CPU (``tests/test_torch_serve*.py``,
 ``device="cpu"`` in ``engine_kwargs``); ``python3 chip_smoke.py --serve``
-runs it on the card at full Llama-3-8B on the local runtime, and
-``python3 chip_smoke.py --cluster`` on the cluster runtime.
+runs it on the card at full Llama-3-8B on the local runtime,
+``python3 chip_smoke.py --cluster`` on the cluster runtime, and
+``python3 chip_smoke.py --train`` trains through ``train`` there.
 
 Importing the package does not import ``torch``: the head and node
 processes of a cluster never need it. The modules that make tensors
 import it themselves.
 
 Entry points that make tensors (``init_params``, ``init_kv_cache``,
-``LLMEngine``, ``spmd.init_train_state``, the ``rllib`` learners,
-runners and configs) take ``device=None``, meaning
+``LLMEngine``, ``spmd.init_train_state``, ``spmd.train_state_from_tree``,
+the ``rllib`` learners, runners and configs) take ``device=None``, meaning
 the card; without one they raise. Pass ``device="cpu"`` to run the plain
 versions on the CPU.
 """

@@ -22,6 +22,12 @@ the step runs eagerly on one card and updates the parameters in place:
   fused kernel (``ray_tpu`` leaves the update to XLA; there is no Pallas
   kernel there either).
 
+``train_state_tree`` writes the whole state (step, parameters, AdamW's
+count and moments) as a tree in ``ray_tpu``'s layout, and
+``train_state_from_tree`` / ``from_jax_train_state`` rebuild a state from
+that tree or from ``ray_tpu``'s own: what ``train``'s checkpoints save and
+restore.
+
 The mesh argument, FSDP and tensor parallelism wait for the multi-chip
 slice (ROADMAP).
 """
@@ -33,7 +39,9 @@ import math
 from typing import Any, Callable, Dict, List, NamedTuple, Sequence, Tuple
 
 import torch
+from torch.optim.optimizer import _get_scalar_dtype
 
+from ray_tpu_torch import resolve_device
 from ray_tpu_torch.models import _tree, llama
 from ray_tpu_torch.models.quant import QuantTensor
 
@@ -153,6 +161,134 @@ def init_train_state(cfg: llama.LlamaConfig, generator: torch.Generator,
     card) and the optimizer's state: ``sharded_init`` on one device."""
     params = llama.init_params(cfg, generator, device)
     return TrainState(0, params, tx.init(params))
+
+
+def _stack(trees: List[Any]) -> Any:
+    """Per-layer trees of one structure -> one tree stacked on a leading
+    layer axis (the inverse of ``_tree.unstack``)."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _stack([t[k] for t in trees]) for k in first}
+    if isinstance(first, list):
+        return [_stack([t[i] for t in trees]) for i in range(len(first))]
+    return torch.stack(trees)
+
+
+def train_state_tree(state: TrainState) -> Dict[str, Any]:
+    """The whole training state as a tree in ``ray_tpu``'s layout:
+    ``{step, params, opt: {count, mu, nu}}``. ``step`` drives the
+    learning-rate schedule, ``count`` is AdamW's update count (its bias
+    correction); ``mu`` and ``nu`` mirror ``params``, the moments of a
+    stacked subtree stacked ``[L, ...]`` as optax keeps them, zeros before
+    the first update (optax's ``adamw`` starts at zeros; torch makes its
+    state at the first step). The parameters are the live tensors
+    (detached), the moments of stacked subtrees fresh stacks; the caller
+    copies what it keeps (``train.save_pytree`` copies to the host)."""
+    opt = state.opt_state
+    adam = opt.adamw.state
+    counts = {int(s["step"]) for s in adam.values()}
+    if len(counts) > 1:
+        raise ValueError(f"AdamW's leaves disagree on their step: {counts}")
+    if counts and len(adam) != len(opt.leaves):
+        raise ValueError(f"AdamW holds state for {len(adam)} of "
+                         f"{len(opt.leaves)} trainable tensors")
+
+    def moment(key):
+        def of(w):
+            s = adam.get(w)
+            return s[key] if s else torch.zeros_like(w)
+
+        return {name: (_stack([_tree.map_leaves(of, v)
+                               for v in opt.layers[name]])
+                       if name in opt.layers else _tree.map_leaves(of, sub))
+                for name, sub in state.params.items()}
+
+    return {"step": state.step,
+            "params": _tree.map_leaves(torch.Tensor.detach, state.params),
+            "opt": {"count": counts.pop() if counts else 0,
+                    "mu": moment("exp_avg"), "nu": moment("exp_avg_sq")}}
+
+
+def train_state_from_tree(tree: Dict[str, Any], cfg: llama.LlamaConfig,
+                          tx: Optimizer, device=None) -> TrainState:
+    """Rebuild a ``TrainState`` from ``train_state_tree``'s layout on
+    ``device`` (None = the card): the parameters copied there in their
+    dtype and checked against ``cfg``'s shapes, ``tx.init`` over them (new
+    layer views of the new stacked tensors), then AdamW's ``exp_avg``,
+    ``exp_avg_sq`` and ``step`` written for every leaf and layer view, on
+    the leaf's device (fused AdamW keeps its step there). A count of 0
+    leaves AdamW's state to its first update, as a fresh state does."""
+    device = resolve_device(device)
+    shapes = llama.param_shapes(cfg)
+
+    def place(t, shape, name):
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
+                             f"{tuple(shape)}")
+        return t.detach().to(device, copy=True).contiguous()
+
+    def placed(sub, shape, name):
+        if isinstance(shape, dict):
+            if not isinstance(sub, dict) or set(sub) != set(shape):
+                got = sorted(sub) if isinstance(sub, dict) else type(sub)
+                raise ValueError(f"{name}: keys {got}, expected "
+                                 f"{sorted(shape)}")
+            return {k: placed(v, shape[k], f"{name}.{k}")
+                    for k, v in sub.items()}
+        return place(sub, shape, name)
+
+    params = placed(tree["params"], shapes, "params")
+    opt = tx.init(params)
+    count = int(tree["opt"]["count"])
+    if count:
+        group = opt.adamw.param_groups[0]
+        on_leaf = group["fused"] or group["capturable"]
+        scalar = _get_scalar_dtype(is_fused=group["fused"])
+        mu, nu = tree["opt"]["mu"], tree["opt"]["nu"]
+        pairs = []
+        for name, sub in params.items():
+            if name in opt.layers:
+                for i, view in enumerate(opt.layers[name]):
+                    pairs += zip(_tree.leaves(view),
+                                 _tree.leaves(_tree.map_leaves(
+                                     lambda m, i=i: m[i], mu[name])),
+                                 _tree.leaves(_tree.map_leaves(
+                                     lambda v, i=i: v[i], nu[name])))
+            else:
+                pairs += zip(_tree.leaves(sub), _tree.leaves(mu[name]),
+                             _tree.leaves(nu[name]))
+        for w, m, v in pairs:
+            if not w.requires_grad:
+                continue
+            opt.adamw.state[w] = {
+                "step": torch.tensor(float(count), dtype=scalar,
+                                     device=w.device if on_leaf else "cpu"),
+                "exp_avg": torch.empty_like(w).copy_(m),
+                "exp_avg_sq": torch.empty_like(w).copy_(v)}
+    return TrainState(int(tree["step"]), params, opt)
+
+
+def from_jax_train_state(tree: Any, cfg: llama.LlamaConfig, tx: Optimizer,
+                         device=None) -> TrainState:
+    """``ray_tpu``'s ``TrainState`` as numpy arrays (the caller does
+    ``jax.device_get``) -> this module's, on ``device``: the state
+    counterpart of ``llama.from_jax_params``. ``ray_tpu``'s ``opt_state``
+    is ``default_optimizer``'s chain, ``(EmptyState, (ScaleByAdamState(
+    count, mu, nu), EmptyState, ScaleByScheduleState(count)))``; read by
+    position, so any tuples of that shape do."""
+    step, params, opt_state = tree
+    count, mu, nu = opt_state[1][0]
+    shapes = llama.param_shapes(cfg)
+    cpu = torch.device("cpu")
+
+    def moments(m, name):
+        return _tree.from_numpy(m, shapes, cfg.dtype, cpu, name)
+
+    return train_state_from_tree(
+        {"step": int(step),
+         "params": llama.from_jax_params(params, cfg, cpu),
+         "opt": {"count": int(count), "mu": moments(mu, "mu"),
+                 "nu": moments(nu, "nu")}}, cfg, tx, device)
 
 
 def make_train_step(cfg: llama.LlamaConfig, tx: Optimizer

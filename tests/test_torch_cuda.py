@@ -1158,3 +1158,152 @@ def test_cluster_disaggregated_deployment_on_the_card(card_cluster):
         serve.shutdown()
     assert got == want and streamed == want
     assert stats["requests"] == 2 * len(prompts)
+
+
+# ------------------------------------------------------------ the trainer
+
+
+def test_trainer_gang_trains_on_the_card(card_cluster, tmp_path):
+    """``DataParallelTrainer`` with ``use_gpu``: the loop runs in a worker
+    process that sees one card (its ``CUDA_VISIBLE_DEVICES``), trains
+    ``tiny_config`` with the fused kernels from a seed on that card and
+    reports the losses of the same run made here (1e-5 relative: the same
+    kernels on the same card)."""
+    import os
+
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.parallel import spmd
+    from ray_tpu_torch.train import (DataParallelTrainer, RunConfig,
+                                     ScalingConfig)
+
+    def run(cfg, report):
+        tx = spmd.default_optimizer(lr=1e-2, warmup=1, decay_steps=20)
+        state = spmd.init_train_state(
+            cfg, torch.Generator("cuda").manual_seed(5), tx)
+        tokens = torch.randint(0, cfg.vocab_size, (2, 32), device="cuda",
+                               generator=torch.Generator(
+                                   "cuda").manual_seed(6))
+        step = spmd.make_train_step(cfg, tx)
+        for _ in range(4):
+            state, metrics = step(state, tokens)
+            report(metrics["loss"].item(), str(state.params["embed"].device))
+
+    cfg = llama.tiny_config(fused_ops=True)
+
+    def loop(config):
+        import os
+
+        from ray_tpu_torch import train
+
+        run(cfg, lambda loss, where: train.report({
+            "loss": loss, "where": where, "pid": os.getpid(),
+            "visible": os.environ.get("CUDA_VISIBLE_DEVICES")}))
+
+    result = DataParallelTrainer(
+        loop, scaling_config=ScalingConfig(num_workers=1, use_gpu=True),
+        run_config=RunConfig(storage_path=str(tmp_path))).fit()
+    assert result.error is None, result.error
+    want = []
+    run(cfg, lambda loss, where: want.append(loss))
+    rounds = result.metrics_dataframe
+    assert len(rounds) == 4
+    for got, loss in zip(rounds, want):
+        assert abs(got["loss"] - loss) <= 1e-5 * abs(loss), (got, loss)
+        assert got["where"] == "cuda:0" and got["pid"] != os.getpid()
+        assert got["visible"] not in (None, "")
+    assert want[-1] < want[0]
+
+
+def test_train_state_checkpoint_round_trip_on_the_card(card, tmp_path):
+    """A bf16 state on the card with fused AdamW (its step counters live
+    on the card), after two steps: saved, loaded back onto the card and
+    rebuilt bit-equal, AdamW's steps on the card again; two more steps
+    from the rebuilt state and from the live one agree (2e-3 relative,
+    ``chip_smoke.py``'s model tolerance)."""
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.parallel import spmd
+    from ray_tpu_torch.train import load_pytree, save_pytree
+
+    cfg = dataclasses.replace(llama.tiny_config(fused_ops=True),
+                              dtype=torch.bfloat16)
+    tx = spmd.default_optimizer(lr=1e-2, warmup=1, decay_steps=20)
+    state = spmd.init_train_state(cfg, torch.Generator("cuda").manual_seed(7),
+                                  tx)
+    assert state.opt_state.adamw.param_groups[0]["fused"]
+    tokens = torch.randint(0, cfg.vocab_size, (2, 32), device="cuda",
+                           generator=torch.Generator("cuda").manual_seed(8))
+    step = spmd.make_train_step(cfg, tx)
+    for _ in range(2):
+        state, _ = step(state, tokens)
+    tree = spmd.train_state_tree(state)
+    save_pytree(tree, str(tmp_path))
+    back = load_pytree(str(tmp_path), device="cuda")
+
+    def flat(t):
+        if isinstance(t, dict):
+            return [x for v in t.values() for x in flat(v)]
+        return [t]
+
+    def same(a, b):
+        return all(torch.equal(x, y) and x.dtype == y.dtype and y.is_cuda
+                   if isinstance(x, torch.Tensor) else x == y
+                   for x, y in zip(flat(a), flat(b))) and len(
+            flat(a)) == len(flat(b))
+
+    assert same(tree, back)
+    restored = spmd.train_state_from_tree(back, cfg, tx)
+    adam = restored.opt_state.adamw
+    assert adam.param_groups[0]["fused"]
+    assert all(s["step"].is_cuda and s["step"].item() == 2
+               for s in adam.state.values())
+    assert len(adam.state) == len(restored.opt_state.leaves)
+    assert same(tree, spmd.train_state_tree(restored))
+    live, again = [], []
+    for _ in range(2):
+        state, m = step(state, tokens)
+        live.append(m["loss"].item())
+        restored, m = step(restored, tokens)
+        again.append(m["loss"].item())
+    for a, b in zip(again, live):
+        assert abs(a - b) <= 2e-3 * abs(b), (again, live)
+
+
+def test_torch_trainer_nccl_world_of_one(card_cluster, tmp_path):
+    """``TorchTrainer`` with ``use_gpu`` picks NCCL; in its GPU worker an
+    ``all_reduce`` of a CUDA tensor and one DDP step of a small module on
+    the card (equal to the same step without DDP) run on it."""
+    from ray_tpu_torch.train import RunConfig, ScalingConfig, TorchTrainer
+
+    def loop(config):
+        import torch.distributed as dist
+        from torch.nn.parallel import DistributedDataParallel
+
+        from ray_tpu_torch import train
+
+        t = torch.ones(3, device="cuda") * 2
+        dist.all_reduce(t)
+        torch.manual_seed(0)
+        plain = torch.nn.Linear(16, 4).to("cuda")
+        model = torch.nn.Linear(16, 4).to("cuda")
+        model.load_state_dict(plain.state_dict())
+        ddp = DistributedDataParallel(model, device_ids=[0])
+        x = torch.randn(8, 16, device="cuda")
+        for m in (plain, ddp):
+            opt = torch.optim.SGD(m.parameters(), lr=0.1)
+            m(x).square().mean().backward()
+            opt.step()
+        train.report({"backend": dist.get_backend(),
+                      "world": dist.get_world_size(),
+                      "sum": t.tolist(), "on": str(t.device),
+                      "equal": all(torch.equal(a, b) for a, b in zip(
+                          ddp.module.parameters(), plain.parameters()))})
+
+    trainer = TorchTrainer(
+        loop, scaling_config=ScalingConfig(num_workers=1, use_gpu=True),
+        run_config=RunConfig(storage_path=str(tmp_path)))
+    assert trainer.backend == "nccl"
+    result = trainer.fit()
+    assert result.error is None, result.error
+    assert result.metrics == {"backend": "nccl", "world": 1,
+                              "sum": [2.0, 2.0, 2.0], "on": "cuda:0",
+                              "equal": True}

@@ -38,7 +38,8 @@ def test_importing_and_serving_loads_no_jax_module():
     """In a fresh interpreter: import the package, build a CPU engine and
     serve a request, then one with every engine knob on (paged decode,
     speculation, chunked prefill, int8), then take two training steps with
-    remat and the fused ops, then a step of each other model (Mixtral,
+    remat and the fused ops, checkpoint the state through ``train`` and
+    take a third from the restored state, then a step of each other model (Mixtral,
     ViT, T5, the UNet, and a UNet sample), then build RLlib's PPO and
     take one ``train()`` step, then serve the engine through
     ``build_llm_deployment`` on the local runtime (a reply and a stream);
@@ -74,6 +75,14 @@ def test_importing_and_serving_loads_no_jax_module():
         "for _ in range(2):\n"
         "    st, m = step(st, tok)\n"
         "assert st.step == 2 and torch.isfinite(m['grad_norm']), m\n"
+        "import tempfile\n"
+        "from ray_tpu_torch import train\n"
+        "d = tempfile.mkdtemp()\n"
+        "train.save_pytree(spmd.train_state_tree(st), d)\n"
+        "st = spmd.train_state_from_tree(train.load_pytree(d), tcfg, tx,\n"
+        "                                device='cpu')\n"
+        "st, m = step(st, tok)\n"
+        "assert st.step == 3, st.step\n"
         "from ray_tpu_torch.models import diffusion, mixtral, t5, vit\n"
         "g = torch.Generator().manual_seed(0)\n"
         "def train(mod, cfg, loss, stacked):\n"
@@ -149,6 +158,11 @@ def test_device_none_means_the_card():
     with pytest.raises(RuntimeError):
         spmd.init_train_state(cfg, torch.Generator().manual_seed(0),
                               spmd.default_optimizer())
+    tx = spmd.default_optimizer()
+    cpu = spmd.init_train_state(cfg, torch.Generator().manual_seed(0), tx,
+                                device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        spmd.train_state_from_tree(spmd.train_state_tree(cpu), cfg, tx)
     from ray_tpu_torch.models import diffusion, mixtral, t5, vit
 
     for init, mcfg in ((mixtral.init_params, mixtral.tiny_moe_config()),
