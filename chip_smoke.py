@@ -21,6 +21,8 @@ card and check it.
                                             # line
     python3 chip_smoke.py --train           # phases 1-2, 8 and 15, no
                                             # result line
+    python3 chip_smoke.py --parallel        # phases 1-2, 8 and 16, no
+                                            # result line
 
 ``--flash`` runs against the package of the checkout at DIR (default:
 this one): the flash kernels against their plain versions at phase 3's
@@ -181,6 +183,22 @@ script exits non-zero without printing its last line:
     worker: backend NCCL, a world of one, an ``all_reduce`` of a CUDA
     tensor, one DDP step of a small module on the card equal to the same
     step without DDP. Prints the phase's time.
+16. The mesh (``ray_tpu_torch.parallel``), after phase 15; the driver
+    joins a NCCL process group of one. (a) Phase 8's training exactly
+    (weights, tokens, optimizer, 5 steps) through ``make_train_step(cfg,
+    tx, mesh=mesh_2d(1))`` over ``shard_params``: the placements checked
+    before and after, every kernel's launches equal to phase 8's, each
+    loss within 2e-3 relative of phase 8's (and whether bit-equal), the
+    loss falls; the step ms beside phase 8's, one profiled step's wall,
+    host enqueue, device busy and idle share, MFU, peak memory. (b) The
+    GPipe pipeline at Llama-3-8B widths cut to 4 layers, bf16, B=4 S=512,
+    2 stages x 4 microbatches on one card: its hidden within 2e-2 of the
+    dense forward on the same weights, its step's loss within 2e-3 of the
+    dense step's. (c) Two ranks (processes, each its own CUDA context on
+    card 0) over gloo, 2 layers at Llama-3-8B widths, bf16, B=2 S=1024, 3
+    steps on ``MeshSpec(tp=2)`` and on ``MeshSpec(fsdp=2)``: losses and
+    grad norms within 2e-3 of the world-of-one step, the flash kernels at
+    the local head counts; step ms (gloo through the host).
 10. The model zoo, after phase 8: (a) Mixtral, 2 layers at
     MIXTRAL_8X7B's widths in f32, B=1, S=256: the loss and every gradient
     through the flash kernels against the plain route, and every token's
@@ -2849,7 +2867,7 @@ TRAIN_GROUPS = (
 )
 
 
-def train_breakdown(prof):
+def train_breakdown(prof, label="phase 8"):
     """Device microseconds by group over the profiled step, and the
     largest kernels of the remainder. User-annotated ranges on the device
     timeline (``Optimizer.step#AdamW.step``) span other kernels and are
@@ -2873,7 +2891,7 @@ def train_breakdown(prof):
             key = ev.name[:70]
             n_, t_ = fused.get(key, (0, 0.0))
             fused[key] = (n_ + 1, t_ + us)
-    log("  phase 8 fused kernels by instantiation (launches, ms): " + "; ".join(
+    log(f"  {label} fused kernels by instantiation (launches, ms): " + "; ".join(
         f"{k_} ({n_}, {t_ / 1e3})" for k_, (n_, t_) in sorted(fused.items())))
     return groups, others
 
@@ -2975,6 +2993,329 @@ def phase_train(smi):
     gc.collect()
     torch.cuda.empty_cache()
     return launches
+
+
+# --------------------------------------------------------------- phase 16
+
+# 16b: the pipeline at Llama-3-8B widths, cut to 4 layers; 16c: two ranks
+# on the one card over gloo, cut to 2 layers. 16c runs tp=2 and fsdp=2:
+# sp=2's ring shifts K/V with point-to-point sends, which gloo cannot make
+# of CUDA tensors (the rank aborts in gloo's TCP writev, "Bad address"),
+# so sp runs on the CPU ranks of the tests only (PERF.md, section 7).
+P16B_LAYERS, P16B_B, P16B_S, P16B_STAGES, P16B_MICRO = 4, 4, 512, 2, 4
+P16C_LAYERS, P16C_B, P16C_S, P16C_STEPS = 2, 2, 1024, 3
+P16C_MESHES = (("tp=2", {"tp": 2}), ("fsdp=2", {"fsdp": 2}))
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def rel_close(got, want, rtol, what):
+    """Each of the numbers ``got`` within ``rtol`` of ``want``'s, relative."""
+    errs = [abs(g - w) / abs(w) for g, w in zip(got, want)]
+    if len(got) != len(want) or max(errs) > rtol:
+        raise AssertionError(f"{what}: {got} vs {want}, relative errors "
+                             f"{errs} (limit {rtol})")
+    return max(errs)
+
+
+def phase16a(smi, mesh):
+    """Phase 8's step through the mesh path on a world of one: the same
+    weights, tokens and optimizer, the parameters DTensors placed by
+    Llama's table. Returns the launch counts of the 5 steps."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.parallel import spmd
+    from ray_tpu_torch.parallel.mesh import mfu_denominator
+
+    p8 = MEASURED["phase8"]
+    free_card()
+    held = torch.cuda.memory_allocated()
+    if held >= 2 * 2**30:
+        raise AssertionError(f"phase 16a: {held} bytes still allocated after "
+                             "phase 15")
+    cfg = dataclasses.replace(llama.LLAMA3_8B, fused_ops=True)
+    tx = spmd.default_optimizer(lr=1e-4, warmup=1)
+    logical = llama.param_logical_axes(cfg)
+    params = spmd.shard_params(llama.init_params(cfg, _gen(11)), mesh,
+                               logical)
+    state = spmd.TrainState(0, params, tx.init(params))
+    spmd.assert_params_sharded(state.params, mesh, logical)
+    tokens = torch.from_numpy(np.random.RandomState(8).randint(
+        0, cfg.vocab_size, (TRAIN_B, TRAIN_S))).to("cuda")
+    step = spmd.make_train_step(cfg, tx, mesh=mesh)
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    losses, gnorms, walls, enqueues = [], [], [], []
+    for i in range(TRAIN_STEPS):
+        tracer = (profile(activities=[ProfilerActivity.CPU,
+                                      ProfilerActivity.CUDA])
+                  if i == TRAIN_STEPS - 1 else contextlib.nullcontext())
+        with tracer as prof:
+            t = time.perf_counter()
+            state, metrics = step(state, tokens)
+            enqueues.append(time.perf_counter() - t)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t)
+        losses.append(metrics["loss"].item())
+        gnorms.append(metrics["grad_norm"].item())
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    spmd.assert_params_sharded(state.params, mesh, logical)
+    log(f"phase 16a mesh step: Llama-3-8B bf16, 32 layers, B={TRAIN_B} "
+        f"S={TRAIN_S}, mesh_2d(1) on NCCL (six axes of 1); losses {losses}; "
+        f"grad norms {gnorms}; step wall s {walls}")
+    if not all(np.isfinite(losses + gnorms)):
+        raise AssertionError("phase 16a: a non-finite loss or grad norm")
+    if not losses[-1] < losses[1]:
+        raise AssertionError(f"phase 16a: the loss did not fall: {losses}")
+    want = {n: c * TRAIN_STEPS for n, c in p8["per_step"].items()}
+    if launches != want:
+        raise AssertionError(f"phase 16a launches {launches}, expected "
+                             f"phase 8's {want}")
+    err = rel_close(losses, p8["losses"], 2e-3, "phase 16a losses vs phase 8")
+    steady = median(walls[1:-1])
+    groups, _ = train_breakdown(prof, "phase 16a")
+    busy = sum(groups.values()) / 1e3
+    mfu = p8["flops"] / steady / mfu_denominator(1)
+    MEASURED["phase16a"] = {"step_ms": steady * 1e3}
+    log(f"  phase 16a launches equal phase 8's per step {p8['per_step']}; "
+        f"losses bit-equal to phase 8's: {losses == p8['losses']} (largest "
+        f"relative difference {err})")
+    log(f"  phase 16a step: {steady * 1e3} ms (median of steps 1-"
+        f"{TRAIN_STEPS - 2}, unprofiled) against phase 8's {p8['step_ms']} "
+        f"ms in this call, {steady * 1e3 / p8['step_ms']}x; MFU {mfu} "
+        f"(mfu_denominator(1)); peak memory {peak / 1e9} GB (phase 8 "
+        f"{p8['peak'] / 1e9} GB); on {smi}")
+    log(f"  phase 16a profiled step: wall {walls[-1] * 1e3} ms, host enqueue "
+        f"{enqueues[-1] * 1e3} ms (unprofiled steps {[e * 1e3 for e in enqueues[:-1]]}), "
+        f"device busy {busy} ms, idle share {1 - busy / (walls[-1] * 1e3)} "
+        f"(against the unprofiled step {1 - busy / (steady * 1e3)}); by "
+        "group ms: " + ", ".join(f"{g} {v / 1e3}" for g, v in groups.items()))
+    del state, params, metrics, step
+    free_card()
+    return launches
+
+
+def phase16b(smi, mesh):
+    """The GPipe rotor on one card: Llama-3-8B widths cut to 4 layers,
+    2 stages of 2 layers, 4 microbatches, on the world-of-one mesh (both
+    stages local), against the dense forward and step on the same
+    weights and tokens."""
+    from ray_tpu_torch.models import _tree, llama
+    from ray_tpu_torch.parallel import pipeline, spmd
+
+    cfg = dataclasses.replace(llama.LLAMA3_8B, fused_ops=True,
+                              n_layers=P16B_LAYERS)
+    pcfg = pipeline.PipelineConfig(stages=P16B_STAGES,
+                                   microbatches=P16B_MICRO)
+    whole = llama.init_params(cfg, _gen(12))
+    staged = pipeline.stage_params(_tree.map_leaves(torch.clone, whole),
+                                   P16B_STAGES)
+    dense = spmd.shard_params(whole, mesh, llama.param_logical_axes(cfg))
+    logical = pipeline.pipeline_param_logical_axes(cfg)
+    staged = spmd.shard_params(staged, mesh, logical)
+    spmd.assert_params_sharded(staged, mesh, logical)
+    tokens = torch.from_numpy(np.random.RandomState(9).randint(
+        0, cfg.vocab_size, (P16B_B, P16B_S))).to("cuda")
+    with torch.no_grad():
+        want = llama.forward_hidden(dense, tokens, cfg, mesh=mesh).to_local()
+        zero_counts()
+        got = pipeline.pipeline_forward_hidden(staged, tokens, cfg, pcfg,
+                                               mesh=mesh).to_local()
+        fwd_launches = read_counts()
+    err = close_enough(got, want, 2e-2, 2e-2, "phase 16b pipeline hidden")
+    tx = spmd.default_optimizer(lr=1e-4, warmup=1)
+    dstep = spmd.make_train_step(cfg, tx, mesh=mesh)
+    pstep = pipeline.make_pipeline_train_step(cfg, pcfg, mesh, tx)
+    walls = {}
+    results = {}
+    for label, fn, params in (("dense", dstep, dense),
+                              ("pipeline", pstep, staged)):
+        state = spmd.TrainState(0, params, tx.init(params))
+        zero_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, metrics = fn(state, tokens)
+        torch.cuda.synchronize()
+        walls[label] = (time.perf_counter() - t) * 1e3
+        results[label] = (metrics["loss"].item(), read_counts())
+        del state, metrics
+    loss_err = rel_close([results["pipeline"][0]], [results["dense"][0]],
+                         2e-3, "phase 16b pipeline step loss vs dense")
+    if results["pipeline"][1]["flash_attention_bwd"] == 0:
+        raise AssertionError("phase 16b: the pipeline step ran no flash "
+                             "backward")
+    log(f"phase 16b pipeline: Llama-3-8B widths, {P16B_LAYERS} layers "
+        f"(cut from 32), bf16, B={P16B_B} S={P16B_S}, {P16B_STAGES} stages x "
+        f"{P16B_MICRO} microbatches on one card; hidden max abs err vs the "
+        f"dense forward {err} (limit 2e-2 + 2e-2 rel); step loss "
+        f"{results['pipeline'][0]} vs dense {results['dense'][0]} (relative "
+        f"{loss_err}); first-step wall ms pipeline {walls['pipeline']}, dense "
+        f"{walls['dense']} (AdamW's state made in the step); launches: "
+        f"pipeline forward {fwd_launches}, pipeline step "
+        f"{results['pipeline'][1]}, dense step {results['dense'][1]}; on "
+        f"{smi}")
+    del dense, staged, whole
+    free_card()
+
+
+def phase16c_rank(rank, store, out):
+    """One of 16c's two ranks (its own process and CUDA context on card
+    0): the mesh step at each of ``P16C_MESHES`` over gloo; saves losses,
+    grad norms, step ms, launches and the flash kernels' head counts."""
+    import datetime
+
+    import torch.distributed as dist
+
+    import importlib
+
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.parallel import spmd
+    from ray_tpu_torch.parallel.mesh import MeshSpec, make_mesh
+
+    fa = importlib.import_module("ray_tpu_torch.ops.flash_attention")
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(store, 2),
+                            rank=int(rank), world_size=2,
+                            timeout=datetime.timedelta(seconds=300))
+    heads = set()
+    apply = fa.FlashAttention.apply
+
+    def recording(q, k, v, scale):
+        heads.add((q.shape[2], k.shape[2]))
+        return apply(q, k, v, scale)
+
+    fa.FlashAttention.apply = staticmethod(recording)
+    cfg = dataclasses.replace(llama.LLAMA3_8B, fused_ops=True,
+                              n_layers=P16C_LAYERS)
+    logical = llama.param_logical_axes(cfg)
+    tokens = torch.from_numpy(np.random.RandomState(10).randint(
+        0, cfg.vocab_size, (P16C_B, P16C_S))).to("cuda")
+    results = {}
+    for label, spec in P16C_MESHES:
+        mesh = make_mesh(MeshSpec(**spec))
+        tx = spmd.default_optimizer(lr=1e-4, warmup=1)
+        params = spmd.shard_params(llama.init_params(cfg, _gen(13)), mesh,
+                                   logical)
+        state = spmd.TrainState(0, params, tx.init(params))
+        step = spmd.make_train_step(cfg, tx, mesh=mesh)
+        heads.clear()
+        zero_counts()
+        losses, gnorms, walls = [], [], []
+        for _ in range(P16C_STEPS):
+            t = time.perf_counter()
+            state, metrics = step(state, tokens)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t) * 1e3)
+            losses.append(metrics["loss"].item())
+            gnorms.append(metrics["grad_norm"].item())
+        spmd.assert_params_sharded(state.params, mesh, logical)
+        results[label] = {"losses": losses, "grad_norms": gnorms,
+                          "ms": walls, "launches": read_counts(),
+                          "heads": sorted(heads)}
+        del state, params, step, metrics
+        free_card()
+    torch.save(results, out)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def phase16c(smi, mesh):
+    """Two ranks on the one card over gloo, against the world-of-one mesh
+    step on the same weights and tokens in this process."""
+    import tempfile
+
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.parallel import spmd
+
+    cfg = dataclasses.replace(llama.LLAMA3_8B, fused_ops=True,
+                              n_layers=P16C_LAYERS)
+    tx = spmd.default_optimizer(lr=1e-4, warmup=1)
+    params = spmd.shard_params(llama.init_params(cfg, _gen(13)), mesh,
+                               llama.param_logical_axes(cfg))
+    state = spmd.TrainState(0, params, tx.init(params))
+    step = spmd.make_train_step(cfg, tx, mesh=mesh)
+    tokens = torch.from_numpy(np.random.RandomState(10).randint(
+        0, cfg.vocab_size, (P16C_B, P16C_S))).to("cuda")
+    ref = {"losses": [], "grad_norms": []}
+    for _ in range(P16C_STEPS):
+        state, metrics = step(state, tokens)
+        ref["losses"].append(metrics["loss"].item())
+        ref["grad_norms"].append(metrics["grad_norm"].item())
+    del state, params, step, metrics
+    free_card()
+    with tempfile.TemporaryDirectory() as tmp:
+        store = os.path.join(tmp, "store")
+        outs = [os.path.join(tmp, f"rank{r}.pt") for r in range(2)]
+        t = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                                   "--p16c-rank", str(r), store, outs[r]])
+                 for r in range(2)]
+        try:
+            rcs = [p.wait(timeout=240) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        if rcs != [0, 0]:
+            raise AssertionError(f"phase 16c: ranks exited {rcs}")
+        ranks = [torch.load(o, weights_only=False) for o in outs]
+        wall = time.perf_counter() - t
+    log(f"phase 16c: two ranks on one card over gloo, Llama-3-8B widths, "
+        f"{P16C_LAYERS} layers (cut from 32), bf16, B={P16C_B} S={P16C_S}, "
+        f"{P16C_STEPS} steps a mesh; world of one: losses {ref['losses']}, "
+        f"grad norms {ref['grad_norms']}; {wall:.1f} s for both ranks")
+    want_heads = {"tp=2": [(cfg.n_heads // 2, cfg.n_kv_heads // 2)],
+                  "fsdp=2": [(cfg.n_heads, cfg.n_kv_heads)]}
+    for label, _ in P16C_MESHES:
+        for r, res in enumerate(ranks):
+            got = res[label]
+            e1 = rel_close(got["losses"], ref["losses"], 2e-3,
+                           f"phase 16c {label} rank {r} losses")
+            e2 = rel_close(got["grad_norms"], ref["grad_norms"], 2e-3,
+                           f"phase 16c {label} rank {r} grad norms")
+            if got["heads"] != want_heads[label]:
+                raise AssertionError(f"phase 16c {label}: flash heads "
+                                     f"{got['heads']}, expected "
+                                     f"{want_heads[label]}")
+            if got["launches"]["flash_attention_bwd"] == 0:
+                raise AssertionError(f"phase 16c {label}: no flash backward")
+            log(f"  16c {label} rank {r}: losses {got['losses']} (rel "
+                f"{e1}), grad norms {got['grad_norms']} (rel {e2}); flash "
+                f"(H, KH) a rank {got['heads']}; launches {got['launches']}; "
+                f"step ms {got['ms']} (gloo through the host, not NCCL); on "
+                f"{smi}")
+
+
+def phase_parallel(smi):
+    """Phase 16: the mesh path on the card. The driver joins a NCCL group
+    of one; 16a and 16b run on ``mesh_2d(1)``, 16c starts two gloo ranks.
+    Returns 16a's launch counts."""
+    import torch.distributed as dist
+
+    from ray_tpu_torch.parallel.mesh import mesh_2d
+
+    t = time.perf_counter()
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{_free_port()}", rank=0, world_size=1)
+    try:
+        mesh = mesh_2d(1)
+        launches = phase16a(smi, mesh)
+        phase16b(smi, mesh)
+        phase16c(smi, mesh)
+    finally:
+        dist.destroy_process_group()
+    log(f"phase 16: {time.perf_counter() - t:.1f} s")
+    return launches
+
 
 
 # --------------------------------------------------------------- phase 15
@@ -4794,6 +5135,9 @@ def main() -> int:
     sys.path.insert(0, root)
     import ray_tpu_torch  # noqa: F401 — fails outside a checkout
 
+    if args[:1] == ["--p16c-rank"] and len(args) == 4:
+        phase16c_rank(*args[1:])
+        return 0
     t_start = time.perf_counter()
     smi, name = phase_device()
     if args == ["--rllib"]:
@@ -4812,6 +5156,11 @@ def main() -> int:
     if args == ["--train"]:
         phase_train(smi)
         phase_trainer(smi)
+        log(f"total {time.perf_counter() - t_start:.1f} s on {smi}")
+        return 0
+    if args == ["--parallel"]:
+        phase_train(smi)
+        phase_parallel(smi)
         log(f"total {time.perf_counter() - t_start:.1f} s on {smi}")
         return 0
     if args == ["--spec-ab"]:
@@ -4833,6 +5182,7 @@ def main() -> int:
     cluster, disagg = phase_cluster(smi, name, phase12)
     train = phase_train(smi)
     trainer = phase_trainer(smi)
+    parallel = phase_parallel(smi)
     for kernel in TRAIN_ONLY:
         launches[kernel] = train[kernel]
     zoo = phase_zoo(smi)
@@ -4844,6 +5194,7 @@ def main() -> int:
         row["launches_phase13"] = cluster[row["name"]]
         row["launches_phase14"] = disagg[row["name"]]
         row["launches_phase15"] = trainer[row["name"]]
+        row["launches_phase16"] = parallel[row["name"]]
     fused_apply_cost(smi)
     log(f"total {time.perf_counter() - t_start:.1f} s on {smi}")
     print(json.dumps({"kernels": rows}), flush=True)

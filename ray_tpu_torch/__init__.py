@@ -32,12 +32,15 @@ and the disaggregated deployment over it
 (``build_llm_deployment(disaggregated=True)``); and ``train``
 (``DataParallelTrainer``, ``TorchTrainer`` on NCCL or gloo, lockstep
 ``report()``, checkpoints of the whole training state through
-``spmd.train_state_tree``, group restarts, elastic resizes). A worker
+``spmd.train_state_tree``, group restarts, elastic resizes); and the
+mesh (``parallel.mesh``: the six-axis ``DeviceMesh`` over the process
+group, the models' logical-axis tables as DTensor placements, the sharded
+step, ring attention over ``sp``, the GPipe pipeline over ``pp``, experts
+over ``ep``), whose ranks may be a ``TorchTrainer`` gang. A worker
 leased with ``GPU`` sees its lease's cards alone (``CUDA_VISIBLE_DEVICES``,
 set by the node manager), so its own card is ``cuda:0``; a CPU worker
-sees none. ``ROADMAP.md`` lists what is left (among it every multi-chip
-path, ``data``, ``tune``, client mode, jobs, remote env runners and
-learner gangs).
+sees none. ``ROADMAP.md`` lists what is left (among it ``data``,
+``tune``, client mode, jobs, remote env runners and learner gangs).
 
 The tests run the serve path on the CPU (``tests/test_torch_serve*.py``,
 ``device="cpu"`` in ``engine_kwargs``); ``python3 chip_smoke.py --serve``
@@ -51,9 +54,11 @@ import it themselves.
 
 Entry points that make tensors (``init_params``, ``init_kv_cache``,
 ``LLMEngine``, ``spmd.init_train_state``, ``spmd.train_state_from_tree``,
-the ``rllib`` learners, runners and configs) take ``device=None``, meaning
-the card; without one they raise. Pass ``device="cpu"`` to run the plain
-versions on the CPU.
+``spmd.sharded_init``, ``spmd.shard_params``, the ``rllib`` learners,
+runners and configs) take ``device=None``, meaning the card; without one
+they raise, as ``mesh.make_mesh`` does for its default ``"cuda"``. Pass
+``device="cpu"`` (``device_type="cpu"``) to run the plain versions on the
+CPU.
 """
 
 from __future__ import annotations

@@ -16,6 +16,12 @@ H and W. Group norm uses the population variance (``jnp.var``).
 torch cannot reproduce: here they draw from a ``torch.Generator``, and
 also take the draws themselves (``t`` and ``eps``; the initial ``x`` and
 the per-step ``noise``) so a caller can feed both sides the same values.
+
+Under a mesh (``loss_fn(mesh=)``; parameters DTensors placed by
+``param_logical_axes``) the batch splits over the data axes and every
+weight is all-gathered where it is used (``collectives.unshard_params``:
+ZeRO-3 over ``fsdp``; over ``tp`` the storage is split and each rank
+computes the whole convolution).
 """
 
 from __future__ import annotations
@@ -29,6 +35,9 @@ import torch.nn.functional as F
 
 from ray_tpu_torch import resolve_device
 from ray_tpu_torch.models import _tree
+from ray_tpu_torch.parallel.collectives import (batch_rows, data_size, reduce,
+                                                unshard_params)
+from ray_tpu_torch.parallel.mesh import DATA_AXES
 
 Params = Dict[str, Any]
 
@@ -147,6 +156,44 @@ def param_shapes(cfg: DiffusionConfig) -> Params:
         "norm_out": (w[0],),
         "conv_out": (3, 3, w[0], cfg.channels),
     }
+
+
+def _conv_axes():
+    return ("kh", "kw", "c_in", "channels")
+
+
+def param_logical_axes(cfg: DiffusionConfig) -> Params:
+    def block_axes(has_skip: bool):
+        out = {
+            "norm1": ("channels",), "conv1": _conv_axes(),
+            "time_proj": ("embed", "channels"),
+            "norm2": ("channels",), "conv2": _conv_axes(),
+        }
+        if has_skip:
+            out["skip"] = ("c_in", "channels")
+        return out
+
+    tree: Params = {
+        "time_mlp": {"w1": ("embed", "mlp"), "b1": ("mlp",),
+                     "w2": ("mlp", "embed"), "b2": ("embed",)},
+        "conv_in": _conv_axes(),
+        "downs": [], "ups": [],
+        "mid": block_axes(False),
+        "norm_out": ("channels",),
+        # Output conv maps back to IMAGE channels (1-3): never sharded.
+        "conv_out": ("kh", "kw", "c_in", None),
+    }
+    n = len(cfg.widths)
+    for i in range(n):
+        cin = cfg.widths[i - 1] if i else cfg.widths[0]
+        level = {"block": block_axes(cin != cfg.widths[i])}
+        if i < n - 1:
+            level["down"] = _conv_axes()
+        tree["downs"].append(level)
+    for i in range(n - 1):
+        tree["ups"].append({"up": _conv_axes(),
+                            "block": block_axes(True)})
+    return tree
 
 
 def init_params(cfg: DiffusionConfig, generator: torch.Generator,
@@ -272,12 +319,14 @@ def forward(params: Params, x: torch.Tensor, t: torch.Tensor,
 def loss_fn(params: Params, x0: torch.Tensor,
             generator: Optional[torch.Generator], cfg: DiffusionConfig,
             schedule: Optional[Dict[str, torch.Tensor]] = None, *,
-            t: Optional[torch.Tensor] = None,
+            mesh=None, t: Optional[torch.Tensor] = None,
             eps: Optional[torch.Tensor] = None
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Epsilon-prediction MSE at uniformly drawn timesteps. ``t`` [B] int
     and ``eps`` (x0's shape, f32) are drawn from ``generator`` unless
-    given. Returns (loss, {"loss"}), the metric detached."""
+    given. Returns (loss, {"loss"}), the metric detached. Under ``mesh``,
+    x0 (and the draws, drawn whole on every rank) are the global batch
+    and the loss is the global batch's on every rank."""
     sched = schedule if schedule is not None else cosine_schedule(
         cfg, x0.device)
     b = x0.shape[0]
@@ -286,10 +335,15 @@ def loss_fn(params: Params, x0: torch.Tensor,
                           device=x0.device)
     if eps is None:
         eps = torch.randn(x0.shape, generator=generator, device=x0.device)
+    if mesh is not None:
+        params, _ = unshard_params(params, param_logical_axes(cfg), mesh)
+        x0, t, eps = (batch_rows(x, mesh) for x in (x0, t, eps))
     ab = sched["alpha_bar"][t.long()][:, None, None, None]
     xt = torch.sqrt(ab) * x0 + torch.sqrt(1 - ab) * eps
     pred = forward(params, xt, t.float(), cfg)
     loss = ((pred - eps) ** 2).mean()
+    if mesh is not None:
+        loss = reduce(loss / data_size(mesh), mesh, DATA_AXES)
     return loss, {"loss": loss.detach()}
 
 

@@ -11,8 +11,21 @@ Training: ``loss_fn`` runs ``forward_hidden`` (each block under
 activation checkpointing when ``cfg.remat``) and the chunked
 cross-entropy of ``loss_from_hidden``; full-sequence attention with
 standard positions goes to ``ops.full_causal_attention`` (the CUDA flash
-kernels on the card), as ``ray_tpu``'s ``_attention_dispatch`` does
-without its multi-chip ring branch.
+kernels on the card), and to ``ops.ring_attention`` when the mesh's ``sp``
+axis is above 1, as ``ray_tpu``'s ``_attention_dispatch`` does.
+
+Under a mesh (``mesh=``, ``parallel/mesh.py``) the parameters are
+DTensors placed by ``param_logical_axes`` and the compute runs on each
+rank's shards, with the collectives XLA places for ``ray_tpu`` at its
+``constrain`` sites written out (``parallel/collectives.py``): each
+block all-gathers its weights over ``fsdp`` (the backward reduce-scatters
+their gradients), the attention and MLP products split heads and ``mlp``
+over ``tp`` (Megatron: an all-reduce after ``wo`` and ``w_down``, one in
+the backward of their inputs), the embedding and the cross-entropy split
+the vocabulary over ``tp``, and the batch and sequence split over
+``dp``/``fsdp`` and ``sp``. The kernels see local shapes (at ``tp=2`` and
+8B widths, 16 query and 4 KV heads). Without a mesh every collective is
+skipped and the numbers are the one-card path's.
 
 ``_block`` keeps ``ray_tpu``'s dispatch: ``fused_ops`` routes the norms,
 rotary and SwiGLU through the fused ops, ``paged_decode`` routes
@@ -39,6 +52,7 @@ import functools
 from typing import Any, Dict, List, Optional, Tuple, Union
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts,
@@ -50,8 +64,12 @@ from ray_tpu_torch.models.quant import _BLOCK_CONTRACT, QuantTensor
 from ray_tpu_torch.ops import (apply_rope, causal_attention, decode_attention,
                                full_causal_attention, fused_qk_rope,
                                fused_rms_norm, fused_rms_norm_residual,
-                               fused_swiglu, paged_decode_attention, rms_norm,
-                               use_decode_kernel)
+                               fused_swiglu, paged_decode_attention,
+                               ring_attention, rms_norm, use_decode_kernel)
+from ray_tpu_torch.parallel.collectives import (all_reduce_, copy_to,
+                                                local_slice, reduce, unshard)
+from ray_tpu_torch.parallel.mesh import (DATA_AXES, axis_rank, axis_size,
+                                         local, named_sharding)
 
 Params = Dict[str, Any]
 CacheIndex = Union[int, torch.Tensor]
@@ -155,6 +173,29 @@ def param_shapes(cfg: LlamaConfig) -> Params:
     return shapes
 
 
+def param_logical_axes(cfg: LlamaConfig) -> Params:
+    """Per-dimension logical names for every parameter (see
+    ``parallel.mesh.DEFAULT_RULES`` for the mapping to mesh axes)."""
+    tree = {
+        "embed": ("vocab", "embed"),
+        "blocks": {
+            "ln_attn": ("layers", "embed"),
+            "wq": ("layers", "embed", "heads", "head_dim"),
+            "wk": ("layers", "embed", "kv_heads", "head_dim"),
+            "wv": ("layers", "embed", "kv_heads", "head_dim"),
+            "wo": ("layers", "heads", "head_dim", "embed"),
+            "ln_mlp": ("layers", "embed"),
+            "w_gate": ("layers", "embed", "mlp"),
+            "w_up": ("layers", "embed", "mlp"),
+            "w_down": ("layers", "mlp", "embed"),
+        },
+        "ln_out": ("embed",),
+    }
+    if not cfg.tie_embeddings:
+        tree["lm_head"] = ("embed", "vocab")
+    return tree
+
+
 # fan_in of each matrix (the normal init's scale is fan_in ** -0.5); norm
 # scales are absent: they start at zeros.
 def _fan_in(cfg: LlamaConfig, name: str) -> int:
@@ -166,28 +207,35 @@ def _fan_in(cfg: LlamaConfig, name: str) -> int:
 
 
 def init_params(cfg: LlamaConfig, generator: torch.Generator,
-                device=None) -> Params:
+                device=None, place=None) -> Params:
     """Random weights with ``ray_tpu``'s distribution (normal * fan_in^-0.5,
     zero norm scales) — not its bits: draws come from ``generator``, on the
-    generator's device, one layer at a time."""
+    generator's device, one layer at a time. ``place(path, tensor)``, when
+    given, replaces each leaf as soon as it is drawn (``spmd.sharded_init``
+    keeps the rank's shard), so the draws stay the same."""
     device = resolve_device(device)
+    place = place or (lambda path, t: t)
 
-    def normal(shape, fan_in):
-        return _tree.normal(shape, fan_in, cfg.dtype, device, generator)
+    def normal(path, shape, fan_in):
+        return place(path, _tree.normal(shape, fan_in, cfg.dtype, device,
+                                        generator))
+
+    def zeros(path, shape):
+        return place(path, torch.zeros(shape, dtype=cfg.dtype, device=device))
 
     shapes = param_shapes(cfg)
-    params: Params = {"embed": normal(shapes["embed"], cfg.d_model),
+    params: Params = {"embed": normal(("embed",), shapes["embed"],
+                                      cfg.d_model),
                       "blocks": {}}
     for name, shape in shapes["blocks"].items():
-        if name.startswith("ln_"):
-            params["blocks"][name] = torch.zeros(shape, dtype=cfg.dtype,
-                                                 device=device)
-        else:
-            params["blocks"][name] = normal(shape, _fan_in(cfg, name))
-    params["ln_out"] = torch.zeros(shapes["ln_out"], dtype=cfg.dtype,
-                                   device=device)
+        path = ("blocks", name)
+        params["blocks"][name] = (zeros(path, shape) if name.startswith("ln_")
+                                  else normal(path, shape,
+                                              _fan_in(cfg, name)))
+    params["ln_out"] = zeros(("ln_out",), shapes["ln_out"])
     if not cfg.tie_embeddings:
-        params["lm_head"] = normal(shapes["lm_head"], cfg.d_model)
+        params["lm_head"] = normal(("lm_head",), shapes["lm_head"],
+                                   cfg.d_model)
     return params
 
 
@@ -354,26 +402,51 @@ def _identity_table(b: int, s: int, page: int, device) -> torch.Tensor:
 
 
 def _attention_dispatch(q, k, v, q_pos, kv_pos,
-                        standard_positions: bool = False):
+                        standard_positions: bool = False, mesh=None):
     """Full-sequence attention. ``standard_positions`` (set by the caller
     when positions are the plain [0..S) arange) unlocks the flash kernels'
     built-in causal mask; custom positions keep position-based masking.
-    ``ray_tpu``'s ring branch (the ``sp`` mesh axis) waits for the
-    multi-chip slice."""
+    Under a mesh whose ``sp`` axis is above 1 the sequence shards go
+    through ring attention by their global positions."""
+    if mesh is not None and axis_size(mesh, "sp") > 1:
+        return ring_attention(q, k, v, q_pos, kv_pos, mesh=mesh)
     if standard_positions:
         return full_causal_attention(q, k, v)
     return full_causal_attention(q, k, v, q_positions=q_pos,
                                  kv_positions=kv_pos)
 
 
+def _gathered(params, name: str, cfg: LlamaConfig, mesh):
+    """A top-level weight's local shard all-gathered over ``fsdp`` (tp
+    shards kept); unchanged without a mesh."""
+    return unshard(params[name], param_logical_axes(cfg)[name], mesh,
+                   keep=("tp",))
+
+
+def _gather_layer(layer, cfg: LlamaConfig, mesh):
+    """ZeRO-3: one layer's weights all-gathered over ``fsdp`` at the top of
+    the block (``ray_tpu`` gathers each weight where it is used); the
+    backward reduce-scatters their gradients."""
+    names = param_logical_axes(cfg)["blocks"]
+    return {k: unshard(w, names[k][1:], mesh, keep=("tp",))
+            for k, w in layer.items()}
+
+
 def _block(x, layer, positions, cfg: LlamaConfig, cache_kv=None,
            cache_index: Optional[CacheIndex] = None, block_table=None,
-           standard_positions: bool = False):
+           standard_positions: bool = False, mesh=None):
     """One transformer block. Returns (x, new_kv | None). ``block_table``
     is the paged decode read's table, which ``forward_with_cache`` makes
-    once per call when ``cfg.paged_decode`` and T == 1."""
+    once per call when ``cfg.paged_decode`` and T == 1. Under ``mesh``, x
+    is the rank's [b, s, d] block (replicated over ``tp``) and ``layer``
+    its local shards."""
     b, t, _ = x.shape
+    if mesh is not None:
+        layer = _gather_layer(layer, cfg, mesh)
     h = _norm(x, layer["ln_attn"], cfg)
+    # Megatron's f: the tp ranks' gradients of the column products' input
+    # are summed (the backward of ray_tpu's q/k constrain sites).
+    h = copy_to(h, mesh, "tp")
     q = _wdot(h, layer["wq"])                  # [B,T,H,hd]
     k = _wdot(h, layer["wk"])                  # [B,T,KH,hd]
     v = _wdot(h, layer["wv"])
@@ -414,8 +487,11 @@ def _block(x, layer, positions, cfg: LlamaConfig, cache_kv=None,
                                     kv_positions=kv_pos, kv_mask=kv_mask)
     else:
         attn = _attention_dispatch(q, k, v, positions, positions,
-                                   standard_positions)
-    attn_out = _wdot(attn.reshape(b, t, -1), layer["wo"], 2).to(x.dtype)
+                                   standard_positions, mesh)
+    # Megatron's g at ray_tpu's constrain(x, (batch, seq, None)): the row
+    # product's partial sums over tp, all-reduced.
+    attn_out = reduce(_wdot(attn.reshape(b, t, -1), layer["wo"], 2), mesh,
+                      "tp").to(x.dtype)
     if cfg.fused_ops:
         # Residual add folded into the next norm: one pass emits both the
         # normed MLP input and the updated residual stream.
@@ -424,84 +500,188 @@ def _block(x, layer, positions, cfg: LlamaConfig, cache_kv=None,
     else:
         x = x + attn_out
         h = rms_norm(x, layer["ln_mlp"], cfg.norm_eps)
+    h = copy_to(h, mesh, "tp")
     gate = _wdot(h, layer["w_gate"])
     up = _wdot(h, layer["w_up"])
     # Two precisions, as in ray_tpu: the fused op computes in f32; the
     # unfused path computes silu(gate) * up in the storage dtype.
     ff = fused_swiglu(gate, up) if cfg.fused_ops else F.silu(gate) * up
-    x = x + _wdot(ff, layer["w_down"]).to(x.dtype)
+    x = x + reduce(_wdot(ff, layer["w_down"]), mesh, "tp").to(x.dtype)
     return x, new_kv
 
 
-def _embed(params, tokens, cfg: LlamaConfig):
-    return F.embedding(tokens.long(), params["embed"]).to(cfg.dtype)
+def _embed(params, tokens, cfg: LlamaConfig, mesh=None):
+    """The token rows of the table. With the vocabulary split over ``tp``
+    each rank looks up the ids in its rows (zeros elsewhere) and the
+    lookups are summed over ``tp``."""
+    table = params["embed"]
+    if mesh is None or axis_size(mesh, "tp") == 1:
+        return F.embedding(tokens.long(), table).to(cfg.dtype)
+    rows = table.shape[0]
+    ids = tokens.long() - axis_rank(mesh, "tp") * rows
+    inside = ((ids >= 0) & (ids < rows))[..., None].to(table.dtype)
+    rows_of = F.embedding(ids.clamp(0, rows - 1), table) * inside
+    return reduce(rows_of, mesh, "tp").to(cfg.dtype)
+
+
+def _data_placements(mesh) -> tuple:
+    """Token batches [B,S]: batch over dp+fsdp, sequence over sp."""
+    return named_sharding(mesh, ("batch", "seq"))
+
+
+def _global_tokens(tokens):
+    from torch.distributed.tensor import DTensor
+
+    return tokens.full_tensor() if isinstance(tokens, DTensor) else tokens
+
+
+def _on_mesh(params, tokens, mesh, positions=None):
+    """The parameters' local shards, and this rank's block of the global
+    token batch [B,S] (a tensor every rank passes alike, or a DTensor) with
+    its global positions; ``standard`` as ``forward_hidden`` sets it."""
+    tokens = _global_tokens(tokens)
+    b, s = tokens.shape
+    standard = positions is None
+    if positions is None:
+        positions = _positions(0, b, s, tokens.device)
+    placed = _data_placements(mesh)
+    return (_tree.map_leaves(local, params),
+            local_slice(tokens, mesh, placed),
+            local_slice(positions, mesh, placed), standard)
+
+
+def _as_dtensor(x: torch.Tensor, mesh, names):
+    from torch.distributed.tensor import DTensor
+
+    return DTensor.from_local(x, mesh, named_sharding(mesh, names),
+                              run_check=False)
 
 
 def forward(params: Params, tokens: torch.Tensor, cfg: LlamaConfig, *,
-            positions: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Full-sequence forward: tokens [B,S] -> logits [B,S,V]."""
-    x = forward_hidden(params, tokens, cfg, positions=positions)
-    return _head_matmul(x, params, cfg)
+            mesh=None, positions: Optional[torch.Tensor] = None):
+    """Full-sequence forward: tokens [B,S] -> logits [B,S,V] (under a mesh
+    a DTensor placed (batch, seq, vocab))."""
+    if mesh is None:
+        x = forward_hidden(params, tokens, cfg, positions=positions)
+        return _head_matmul(x, params, cfg)
+    lp, lt, pos, standard = _on_mesh(params, tokens, mesh, positions)
+    x = copy_to(_hidden(lp, lt, cfg, pos, standard, None, mesh), mesh, "tp")
+    head = _head(lp, cfg, mesh)
+    logits = x @ head if cfg.tie_embeddings else _wdot(x, head)
+    return _as_dtensor(logits, mesh, ("batch", "seq", "vocab"))
 
 
-def _block_hidden(x, layer, positions, cfg: LlamaConfig, standard: bool):
-    return _block(x, layer, positions, cfg, standard_positions=standard)[0]
+def _block_hidden(x, layer, positions, cfg: LlamaConfig, standard: bool,
+                  mesh=None):
+    return _block(x, layer, positions, cfg, standard_positions=standard,
+                  mesh=mesh)[0]
+
+
+def run_blocks(x, layers, positions, cfg: LlamaConfig, standard: bool,
+               mesh=None):
+    """The blocks in order, each under ``torch.utils.checkpoint``
+    (``cfg.remat_policy``) when ``cfg.remat`` and gradients are on."""
+    remat = cfg.remat and torch.is_grad_enabled()
+    context_fn = _remat_context(cfg) if remat else None
+    for layer in layers:
+        if remat:
+            x = checkpoint(_block_hidden, x, layer, positions, cfg, standard,
+                           mesh, use_reentrant=False,
+                           preserve_rng_state=False, context_fn=context_fn)
+        else:
+            x = _block_hidden(x, layer, positions, cfg, standard, mesh)
+    return x
+
+
+def _hidden(params, tokens, cfg: LlamaConfig, positions, standard: bool,
+            layers, mesh):
+    x = _embed({"embed": _gathered(params, "embed", cfg, mesh)}, tokens, cfg,
+               mesh)
+    if layers is None:
+        layers = layer_views(params)
+    x = run_blocks(x, layers, positions, cfg, standard, mesh)
+    return _norm(x, _gathered(params, "ln_out", cfg, mesh), cfg)
 
 
 def forward_hidden(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
-                   *, positions: Optional[torch.Tensor] = None,
-                   layers: Optional[List[Dict[str, torch.Tensor]]] = None
-                   ) -> torch.Tensor:
+                   *, mesh=None, positions: Optional[torch.Tensor] = None,
+                   layers: Optional[List[Dict[str, torch.Tensor]]] = None):
     """Tokens [B,S] -> final normed hidden states [B,S,D] (no LM head).
 
     With ``cfg.remat`` and gradients on, each block runs under
     ``torch.utils.checkpoint`` (``cfg.remat_policy``): the backward
     recomputes it from its input. ``layers`` are per-layer weights in
     place of ``layer_views(params)`` (the train step passes leaf views,
-    so each layer's gradient lands in its own tensor)."""
-    b, s = tokens.shape
-    standard = positions is None
-    if positions is None:
-        positions = _positions(0, b, s, tokens.device)
-    x = _embed(params, tokens, cfg)
-    if layers is None:
-        layers = layer_views(params)
-    remat = cfg.remat and torch.is_grad_enabled()
-    context_fn = _remat_context(cfg) if remat else None
-    for layer in layers:
-        if remat:
-            x = checkpoint(_block_hidden, x, layer, positions, cfg, standard,
-                           use_reentrant=False, preserve_rng_state=False,
-                           context_fn=context_fn)
-        else:
-            x = _block_hidden(x, layer, positions, cfg, standard)
-    return _norm(x, params["ln_out"], cfg)
+    so each layer's gradient lands in its own tensor). Under ``mesh`` the
+    parameters are DTensors (or their local shards, and ``layers`` local
+    views), ``tokens`` the global batch, and the result a DTensor placed
+    (batch, seq, None)."""
+    if mesh is None:
+        standard = positions is None
+        if positions is None:
+            positions = _positions(0, *tokens.shape, tokens.device)
+        return _hidden(params, tokens, cfg, positions, standard, layers,
+                       None)
+    lp, lt, pos, standard = _on_mesh(params, tokens, mesh, positions)
+    return _as_dtensor(_hidden(lp, lt, cfg, pos, standard, layers, mesh),
+                       mesh, ("batch", "seq", None))
 
 
 def loss_fn(params: Params, tokens: torch.Tensor, cfg: LlamaConfig, *,
-            loss_mask: Optional[torch.Tensor] = None,
+            mesh=None, loss_mask: Optional[torch.Tensor] = None,
             logits_chunk: int = 512,
             layers: Optional[List[Dict[str, torch.Tensor]]] = None
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Next-token cross entropy over tokens [B,S]: targets are the tokens
     rolled left by one with the last position masked, so shapes stay
     [B,S]. The [B,S,V] logits never exist whole (``loss_from_hidden``).
-    Returns (loss, {"loss", "ppl_log"})."""
-    x = forward_hidden(params, tokens, cfg, layers=layers)
-    return loss_from_hidden(params, x, tokens, cfg, loss_mask=loss_mask,
-                            logits_chunk=logits_chunk)
+    Returns (loss, {"loss", "ppl_log"}); under ``mesh`` the loss of the
+    whole global batch on every rank."""
+    if mesh is None:
+        x = forward_hidden(params, tokens, cfg, layers=layers)
+    else:
+        lp, lt, pos, standard = _on_mesh(params, tokens, mesh)
+        x = _hidden(lp, lt, cfg, pos, standard, layers, mesh)
+    return loss_from_hidden(params, x, tokens, cfg, mesh=mesh,
+                            loss_mask=loss_mask, logits_chunk=logits_chunk)
 
 
-def _chunk_nll(xc, tc, head, tied: bool):
+def _vocab_parallel_nll(logits, tc, mesh):
+    """logsumexp minus the gold logit with the vocabulary split over
+    ``tp``: the row maxima and the sums of exponentials are all-reduced,
+    and the gold logit comes from the rank whose rows hold it."""
+    rows = logits.shape[-1]
+    with torch.no_grad():
+        m = all_reduce_(logits.amax(dim=-1), mesh, "tp", dist.ReduceOp.MAX)
+    sumexp = reduce(torch.exp(logits - m[..., None]).sum(dim=-1), mesh, "tp")
+    ids = tc - axis_rank(mesh, "tp") * rows
+    inside = (ids >= 0) & (ids < rows)
+    gold = logits.gather(-1, ids.clamp(0, rows - 1)[..., None])[..., 0]
+    return m + torch.log(sumexp) - reduce(gold * inside, mesh, "tp")
+
+
+def _chunk_nll(xc, tc, head, tied: bool, mesh=None):
     """Per-token NLL of one [B,C] chunk: f32 logsumexp minus the gold
-    logit, the logits computed in the storage dtype then widened."""
+    logit, the logits computed in the storage dtype then widened (over a
+    vocabulary split over ``tp``, ``_vocab_parallel_nll``)."""
+    split = mesh is not None and axis_size(mesh, "tp") > 1
+    if split:
+        xc = copy_to(xc, mesh, "tp")
     logits = (xc @ head if tied else _wdot(xc, head)).float()
+    if split:
+        return _vocab_parallel_nll(logits, tc, mesh)
     gold = logits.gather(-1, tc[..., None])[..., 0]
     return torch.logsumexp(logits, dim=-1) - gold
 
 
+def _head(params, cfg: LlamaConfig, mesh=None):
+    if cfg.tie_embeddings:
+        return _gathered(params, "embed", cfg, mesh).T
+    return _gathered(params, "lm_head", cfg, mesh)
+
+
 def loss_from_hidden(params: Params, x: torch.Tensor, tokens: torch.Tensor,
-                     cfg: LlamaConfig, *,
+                     cfg: LlamaConfig, *, mesh=None,
                      loss_mask: Optional[torch.Tensor] = None,
                      logits_chunk: int = 512
                      ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
@@ -511,14 +691,26 @@ def loss_from_hidden(params: Params, x: torch.Tensor, tokens: torch.Tensor,
     each under ``torch.utils.checkpoint`` (its logits are recomputed in
     the backward), so one [B,C,V] chunk is the most that lives at once;
     the ragged tail is padded (its positions are invalid) rather than
-    falling back to whole logits."""
+    falling back to whole logits. Under ``mesh``, ``x`` is the rank's
+    local block (a DTensor is taken apart), ``tokens`` the global batch;
+    each rank sums its positions' NLL over the global count and the sum
+    is all-reduced over the data axes."""
+    tokens = _global_tokens(tokens)
     b, s = tokens.shape
     targets = torch.roll(tokens, -1, dims=1).long()
     valid = (torch.arange(s, device=x.device) < s - 1).float()[None, :]
     if loss_mask is not None:
         valid = valid * torch.roll(loss_mask, -1, dims=1).float()
+    count = valid.sum().clamp(min=1.0)
+    if mesh is not None:
+        placed = _data_placements(mesh)
+        x = local(x)
+        params = _tree.map_leaves(local, params)
+        targets = local_slice(targets, mesh, placed)
+        valid = local_slice(valid.expand(b, s), mesh, placed)
+        s = targets.shape[1]
     tied = cfg.tie_embeddings
-    head = params["embed"].T if tied else params["lm_head"]
+    head = _head(params, cfg, mesh)
     if s > logits_chunk:
         pad = (-s) % logits_chunk
         xs = F.pad(x, (0, 0, 0, pad)) if pad else x
@@ -527,14 +719,14 @@ def loss_from_hidden(params: Params, x: torch.Tensor, tokens: torch.Tensor,
         pieces = []
         for lo in range(0, s + pad, logits_chunk):
             args = (xs[:, lo:lo + logits_chunk], ts[:, lo:lo + logits_chunk],
-                    head, tied)
+                    head, tied, mesh)
             pieces.append(checkpoint(_chunk_nll, *args, use_reentrant=False,
                                      preserve_rng_state=False)
                           if remat else _chunk_nll(*args))
         nll = torch.cat(pieces, dim=1)[:, :s]
     else:
-        nll = _chunk_nll(x, targets, head, tied)
-    loss = (nll * valid).sum() / valid.sum().clamp(min=1.0)
+        nll = _chunk_nll(x, targets, head, tied, mesh)
+    loss = reduce((nll * valid).sum() / count, mesh, DATA_AXES)
     return loss, {"loss": loss.detach(), "ppl_log": loss.detach()}
 
 

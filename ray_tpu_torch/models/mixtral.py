@@ -15,8 +15,16 @@ kernel (projections, router, experts, dispatch, combine) is a matmul or
 einsum here too; the dispatch and combine stay f32 as ``ray_tpu`` writes
 them (on the card that is f32 math, no TF32).
 
-Mesh annotations (``constrain``, ``param_logical_axes``) wait for the
-multi-chip slice; on one card they change no result.
+Under a mesh (``mesh=``, ``parallel/mesh.py``) the parameters are
+DTensors placed by ``param_logical_axes`` and the experts split over
+``ep``: each ``ep`` rank runs its own experts on every token and the
+expert outputs are summed over ``ep`` (the token and gate gradients summed
+back in the backward). Routing and capacity see the global batch, as
+``ray_tpu``'s do: the normed hidden is all-gathered over the data axes
+before the router and each rank keeps its rows of the output. Every
+other weight is all-gathered where it is used (over ``fsdp`` a ZeRO-3
+gather whose backward reduce-scatters; over ``tp`` each rank computes the
+whole product), so attention and the head are not split over ``tp``.
 """
 
 from __future__ import annotations
@@ -32,6 +40,11 @@ from torch.utils.checkpoint import checkpoint
 from ray_tpu_torch import resolve_device
 from ray_tpu_torch.models import _tree, llama
 from ray_tpu_torch.ops import apply_rope, full_causal_attention, rms_norm
+from ray_tpu_torch.parallel.collectives import (all_reduce_, copy_to,
+                                                data_size, gather,
+                                                local_slice, reduce, unshard)
+from ray_tpu_torch.parallel.mesh import (DATA_AXES, axis_rank, axis_size,
+                                         local, named_sharding)
 
 Params = Dict[str, Any]
 Layers = List[Dict[str, torch.Tensor]]
@@ -135,6 +148,30 @@ def param_shapes(cfg: MixtralConfig) -> Params:
     }
 
 
+def param_logical_axes(cfg: MixtralConfig) -> Params:
+    return {
+        "embed": ("vocab", "embed"),
+        "blocks": {
+            "ln_attn": ("layers", "embed"),
+            "wq": ("layers", "embed", "heads", "head_dim"),
+            "wk": ("layers", "embed", "kv_heads", "head_dim"),
+            "wv": ("layers", "embed", "kv_heads", "head_dim"),
+            "wo": ("layers", "heads", "head_dim", "embed"),
+            "ln_moe": ("layers", "embed"),
+            "w_router": ("layers", "embed", "experts"),
+            "w_gate": ("layers", "experts", "embed", "mlp"),
+            "w_up": ("layers", "experts", "embed", "mlp"),
+            "w_down": ("layers", "experts", "mlp", "embed"),
+        },
+        "ln_out": ("embed",),
+        "lm_head": ("embed", "vocab"),
+    }
+
+
+#: The expert weights, kept split over ``ep`` under a mesh.
+EXPERT_WEIGHTS = ("w_gate", "w_up", "w_down")
+
+
 def _fan_in(cfg: MixtralConfig, name: str) -> int:
     if name == "wo":
         return cfg.n_heads * cfg.head_dim
@@ -205,19 +242,35 @@ def capacity_slots(gate_idx: torch.Tensor, n_experts: int, cap: int
     return onehot, pos, pos < cap
 
 
+def _data_gather(x: torch.Tensor, mesh) -> torch.Tensor:
+    """This rank's batch rows [b,S,D] -> the global batch (dp-major, so
+    the inner axis is gathered first); the backward keeps each rank's
+    rows' gradient summed over the data ranks."""
+    for axis in ("fsdp", "dp"):
+        x = gather(x, mesh, axis, 0, "sum")
+    return x
+
+
 def moe_ffn(x: torch.Tensor, layer: Dict[str, torch.Tensor],
-            cfg: MixtralConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+            cfg: MixtralConfig, mesh=None
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Top-k capacity-dispatched expert FFN on x [B,S,D]. Returns (out
     [B,S,D], aux loss, a 0-dim f32 tensor). Gradients flow through the
     renormalised gate values and the router probabilities; the one-hots,
     positions and ``keep`` carry none. The profiler sees the routing,
     dispatch and combine as ``mixtral.dispatch`` ranges and the expert
-    FFNs as ``mixtral.experts``."""
+    FFNs as ``mixtral.experts``. Under ``mesh``, x is this rank's rows and
+    ``layer`` holds the rank's experts (see the module note)."""
+    rows = x.shape[0]
+    if mesh is not None:
+        x = _data_gather(x, mesh)
     b, s, d = x.shape
     t = b * s
     e, k = cfg.n_experts, cfg.top_k
     cap = cfg.capacity(t)
     xt = x.reshape(t, d)
+    own = layer["w_gate"].shape[0]
+    lo = axis_rank(mesh, "ep") * own if mesh is not None else 0
 
     with record_function("mixtral.dispatch"):
         probs, gate_vals, gate_idx = route(xt, layer["w_router"], cfg)
@@ -229,6 +282,11 @@ def moe_ffn(x: torch.Tensor, layer: Dict[str, torch.Tensor],
 
         onehot, pos, keep = capacity_slots(gate_idx, e, cap)
         gate_vals = gate_vals * keep.to(gate_vals.dtype)
+        # The rank's experts only (all of them without a mesh); what they
+        # read is replicated over ep, so its gradient is summed over ep.
+        onehot = onehot[..., lo:lo + own]
+        gate_vals = copy_to(gate_vals, mesh, "ep")
+        xt = copy_to(xt, mesh, "ep")
 
         # Dispatch [T,E,C]: expert choice and buffer slot. A position past
         # the capacity has an all-zero one-hot, as jax.nn.one_hot gives it.
@@ -246,13 +304,31 @@ def moe_ffn(x: torch.Tensor, layer: Dict[str, torch.Tensor],
         expert_out = act @ layer["w_down"]                     # [E,C,D]
     with record_function("mixtral.dispatch"):
         out = torch.einsum("tec,ecd->td", combine, expert_out.float())
-    return out.reshape(b, s, d).to(x.dtype), aux
+    out = reduce(out, mesh, "ep").reshape(b, s, d).to(x.dtype)
+    if mesh is not None:
+        out = local_slice(out, mesh, named_sharding(mesh, ("batch", None,
+                                                           None)))
+        assert out.shape[0] == rows
+    return out, aux
 
 
 # Forward -------------------------------------------------------------------
 
-def _moe_block(x, layer, positions, cfg: MixtralConfig, standard: bool):
+def _gather_layer(layer, cfg: MixtralConfig, mesh):
+    """A layer's weights all-gathered over every axis, but the expert
+    weights keep their ``ep`` split (the router is whole on every
+    rank)."""
+    names = param_logical_axes(cfg)["blocks"]
+    return {k: unshard(w, names[k][1:], mesh,
+                       keep=("ep",) if k in EXPERT_WEIGHTS else ())
+            for k, w in layer.items()}
+
+
+def _moe_block(x, layer, positions, cfg: MixtralConfig, standard: bool,
+               mesh=None):
     b, s, _ = x.shape
+    if mesh is not None:
+        layer = _gather_layer(layer, cfg, mesh)
     h = rms_norm(x, layer["ln_attn"], cfg.norm_eps)
     q = llama._wdot(h, layer["wq"])
     kk = llama._wdot(h, layer["wk"])
@@ -267,12 +343,51 @@ def _moe_block(x, layer, positions, cfg: MixtralConfig, standard: bool):
     x = x + llama._wdot(attn.reshape(b, s, -1), layer["wo"], 2).to(x.dtype)
 
     h = rms_norm(x, layer["ln_moe"], cfg.norm_eps)
-    moe_out, aux = moe_ffn(h, layer, cfg)
+    moe_out, aux = moe_ffn(h, layer, cfg, mesh)
     return x + moe_out, aux
 
 
+def _hidden(params: Params, tokens: torch.Tensor, cfg: MixtralConfig,
+            positions: torch.Tensor, standard: bool, layers, mesh):
+    names = param_logical_axes(cfg)
+    x = F.embedding(tokens.long(),
+                    unshard(params["embed"], names["embed"], mesh)
+                    ).to(cfg.dtype)
+    if layers is None:
+        layers = layer_views(params)
+    remat = cfg.remat and torch.is_grad_enabled()
+    context_fn = llama._remat_context(cfg) if remat else None
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for layer in layers:
+        if remat:
+            x, a = checkpoint(_moe_block, x, layer, positions, cfg, standard,
+                              mesh, use_reentrant=False,
+                              preserve_rng_state=False,
+                              context_fn=context_fn)
+        else:
+            x, a = _moe_block(x, layer, positions, cfg, standard, mesh)
+        aux = aux + a
+    ln_out = unshard(params["ln_out"], names["ln_out"], mesh)
+    return rms_norm(x, ln_out, cfg.norm_eps), aux
+
+
+def _on_mesh(params, tokens, mesh, positions):
+    """The local shards and this rank's rows of the global batch (the
+    experts' mesh splits no sequence)."""
+    if axis_size(mesh, "sp") > 1:
+        raise ValueError("Mixtral runs whole sequences: sp must be 1")
+    b, s = tokens.shape
+    standard = positions is None
+    if standard:
+        positions = torch.arange(s, device=tokens.device).expand(b, s)
+    placed = named_sharding(mesh, ("batch", None))
+    return (_tree.map_leaves(local, params),
+            local_slice(tokens, mesh, placed),
+            local_slice(positions, mesh, placed), standard)
+
+
 def forward_hidden(params: Params, tokens: torch.Tensor, cfg: MixtralConfig,
-                   *, positions: Optional[torch.Tensor] = None,
+                   *, mesh=None, positions: Optional[torch.Tensor] = None,
                    layers: Optional[Layers] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Tokens [B,S] -> (final normed hidden [B,S,D], total router aux loss).
@@ -283,45 +398,49 @@ def forward_hidden(params: Params, tokens: torch.Tensor, cfg: MixtralConfig,
     ``layer_views(params)`` (the train step passes its leaf views).
     ``positions`` [B,S], as in the port's Llama, keep attention
     position-masked (off the flash kernels); None means the standard
-    arange, which the flash kernels take."""
+    arange, which the flash kernels take. Under ``mesh`` the hidden is
+    this rank's rows of the global batch ``tokens``."""
+    if mesh is not None:
+        params, tokens, positions, standard = _on_mesh(params, tokens, mesh,
+                                                       positions)
+        return _hidden(params, tokens, cfg, positions, standard, layers,
+                       mesh)
     b, s = tokens.shape
     standard = positions is None
     if standard:
         positions = torch.arange(s, device=tokens.device).expand(b, s)
-    x = F.embedding(tokens.long(), params["embed"]).to(cfg.dtype)
-    if layers is None:
-        layers = layer_views(params)
-    remat = cfg.remat and torch.is_grad_enabled()
-    context_fn = llama._remat_context(cfg) if remat else None
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for layer in layers:
-        if remat:
-            x, a = checkpoint(_moe_block, x, layer, positions, cfg, standard,
-                              use_reentrant=False, preserve_rng_state=False,
-                              context_fn=context_fn)
-        else:
-            x, a = _moe_block(x, layer, positions, cfg, standard)
-        aux = aux + a
-    return rms_norm(x, params["ln_out"], cfg.norm_eps), aux
+    return _hidden(params, tokens, cfg, positions, standard, layers, None)
 
 
 def loss_fn(params: Params, tokens: torch.Tensor, cfg: MixtralConfig, *,
-            positions: Optional[torch.Tensor] = None,
+            mesh=None, positions: Optional[torch.Tensor] = None,
             layers: Optional[Layers] = None
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Next-token CE over tokens [B,S] (targets rolled left, the last
     position masked) plus the router aux loss. Returns (loss, {"loss",
-    "ce", "aux"}), the metrics detached."""
-    hidden, aux = forward_hidden(params, tokens, cfg, positions=positions,
-                                 layers=layers)
+    "ce", "aux"}), the metrics detached. Under ``mesh`` each rank sums its
+    rows' NLL over the global count, adds its share of the (global) aux
+    loss, and the sum over the data axes is the loss on every rank."""
+    hidden, aux = forward_hidden(params, tokens, cfg, mesh=mesh,
+                                 positions=positions, layers=layers)
     s = tokens.shape[1]
     targets = torch.roll(tokens, -1, dims=1).long()
     valid = (torch.arange(s, device=tokens.device) < s - 1).float()[None, :]
-    logits = llama._wdot(hidden, params["lm_head"]).float()
+    count = valid.sum().clamp(min=1.0)
+    head = params["lm_head"]
+    if mesh is not None:
+        targets = local_slice(targets, mesh, named_sharding(
+            mesh, ("batch", None)))
+        head = unshard(local(head), param_logical_axes(cfg)["lm_head"], mesh)
+    logits = llama._wdot(hidden, head).float()
     logz = torch.logsumexp(logits, dim=-1)
     gold = logits.gather(-1, targets[..., None])[..., 0]
     nll = (logz - gold) * valid
-    ce = nll.sum() / valid.sum().clamp(min=1.0)
-    loss = ce + aux
+    ce = nll.sum() / count
+    if mesh is None:
+        loss = ce + aux
+    else:
+        loss = reduce(ce + aux / data_size(mesh), mesh, DATA_AXES)
+        ce = all_reduce_(ce.detach().clone(), mesh, DATA_AXES)
     return loss, {"loss": loss.detach(), "ce": ce.detach(),
                   "aux": aux.detach()}

@@ -13,6 +13,12 @@ f32 exactly as ``ray_tpu`` writes them, for the q_len + k_len - 1
 relative positions a call needs, then moved to the tables' device: the
 card's ``logf`` never decides an edge. Attention is einsums as in
 ``ray_tpu`` (it runs no Pallas kernel here).
+
+Under a mesh (``loss_fn(mesh=)``; parameters DTensors placed by
+``param_logical_axes``) the batch splits over the data axes and every
+weight is all-gathered where it is used (``collectives.unshard_params``:
+ZeRO-3 over ``fsdp``; over ``tp`` the storage is split and each rank
+computes the whole product).
 """
 
 from __future__ import annotations
@@ -26,6 +32,9 @@ from torch.utils.checkpoint import checkpoint
 
 from ray_tpu_torch import resolve_device
 from ray_tpu_torch.models import _tree
+from ray_tpu_torch.parallel.collectives import (batch_rows, reduce,
+                                                unshard_params)
+from ray_tpu_torch.parallel.mesh import DATA_AXES
 from ray_tpu_torch.ops import rms_norm
 
 Params = Dict[str, Any]
@@ -110,6 +119,37 @@ def param_shapes(cfg: T5Config) -> Params:
     if not cfg.tie_embeddings:
         shapes["lm_head"] = (d, cfg.vocab_size)
     return shapes
+
+
+def _attn_axes(prefix: str = "") -> Params:
+    return {prefix + "wq": ("layers", "embed", "heads", "head_dim"),
+            prefix + "wk": ("layers", "embed", "heads", "head_dim"),
+            prefix + "wv": ("layers", "embed", "heads", "head_dim"),
+            prefix + "wo": ("layers", "heads", "head_dim", "embed")}
+
+
+def _mlp_axes() -> Params:
+    return {"w_gate": ("layers", "embed", "mlp"),
+            "w_up": ("layers", "embed", "mlp"),
+            "w_down": ("layers", "mlp", "embed")}
+
+
+def param_logical_axes(cfg: T5Config) -> Params:
+    tree = {
+        "embed": ("vocab", "embed"),
+        "enc_rel_bias": (None, "heads"),
+        "dec_rel_bias": (None, "heads"),
+        "encoder": {"ln_attn": ("layers", "embed"), **_attn_axes(),
+                    "ln_mlp": ("layers", "embed"), **_mlp_axes()},
+        "decoder": {"ln_self": ("layers", "embed"), **_attn_axes("self_"),
+                    "ln_cross": ("layers", "embed"), **_attn_axes("cross_"),
+                    "ln_mlp": ("layers", "embed"), **_mlp_axes()},
+        "ln_enc_out": ("embed",),
+        "ln_dec_out": ("embed",),
+    }
+    if not cfg.tie_embeddings:
+        tree["lm_head"] = ("embed", "vocab")
+    return tree
 
 
 def _fan_in(cfg: T5Config, name: str) -> int:
@@ -320,7 +360,7 @@ def forward(params: Params, enc_tokens: torch.Tensor,
 
 
 def loss_fn(params: Params, enc_tokens: torch.Tensor,
-            dec_tokens: torch.Tensor, cfg: T5Config, *,
+            dec_tokens: torch.Tensor, cfg: T5Config, *, mesh=None,
             enc_mask: Optional[torch.Tensor] = None,
             dec_mask: Optional[torch.Tensor] = None,
             layers: Optional[Layers] = None
@@ -328,17 +368,29 @@ def loss_fn(params: Params, enc_tokens: torch.Tensor,
     """Teacher-forced next-token CE on the decoder stream: targets are
     dec_tokens rolled left with the last position masked (and, with
     ``dec_mask``, the positions whose target is masked). Returns (loss,
-    {"loss"}), the metric detached."""
+    {"loss"}), the metric detached. Under ``mesh`` the tokens and masks
+    are the global batch and the loss is the global batch's on every
+    rank."""
     t = dec_tokens.shape[1]
-    logits = forward(params, enc_tokens, dec_tokens, cfg, enc_mask=enc_mask,
-                     layers=layers).float()
     targets = torch.roll(dec_tokens, -1, dims=1).long()
-    valid = (torch.arange(t, device=logits.device) < t - 1).float()[None, :]
+    valid = (torch.arange(t, device=dec_tokens.device) < t - 1).float()[
+        None, :]
     if dec_mask is not None:
         valid = valid * torch.roll(dec_mask, -1, dims=1).float()
+    count = valid.sum().clamp(min=1.0)
+    if mesh is not None:
+        params, layers = unshard_params(params, param_logical_axes(cfg), mesh,
+                                        STACKED, layers)
+        valid = batch_rows(valid.expand(dec_tokens.shape), mesh)
+        enc_tokens, dec_tokens, targets = (batch_rows(x, mesh) for x in (
+            enc_tokens, dec_tokens, targets))
+        if enc_mask is not None:
+            enc_mask = batch_rows(enc_mask, mesh)
+    logits = forward(params, enc_tokens, dec_tokens, cfg, enc_mask=enc_mask,
+                     layers=layers).float()
     logz = torch.logsumexp(logits, dim=-1)
     gold = logits.gather(-1, targets[..., None])[..., 0]
-    loss = ((logz - gold) * valid).sum() / valid.sum().clamp(min=1.0)
+    loss = reduce(((logz - gold) * valid).sum() / count, mesh, DATA_AXES)
     return loss, {"loss": loss.detach()}
 
 

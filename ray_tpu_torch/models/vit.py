@@ -7,6 +7,12 @@ gain`` scale; GELU is JAX's default tanh approximation. Attention is
 bidirectional and computed by einsums, as ``ray_tpu`` computes it (no
 Pallas kernel there, so none here): the scores in the storage dtype, the
 softmax in f32.
+
+Under a mesh (``loss_fn(mesh=)``; parameters DTensors placed by
+``param_logical_axes``) the batch splits over the data axes and every
+weight is all-gathered where it is used (``collectives.unshard_params``:
+ZeRO-3 over ``fsdp``; over ``tp`` the storage is split and each rank
+computes the whole product).
 """
 
 from __future__ import annotations
@@ -19,6 +25,9 @@ import torch.nn.functional as F
 
 from ray_tpu_torch import resolve_device
 from ray_tpu_torch.models import _tree
+from ray_tpu_torch.parallel.collectives import (batch_rows, reduce,
+                                                unshard_params)
+from ray_tpu_torch.parallel.mesh import DATA_AXES
 
 Params = Dict[str, Any]
 Layers = List[Dict[str, torch.Tensor]]
@@ -88,6 +97,26 @@ def param_shapes(cfg: ViTConfig) -> Params:
         },
         "ln_out": (d,),
         "head": (d, cfg.num_classes),
+    }
+
+
+def param_logical_axes(cfg: ViTConfig) -> Params:
+    return {
+        "patch_embed": ("patch_in", "embed"),
+        "pos_embed": ("seq", "embed"),
+        "cls_token": ("embed",),
+        "blocks": {
+            "ln1": ("layers", "embed"),
+            "wq": ("layers", "embed", "heads", "head_dim"),
+            "wk": ("layers", "embed", "heads", "head_dim"),
+            "wv": ("layers", "embed", "heads", "head_dim"),
+            "wo": ("layers", "heads", "head_dim", "embed"),
+            "ln2": ("layers", "embed"),
+            "w_up": ("layers", "embed", "mlp"),
+            "w_down": ("layers", "mlp", "embed"),
+        },
+        "ln_out": ("embed",),
+        "head": ("embed", "classes"),
     }
 
 
@@ -176,9 +205,19 @@ def forward(params: Params, images: torch.Tensor, cfg: ViTConfig, *,
 
 
 def loss_fn(params: Params, images: torch.Tensor, labels: torch.Tensor,
-            cfg: ViTConfig, *, layers: Optional[Layers] = None
+            cfg: ViTConfig, *, mesh=None, layers: Optional[Layers] = None
             ) -> torch.Tensor:
-    """Mean softmax cross entropy of the logits against integer labels."""
-    logp = torch.log_softmax(forward(params, images, cfg, layers=layers),
-                             dim=-1)
-    return -logp.gather(-1, labels.long()[:, None])[:, 0].mean()
+    """Mean softmax cross entropy of the logits against integer labels.
+    Under ``mesh``, images and labels are the global batch and the loss
+    is the global batch's on every rank."""
+    if mesh is None:
+        logp = torch.log_softmax(forward(params, images, cfg, layers=layers),
+                                 dim=-1)
+        return -logp.gather(-1, labels.long()[:, None])[:, 0].mean()
+    params, layers = unshard_params(params, param_logical_axes(cfg), mesh,
+                                    STACKED, layers)
+    b = images.shape[0]
+    logp = torch.log_softmax(forward(params, batch_rows(images, mesh), cfg,
+                                     layers=layers), dim=-1)
+    nll = -logp.gather(-1, batch_rows(labels, mesh).long()[:, None])[:, 0]
+    return reduce(nll.sum() / b, mesh, DATA_AXES)

@@ -27,6 +27,8 @@ fused_qk_rope              CUDA, q and k in one pass; its       fused.py ``_rope
 fused_swiglu               CUDA, silu(gate)*up in f32           fused.py ``_swiglu_kernel``
 full_causal_attention      the flash kernels where the gate     attention.py
                            admits; else blockwise / dense
+ring_attention             plain torch over the ``sp`` ring     ring_attention.py
+                           (online softmax; K/V shifted)
 causal_attention           plain torch (as in ray_tpu)          --
 rms_norm, apply_rope       plain torch (the fused ops' anchor)  --
 =========================  ===================================  ==========================
@@ -34,7 +36,7 @@ rms_norm, apply_rope       plain torch (the fused ops' anchor)  --
 The fused ops and the flash attention are differentiable: each is a
 ``torch.autograd.Function`` whose backward is ``ray_tpu``'s rule (plain
 torch where ``ray_tpu`` computes it in jnp; a kernel where ``ray_tpu``
-has one). Not ported yet (ROADMAP): ``ring_attention`` (multi-chip).
+has one).
 
 Each kernel wrapper counts its launches in a plain int attribute,
 ``fn.launches`` (``KERNELS`` lists them), so a run can show that the main
@@ -58,6 +60,8 @@ from ray_tpu_torch.ops.fused import (fused_qk_rope, fused_rms_norm,
 from ray_tpu_torch.ops.norms import rms_norm
 from ray_tpu_torch.ops.paged_decode import (paged_decode_attention,
                                             paged_decode_attention_reference)
+from ray_tpu_torch.ops.ring_attention import (ring_attention,
+                                              ring_attention_local)
 from ray_tpu_torch.ops.rotary import apply_rope, rope_frequencies
 
 #: Kernel name -> its wrapper (each carries a ``launches`` count).
@@ -103,6 +107,8 @@ __all__ = [
     "paged_decode_attention",
     "paged_decode_attention_reference",
     "repeat_kv",
+    "ring_attention",
+    "ring_attention_local",
     "rms_norm",
     "rope_frequencies",
     "swiglu_reference",

@@ -28,8 +28,18 @@ count and moments) as a tree in ``ray_tpu``'s layout, and
 that tree or from ``ray_tpu``'s own: what ``train``'s checkpoints save and
 restore.
 
-The mesh argument, FSDP and tensor parallelism wait for the multi-chip
-slice (ROADMAP).
+Over a mesh (``parallel/mesh.py``): ``shard_params`` and ``sharded_init``
+make each parameter a DTensor placed by the model's logical-axis table,
+each rank holding its shard; ``Optimizer.init`` then works on the local
+shards (the layer views share the stacked local storage) and records
+each leaf's placement; ``make_train_step(cfg, tx, mesh=mesh)`` runs the
+model's mesh path; ``Optimizer.update`` sums each gradient over the data
+axes its parameter is not sharded on (dp, sp, and fsdp for a parameter
+replicated there; the ZeRO-3 gather's backward already reduce-scattered
+the rest) and takes the global norm over every shard once, the same
+number on every rank. ``assert_params_sharded`` checks the placements and
+the local shard shapes. A world of one runs the same path with no
+communication.
 """
 
 from __future__ import annotations
@@ -39,11 +49,15 @@ import math
 from typing import Any, Callable, Dict, List, NamedTuple, Sequence, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 from torch.optim.optimizer import _get_scalar_dtype
 
 from ray_tpu_torch import resolve_device
 from ray_tpu_torch.models import _tree, llama
 from ray_tpu_torch.models.quant import QuantTensor
+from ray_tpu_torch.parallel.collectives import all_reduce_, local_slice
+from ray_tpu_torch.parallel.mesh import (AXES, DATA_AXES, local,
+                                         logical_spec, param_shardings)
 
 Metrics = Dict[str, torch.Tensor]
 Params = Dict[str, Any]
@@ -54,6 +68,26 @@ class OptState(NamedTuple):
     # Per stacked subtree, per layer: the layer's leaf views.
     layers: Dict[str, List[Dict[str, torch.Tensor]]]
     adamw: torch.optim.AdamW
+    # Over a mesh (DTensor parameters; ``leaves`` are their local shards):
+    # per leaf, the data axes its gradient is summed over and the number
+    # of ranks holding the same shard.
+    mesh: Any = None
+    sync: Sequence[Tuple[Tuple[str, ...], int]] = ()
+
+
+def _sharded_axes(p) -> Tuple[str, ...]:
+    """The mesh axes a DTensor is sharded over."""
+    names = p.device_mesh.mesh_dim_names
+    return tuple(names[i] for i, pl in enumerate(p.placements)
+                 if pl.is_shard())
+
+
+def _sync_of(p) -> Tuple[Tuple[str, ...], int]:
+    sharded = _sharded_axes(p)
+    mesh = p.device_mesh
+    replicas = math.prod(mesh.size(i) for i, a in
+                         enumerate(mesh.mesh_dim_names) if a not in sharded)
+    return tuple(a for a in DATA_AXES if a not in sharded), replicas
 
 
 class TrainState(NamedTuple):
@@ -109,30 +143,40 @@ class Optimizer:
                              f"parameters {sorted(params)}")
         if any(isinstance(w, QuantTensor) for w in _tree.leaves(params)):
             raise ValueError("int8 weights are not trainable")
-        top = [t for name, sub in params.items() if name not in stacked
-               for t in _tree.leaves(sub) if t.is_floating_point()]
-        for t in top:
+        mesh = next((t.device_mesh for t in _tree.leaves(params)
+                     if isinstance(t, DTensor)), None)
+        top_pairs = [(local(t), t) for name, sub in params.items()
+                     if name not in stacked for t in _tree.leaves(sub)
+                     if t.dtype.is_floating_point]
+        for t, _ in top_pairs:
             t.requires_grad_(True)
-        layers = {name: [_tree.map_leaves(
-            lambda w: w.detach().requires_grad_(w.is_floating_point()), view)
-            for view in _tree.unstack(params[name])] for name in stacked}
-        leaves = top + [w for views in layers.values()
-                        for w in _tree.leaves(views) if w.requires_grad]
+        layers, layer_pairs = {}, []
+        for name in stacked:
+            stacks = _tree.leaves(params[name])
+            layers[name] = [_tree.map_leaves(
+                lambda w: w.detach().requires_grad_(w.dtype.is_floating_point),
+                view) for view in _tree.unstack(_tree.map_leaves(
+                    local, params[name]))]
+            layer_pairs += [(w, p) for view in layers[name]
+                            for w, p in zip(_tree.leaves(view), stacks)
+                            if w.requires_grad]
+        pairs = top_pairs + layer_pairs
+        leaves = [w for w, _ in pairs]
         adamw = torch.optim.AdamW(
             leaves, lr=0.0, betas=(self.b1, self.b2), eps=self.eps,
             weight_decay=self.weight_decay,
             fused=leaves[0].device.type == "cuda")
-        return OptState(leaves, layers, adamw)
+        if mesh is None:
+            return OptState(leaves, layers, adamw)
+        return OptState(leaves, layers, adamw, mesh,
+                        [_sync_of(p) for _, p in pairs])
 
     def update(self, opt: OptState, step: int) -> torch.Tensor:
         """Clip the gradients by their global norm, take the AdamW step at
         ``schedule(step)`` and free the gradients. Returns the norm before
         clipping (a 0-dim f32 tensor; no host sync)."""
         grads = [p.grad for p in opt.leaves]
-        if any(g is None for g in grads):
-            raise RuntimeError("a trainable tensor got no gradient")
-        norms = torch._foreach_norm(grads, 2, dtype=torch.float32)
-        gnorm = torch.linalg.vector_norm(torch.stack(norms))
+        gnorm = self.global_norm(opt)
         clip = torch.where(gnorm < self.grad_clip, torch.ones_like(gnorm),
                            self.grad_clip / gnorm)
         # The factor in the gradients' dtype (optax casts the norm to each
@@ -149,6 +193,29 @@ class Optimizer:
         return gnorm
 
 
+    @staticmethod
+    def global_norm(opt: OptState) -> torch.Tensor:
+        """The gradients' global norm in f32 (0-dim, no host sync). Over a
+        mesh of several ranks this first sums each gradient, in place,
+        over the data axes its parameter is not sharded on, then counts
+        every shard's squares once (a shard held by n ranks counts 1/n on
+        each) and sums them over the mesh: the same number on every
+        rank."""
+        grads = [p.grad for p in opt.leaves]
+        if any(g is None for g in grads):
+            raise RuntimeError("a trainable tensor got no gradient")
+        if opt.mesh is None or opt.mesh.size() == 1:
+            norms = torch._foreach_norm(grads, 2, dtype=torch.float32)
+            return torch.linalg.vector_norm(torch.stack(norms))
+        for g, (axes, _) in zip(grads, opt.sync):
+            all_reduce_(g, opt.mesh, axes)
+        norms = torch._foreach_norm(grads, 2, dtype=torch.float32)
+        replicas = torch.tensor([n for _, n in opt.sync],
+                                dtype=torch.float32, device=grads[0].device)
+        sq = (torch.stack(norms).square() / replicas).sum()
+        return all_reduce_(sq, opt.mesh, AXES).sqrt()
+
+
 def default_optimizer(lr: float = 3e-4, weight_decay: float = 0.1,
                       warmup: int = 100, decay_steps: int = 10000,
                       grad_clip: float = 1.0) -> Optimizer:
@@ -161,6 +228,115 @@ def init_train_state(cfg: llama.LlamaConfig, generator: torch.Generator,
     card) and the optimizer's state: ``sharded_init`` on one device."""
     params = llama.init_params(cfg, generator, device)
     return TrainState(0, params, tx.init(params))
+
+
+def data_sharding(mesh) -> tuple:
+    """Token batches [B,S]: batch over dp+fsdp, sequence over sp (the
+    DTensor placements)."""
+    return llama._data_placements(mesh)
+
+
+def _zip_map(fn, tree, other):
+    if isinstance(tree, dict):
+        return {k: _zip_map(fn, v, other[k]) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_zip_map(fn, v, o) for v, o in zip(tree, other)]
+    return fn(tree, other)
+
+
+def _place(t: torch.Tensor, mesh, placements, device) -> torch.Tensor:
+    """A full tensor -> a DTensor holding this rank's block on ``device``
+    (a copy when the block is part of ``t``; ``t`` itself when whole and
+    already there)."""
+    if isinstance(t, QuantTensor):
+        raise ValueError("int8 weights cannot be placed on a mesh")
+    block = local_slice(t, mesh, placements)
+    if block.numel() != t.numel() and block.device == device:
+        block = block.clone(memory_format=torch.contiguous_format)
+    block = block.to(device).contiguous()
+    return DTensor.from_local(block, mesh, placements, run_check=False)
+
+
+def shard_params(params: Params, mesh, logical_tree: Any,
+                 device=None) -> Params:
+    """``jax.device_put(params, param_shardings(mesh, logical_tree))``:
+    every leaf a DTensor placed by its logical names, each rank keeping
+    its block on ``device`` (None = the card)."""
+    device = resolve_device(device)
+    return _zip_map(lambda t, pl: _place(t, mesh, pl, device), params,
+                    param_shardings(mesh, logical_tree))
+
+
+def sharded_init(cfg: llama.LlamaConfig, mesh, generator: torch.Generator,
+                 tx: Optimizer, device=None) -> TrainState:
+    """Random parameters straight into their shards: each leaf is drawn
+    whole (the draws of ``init_params``), the rank keeps its block and
+    drops the rest, so no rank ever holds the whole tree."""
+    device = resolve_device(device)
+    placements = param_shardings(mesh, llama.param_logical_axes(cfg))
+
+    def place(path, t):
+        pl = placements
+        for key in path:
+            pl = pl[key]
+        return _place(t, mesh, pl, device)
+
+    params = llama.init_params(cfg, generator, device, place=place)
+    return TrainState(0, params, tx.init(params))
+
+
+def _paths(tree: Any, prefix: str = ""):
+    """(path, leaf) pairs, dict keys sorted (as JAX flattens a tree)."""
+    if isinstance(tree, dict):
+        for k, v in sorted(tree.items()):
+            yield from _paths(v, f"{prefix}/{k}" if prefix else str(k))
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from _paths(v, f"{prefix}/{i}" if prefix else str(i))
+    else:
+        yield prefix, tree
+
+
+def _local_shape(shape, mesh, placements) -> Tuple[int, ...]:
+    out = list(shape)
+    for i, pl in enumerate(placements):
+        if pl.is_shard():
+            out[pl.dim] //= mesh.size(i)
+    return tuple(out)
+
+
+def sharding_summary(params: Any, logical_tree: Any) -> Dict[str, str]:
+    """``{param path: "logical names -> mesh axes @ local shard shape"}``:
+    where every weight lives on the mesh."""
+    flat_p, flat_l = list(_paths(params)), list(_paths(logical_tree))
+    if len(flat_p) != len(flat_l):
+        raise ValueError(
+            f"params tree has {len(flat_p)} leaves but logical tree has "
+            f"{len(flat_l)} — structures diverge")
+    return {key: f"{names} -> {logical_spec(names)} @ "
+                 f"{tuple(local(leaf).shape)}"
+            for (key, leaf), (_, names) in zip(flat_p, flat_l)}
+
+
+def assert_params_sharded(params: Any, mesh, logical_tree: Any) -> None:
+    """Every leaf is a DTensor on ``mesh`` with exactly the placements its
+    logical names prescribe and a local shard of the shape they give.
+    Raises AssertionError naming the first offending leaf."""
+    flat_p = list(_paths(params))
+    flat_e = list(_paths(param_shardings(mesh, logical_tree)))
+    assert len(flat_p) == len(flat_e), (
+        f"params tree has {len(flat_p)} leaves but the logical tree "
+        f"prescribes {len(flat_e)} — structures diverge")
+    for (key, leaf), (_, want) in zip(flat_p, flat_e):
+        assert isinstance(leaf, DTensor), (
+            f"{key}: {type(leaf).__name__} has no placement (not a DTensor)")
+        assert leaf.device_mesh == mesh, f"{key}: on another mesh"
+        got = tuple(leaf.placements)
+        assert got == tuple(want), f"{key}: placements {got} != {want}"
+        shard = tuple(local(leaf).shape)
+        expect = _local_shape(leaf.shape, mesh, want)
+        assert shard == expect, (f"{key}: shard shape {shard} != expected "
+                                 f"{expect}")
 
 
 def _stack(trees: List[Any]) -> Any:
@@ -186,6 +362,7 @@ def train_state_tree(state: TrainState) -> Dict[str, Any]:
     copies what it keeps (``train.save_pytree`` copies to the host)."""
     opt = state.opt_state
     adam = opt.adamw.state
+    params = _tree.map_leaves(local, state.params)
     counts = {int(s["step"]) for s in adam.values()}
     if len(counts) > 1:
         raise ValueError(f"AdamW's leaves disagree on their step: {counts}")
@@ -198,33 +375,56 @@ def train_state_tree(state: TrainState) -> Dict[str, Any]:
             s = adam.get(w)
             return s[key] if s else torch.zeros_like(w)
 
-        return {name: (_stack([_tree.map_leaves(of, v)
+        tree = {name: (_stack([_tree.map_leaves(of, v)
                                for v in opt.layers[name]])
                        if name in opt.layers else _tree.map_leaves(of, sub))
-                for name, sub in state.params.items()}
+                for name, sub in params.items()}
+        return _zip_map(_placed_like, tree, state.params)
 
     return {"step": state.step,
-            "params": _tree.map_leaves(torch.Tensor.detach, state.params),
+            "params": (state.params if opt.mesh is not None else
+                       _tree.map_leaves(torch.Tensor.detach, state.params)),
             "opt": {"count": counts.pop() if counts else 0,
                     "mu": moment("exp_avg"), "nu": moment("exp_avg_sq")}}
 
 
+def _placed_like(t: torch.Tensor, like) -> torch.Tensor:
+    """``t``, a local block, as a DTensor placed as ``like`` is (``t``
+    itself when ``like`` is no DTensor)."""
+    if not isinstance(like, DTensor):
+        return t
+    return DTensor.from_local(t, like.device_mesh, like.placements,
+                              run_check=False)
+
+
+def _whole(t):
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
 def train_state_from_tree(tree: Dict[str, Any], cfg: llama.LlamaConfig,
-                          tx: Optimizer, device=None) -> TrainState:
+                          tx: Optimizer, device=None, mesh=None,
+                          logical_tree: Any = None) -> TrainState:
     """Rebuild a ``TrainState`` from ``train_state_tree``'s layout on
     ``device`` (None = the card): the parameters copied there in their
     dtype and checked against ``cfg``'s shapes, ``tx.init`` over them (new
     layer views of the new stacked tensors), then AdamW's ``exp_avg``,
     ``exp_avg_sq`` and ``step`` written for every leaf and layer view, on
     the leaf's device (fused AdamW keeps its step there). A count of 0
-    leaves AdamW's state to its first update, as a fresh state does."""
+    leaves AdamW's state to its first update, as a fresh state does.
+    With ``mesh`` the parameters are placed by ``logical_tree`` (default
+    ``llama.param_logical_axes(cfg)``) and each rank keeps its blocks of
+    the parameters and moments; the tree's leaves may be whole tensors or
+    DTensors (a sharded state's ``train_state_tree``)."""
     device = resolve_device(device)
     shapes = llama.param_shapes(cfg)
 
     def place(t, shape, name):
+        t = _whole(t)
         if tuple(t.shape) != tuple(shape):
             raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
                              f"{tuple(shape)}")
+        if mesh is not None:
+            return t.detach()
         return t.detach().to(device, copy=True).contiguous()
 
     def placed(sub, shape, name):
@@ -238,25 +438,34 @@ def train_state_from_tree(tree: Dict[str, Any], cfg: llama.LlamaConfig,
         return place(sub, shape, name)
 
     params = placed(tree["params"], shapes, "params")
+    if mesh is not None:
+        params = shard_params(params, mesh, logical_tree
+                              or llama.param_logical_axes(cfg), device)
     opt = tx.init(params)
     count = int(tree["opt"]["count"])
     if count:
         group = opt.adamw.param_groups[0]
         on_leaf = group["fused"] or group["capturable"]
         scalar = _get_scalar_dtype(is_fused=group["fused"])
+
+        def blocks(moments, name):
+            """The rank's blocks of one subtree's moments, in leaf order."""
+            return [local_slice(_whole(m), mesh, p.placements)
+                    if mesh is not None else m
+                    for m, p in zip(_tree.leaves(moments[name]),
+                                    _tree.leaves(params[name]))]
+
         mu, nu = tree["opt"]["mu"], tree["opt"]["nu"]
         pairs = []
         for name, sub in params.items():
+            mus, nus = blocks(mu, name), blocks(nu, name)
             if name in opt.layers:
                 for i, view in enumerate(opt.layers[name]):
-                    pairs += zip(_tree.leaves(view),
-                                 _tree.leaves(_tree.map_leaves(
-                                     lambda m, i=i: m[i], mu[name])),
-                                 _tree.leaves(_tree.map_leaves(
-                                     lambda v, i=i: v[i], nu[name])))
+                    pairs += zip(_tree.leaves(view), [m[i] for m in mus],
+                                 [v[i] for v in nus])
             else:
-                pairs += zip(_tree.leaves(sub), _tree.leaves(mu[name]),
-                             _tree.leaves(nu[name]))
+                pairs += zip(_tree.leaves(_tree.map_leaves(local, sub)),
+                             mus, nus)
         for w, m, v in pairs:
             if not w.requires_grad:
                 continue
@@ -269,13 +478,15 @@ def train_state_from_tree(tree: Dict[str, Any], cfg: llama.LlamaConfig,
 
 
 def from_jax_train_state(tree: Any, cfg: llama.LlamaConfig, tx: Optimizer,
-                         device=None) -> TrainState:
+                         device=None, mesh=None,
+                         logical_tree: Any = None) -> TrainState:
     """``ray_tpu``'s ``TrainState`` as numpy arrays (the caller does
     ``jax.device_get``) -> this module's, on ``device``: the state
     counterpart of ``llama.from_jax_params``. ``ray_tpu``'s ``opt_state``
     is ``default_optimizer``'s chain, ``(EmptyState, (ScaleByAdamState(
     count, mu, nu), EmptyState, ScaleByScheduleState(count)))``; read by
-    position, so any tuples of that shape do."""
+    position, so any tuples of that shape do. ``mesh`` and
+    ``logical_tree`` as ``train_state_from_tree`` takes them."""
     step, params, opt_state = tree
     count, mu, nu = opt_state[1][0]
     shapes = llama.param_shapes(cfg)
@@ -288,20 +499,24 @@ def from_jax_train_state(tree: Any, cfg: llama.LlamaConfig, tx: Optimizer,
         {"step": int(step),
          "params": llama.from_jax_params(params, cfg, cpu),
          "opt": {"count": int(count), "mu": moments(mu, "mu"),
-                 "nu": moments(nu, "nu")}}, cfg, tx, device)
+                 "nu": moments(nu, "nu")}}, cfg, tx, device, mesh,
+        logical_tree)
 
 
-def make_train_step(cfg: llama.LlamaConfig, tx: Optimizer
+def make_train_step(cfg: llama.LlamaConfig, tx: Optimizer, mesh=None
                     ) -> Callable[[TrainState, torch.Tensor],
                                   Tuple[TrainState, Metrics]]:
     """(state, tokens [B,S]) -> (state, metrics): the loss and its
     gradients, then ``tx`` in place. Metrics: ``loss``, ``ppl_log`` and
     ``grad_norm`` (before clipping), 0-dim tensors on the parameters'
-    device."""
+    device. With ``mesh`` the state's parameters are DTensors
+    (``sharded_init`` / ``shard_params``), ``tokens`` the global batch
+    (every rank passes the same, or a DTensor), and the metrics are the
+    global batch's on every rank."""
 
     def step_fn(state: TrainState, tokens: torch.Tensor):
         opt = state.opt_state
-        loss, metrics = llama.loss_fn(state.params, tokens, cfg,
+        loss, metrics = llama.loss_fn(state.params, tokens, cfg, mesh=mesh,
                                       layers=opt.layers["blocks"])
         loss.backward()
         gnorm = tx.update(opt, state.step)
@@ -311,12 +526,12 @@ def make_train_step(cfg: llama.LlamaConfig, tx: Optimizer
     return step_fn
 
 
-def make_eval_step(cfg: llama.LlamaConfig):
+def make_eval_step(cfg: llama.LlamaConfig, mesh=None):
     """(params, tokens) -> metrics of ``llama.loss_fn``, no gradients."""
 
     def eval_fn(params: llama.Params, tokens: torch.Tensor) -> Metrics:
         with torch.no_grad():
-            _, metrics = llama.loss_fn(params, tokens, cfg)
+            _, metrics = llama.loss_fn(params, tokens, cfg, mesh=mesh)
         return metrics
 
     return eval_fn

@@ -14,6 +14,12 @@ hard-codes gloo. NCCL takes one rank per card, so a gang of n GPU workers
 needs n cards. A failed join raises in the loop (``TrainWorkerError`` for
 the failure policy); it never falls back to another backend.
 
+A mesh over the gang: inside the loop, ``parallel.mesh.mesh_2d()`` (or
+``make_mesh``) builds the six-axis ``DeviceMesh`` over this process group,
+one rank a worker (on cards, each worker's ``cuda:0``, its own card), and
+``spmd.make_train_step(cfg, tx, mesh=mesh)`` runs the sharded step there
+(``tests/test_torch_parallel_trainer.py``).
+
 Rendezvous: rank 0 binds a free TCP port and publishes host:port in the
 cluster KV under the run's rendezvous id; other ranks poll. (The reference
 executes a get-address task on worker 0 and broadcasts via the actor group

@@ -10,8 +10,9 @@ so the label test holds the hard label match alone.
 
 Then what the port adds: the same task, actor and ``put``/``get`` program
 on ``ray_tpu``'s cluster runtime and on the port's (``ray_tpu``'s store
-library built from its own source out of its tree for that test, as its
-own notes prescribe), worker processes that load neither JAX nor
+library built from its own source out of its tree, as its own notes
+prescribe, and loaded into every test process that collects this module),
+worker processes that load neither JAX nor
 ``ray_tpu``, tensors across processes, and the GPU rule of the node
 manager: a CPU worker sees no card, a GPU lease on a node without ``GPU``
 never runs, two ``{"GPU": 0.5}`` actors share one node's card in two
@@ -23,8 +24,10 @@ Every ``get`` and ``wait`` has a timeout, and the fixtures shut every
 runtime down in a ``finally``.
 """
 
+import fcntl
 import os
 import pathlib
+import subprocess
 import time
 
 import numpy as np
@@ -35,6 +38,50 @@ import ray_tpu_torch
 from ray_tpu_torch.exceptions import ActorDiedError, TaskError
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
+
+
+def _build_ray_tpu_store_lib() -> str:
+    """``ray_tpu``'s store library, built from ``ray_tpu/_cpp/shm_store.cc``
+    into this package's (ignored) build directory: the checked-in binary
+    predates the store's current layout and is not loaded on every
+    machine. The lock keeps test processes that collect this module at
+    the same time from writing the file together."""
+    from ray_tpu._cpp.build import build
+
+    out_dir = ROOT / "ray_tpu_torch" / "_build" / "ray_tpu_ref"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    with open(out_dir / ".lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        (so,) = build(verbose=False, out_dir=str(out_dir))
+    return so
+
+
+def _load_ray_tpu_store_lib() -> None:
+    """Loads that library into this process as ``ray_tpu``'s store
+    library, which ``ray_tpu`` keeps for the life of the process. Every
+    test process collects this module, so ``ray_tpu``'s in-process store
+    tests (``test_spilling.py``, ``test_pull_manager.py``) find a library
+    of the current layout in whichever process runs them, and not only in
+    one that ran this module's last test before them. The override is
+    restored at once: processes started later load what they would load
+    without this module. A failed build or load leaves ``ray_tpu`` as it
+    was; the test that needs the library reports it."""
+    prior = os.environ.get("RTPU_SHM_STORE_SO")
+    try:
+        os.environ["RTPU_SHM_STORE_SO"] = _build_ray_tpu_store_lib()
+        from ray_tpu.core import shm_store
+
+        shm_store._load_lib()
+    except (OSError, subprocess.CalledProcessError):
+        pass
+    finally:
+        if prior is None:
+            os.environ.pop("RTPU_SHM_STORE_SO", None)
+        else:
+            os.environ["RTPU_SHM_STORE_SO"] = prior
+
+
+_load_ray_tpu_store_lib()
 
 
 @pytest.fixture(scope="module")
@@ -694,15 +741,9 @@ def _program(pkg):
 
 @pytest.fixture(scope="module")
 def ray_tpu_store_lib():
-    """``ray_tpu``'s store library, built from ``ray_tpu/_cpp/shm_store.cc``
-    into this package's (ignored) build directory, for ``ray_tpu``'s
-    cluster through its ``RTPU_SHM_STORE_SO`` override: the checked-in
-    binary is not loaded on every machine."""
-    from ray_tpu._cpp.build import build
-
-    out_dir = ROOT / "ray_tpu_torch" / "_build" / "ray_tpu_ref"
-    (so,) = build(verbose=False, out_dir=str(out_dir))
-    return so
+    """That library, for ``ray_tpu``'s cluster through its
+    ``RTPU_SHM_STORE_SO`` override."""
+    return _build_ray_tpu_store_lib()
 
 
 def test_same_program_on_both_cluster_runtimes(cluster, ray_tpu_store_lib,

@@ -325,7 +325,7 @@ def test_tiny_model_kernels_match_plain(card):
                               use_decode_kernel=True)
     cfg_p = dataclasses.replace(cfg_k, fused_ops=False,
                                 use_decode_kernel=False)
-    params = llama.init_params(cfg_k, torch.Generator("cuda").manual_seed(0))
+    params = llama.init_params(cfg_k, torch.Generator(device="cuda").manual_seed(0))
     ck, cp = (llama.init_kv_cache(c, 2, 64) for c in (cfg_k, cfg_p))
     tok = torch.tensor([[5, 9, 3, 7], [2, 8, 1, 4]], device=card)
     with torch.no_grad():
@@ -349,7 +349,7 @@ def test_tiny_model_paged_logits_bit_equal_contiguous(card, dtype):
     cfg_c = llama.tiny_config(d_model=256, n_heads=4, n_kv_heads=2,
                               d_ff=512, fused_ops=True, dtype=dtype)
     cfg_p = dataclasses.replace(cfg_c, paged_decode=True, decode_page=16)
-    params = llama.init_params(cfg_c, torch.Generator("cuda").manual_seed(0))
+    params = llama.init_params(cfg_c, torch.Generator(device="cuda").manual_seed(0))
     cc, cp = (llama.init_kv_cache(c, 2, 64) for c in (cfg_c, cfg_p))
     tok = torch.tensor([[5, 9, 3, 7], [2, 8, 1, 4]], device=card)
     with torch.no_grad():
@@ -404,7 +404,7 @@ def test_engine_on_the_card_with_every_knob(card):
 
     cfg = llama.tiny_config(d_model=256, n_heads=4, n_kv_heads=2,
                             d_ff=512, max_seq_len=64, fused_ops=True)
-    params = llama.init_params(cfg, torch.Generator("cuda").manual_seed(1))
+    params = llama.init_params(cfg, torch.Generator(device="cuda").manual_seed(1))
     kw = dict(max_batch=2, max_len=64, prompt_buckets=[8, 16],
               decode_chunk=4, paged_decode=True, prefill_chunk=8,
               quantize="int8")
@@ -481,7 +481,7 @@ def test_engine_roles_fleet_and_preemption_on_the_card(card):
 
     cfg = llama.tiny_config(d_model=256, n_heads=4, n_kv_heads=2,
                             d_ff=512, max_seq_len=96, fused_ops=True)
-    params = llama.init_params(cfg, torch.Generator("cuda").manual_seed(4))
+    params = llama.init_params(cfg, torch.Generator(device="cuda").manual_seed(4))
     kw = dict(max_batch=2, max_len=96, prompt_buckets=[8, 16, 32],
               decode_chunk=4, prefix_block=8)
     p1, p2 = list(range(1, 33)), list(range(100, 132))
@@ -738,9 +738,9 @@ def test_tiny_model_loss_and_grads_kernels_match_plain(card, policy):
                               remat=True, remat_policy=policy)
     cfg_p = dataclasses.replace(cfg_k, fused_ops=False, remat=False)
     positions = torch.arange(256, device=card).expand(2, 256)
-    params = llama.init_params(cfg_k, torch.Generator("cuda").manual_seed(2))
+    params = llama.init_params(cfg_k, torch.Generator(device="cuda").manual_seed(2))
     tokens = torch.randint(0, cfg_k.vocab_size, (2, 256), device=card,
-                           generator=torch.Generator("cuda").manual_seed(3))
+                           generator=torch.Generator(device="cuda").manual_seed(3))
     runs = []
     for cfg in (cfg_k, cfg_p):
         p = {n: (v.clone().requires_grad_() if n != "blocks" else
@@ -777,12 +777,12 @@ def test_train_step_on_the_card_lowers_the_loss(card):
                             max_seq_len=256, fused_ops=True, remat=True,
                             dtype=torch.bfloat16)
     tx = spmd.default_optimizer(lr=1e-2, warmup=1, decay_steps=20)
-    state = spmd.init_train_state(cfg, torch.Generator("cuda").manual_seed(0),
+    state = spmd.init_train_state(cfg, torch.Generator(device="cuda").manual_seed(0),
                                   tx)
     assert state.opt_state.adamw.defaults["fused"]
     step = spmd.make_train_step(cfg, tx)
     tokens = torch.randint(0, cfg.vocab_size, (2, 256), device=card,
-                           generator=torch.Generator("cuda").manual_seed(1))
+                           generator=torch.Generator(device="cuda").manual_seed(1))
     losses = []
     for _ in range(6):
         state, metrics = step(state, tokens)
@@ -804,9 +804,9 @@ def test_tiny_mixtral_through_the_flash_kernels_matches_plain(card,
     cfg = mixtral.tiny_moe_config(d_model=256, n_heads=2, n_kv_heads=1,
                                   d_ff=512, vocab_size=512, max_seq_len=256,
                                   remat=True)
-    params = mixtral.init_params(cfg, torch.Generator("cuda").manual_seed(5))
+    params = mixtral.init_params(cfg, torch.Generator(device="cuda").manual_seed(5))
     tokens = torch.randint(0, cfg.vocab_size, (2, 256), device=card,
-                           generator=torch.Generator("cuda").manual_seed(6))
+                           generator=torch.Generator(device="cuda").manual_seed(6))
     positions = torch.arange(256, device=card).expand(2, 256)
     route, picks = mixtral.route, []
 
@@ -1008,7 +1008,7 @@ def test_cluster_gpu_actor_builds_an_engine_on_the_card(card_cluster):
     kw = dict(max_batch=2, max_len=64, prompt_buckets=[8, 16, 32],
               decode_chunk=4, prefix_block=8)
     cfg = llama.tiny_config(max_seq_len=64, fused_ops=True)
-    drawn = llama.init_params(cfg, torch.Generator("cuda").manual_seed(3),
+    drawn = llama.init_params(cfg, torch.Generator(device="cuda").manual_seed(3),
                               "cuda")
     on_cpu = {k: ({n: w.cpu() for n, w in v.items()}
                   if isinstance(v, dict) else v.cpu())
@@ -1089,7 +1089,7 @@ def test_cluster_torch_host_communicator_carries_a_cuda_tensor(
             self.comm = comm
 
         def send(self):
-            g = torch.Generator("cuda").manual_seed(7)
+            g = torch.Generator(device="cuda").manual_seed(7)
             t = torch.randn(129, 257, generator=g, device="cuda")
             self.comm.send(t.to(torch.bfloat16), 1)
             return True
@@ -1109,7 +1109,7 @@ def test_cluster_torch_host_communicator_carries_a_cuda_tensor(
             ray_tpu_torch.kill(r)
         for ch in comms[0]._channels.values():
             ch.close(unlink=True)
-    g = torch.Generator("cuda").manual_seed(7)
+    g = torch.Generator(device="cuda").manual_seed(7)
     want = torch.randn(129, 257, generator=g, device="cuda").to(
         torch.bfloat16).cpu()
     assert sent and kind == "TorchHostCommunicator"
@@ -1179,7 +1179,7 @@ def test_trainer_gang_trains_on_the_card(card_cluster, tmp_path):
     def run(cfg, report):
         tx = spmd.default_optimizer(lr=1e-2, warmup=1, decay_steps=20)
         state = spmd.init_train_state(
-            cfg, torch.Generator("cuda").manual_seed(5), tx)
+            cfg, torch.Generator(device="cuda").manual_seed(5), tx)
         tokens = torch.randint(0, cfg.vocab_size, (2, 32), device="cuda",
                                generator=torch.Generator(
                                    "cuda").manual_seed(6))
@@ -1227,11 +1227,11 @@ def test_train_state_checkpoint_round_trip_on_the_card(card, tmp_path):
     cfg = dataclasses.replace(llama.tiny_config(fused_ops=True),
                               dtype=torch.bfloat16)
     tx = spmd.default_optimizer(lr=1e-2, warmup=1, decay_steps=20)
-    state = spmd.init_train_state(cfg, torch.Generator("cuda").manual_seed(7),
+    state = spmd.init_train_state(cfg, torch.Generator(device="cuda").manual_seed(7),
                                   tx)
     assert state.opt_state.adamw.param_groups[0]["fused"]
     tokens = torch.randint(0, cfg.vocab_size, (2, 32), device="cuda",
-                           generator=torch.Generator("cuda").manual_seed(8))
+                           generator=torch.Generator(device="cuda").manual_seed(8))
     step = spmd.make_train_step(cfg, tx)
     for _ in range(2):
         state, _ = step(state, tokens)
@@ -1307,3 +1307,72 @@ def test_torch_trainer_nccl_world_of_one(card_cluster, tmp_path):
     assert result.metrics == {"backend": "nccl", "world": 1,
                               "sum": [2.0, 2.0, 2.0], "on": "cuda:0",
                               "equal": True}
+
+
+@pytest.fixture
+def nccl_of_one(card, tmp_path):
+    """A NCCL process group of one rank on the card, and its six-axis
+    mesh; destroyed after the test."""
+    import torch.distributed as dist
+
+    from ray_tpu_torch.parallel.mesh import single_device_mesh
+
+    dist.init_process_group(
+        "nccl", store=dist.FileStore(str(tmp_path / "store"), 1), rank=0,
+        world_size=1)
+    try:
+        yield single_device_mesh()
+    finally:
+        dist.destroy_process_group()
+
+
+def test_mesh_step_of_one_on_the_card_is_the_one_card_step(nccl_of_one):
+    """The mesh path on a world of one launches the same kernels and gives
+    the same losses as the step without a mesh (bf16, S=256: flash,
+    fused ops, remat)."""
+    from ray_tpu_torch import ops
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.parallel import spmd
+
+    cfg = llama.tiny_config(dtype=torch.bfloat16, fused_ops=True, remat=True,
+                            max_seq_len=256)
+    tx = spmd.default_optimizer(lr=1e-2, warmup=1)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 256), device="cuda",
+                           generator=torch.Generator(device="cuda").manual_seed(1))
+    runs = []
+    for mesh in (None, nccl_of_one):
+        params = llama.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+        if mesh is not None:
+            params = spmd.shard_params(params, mesh,
+                                       llama.param_logical_axes(cfg))
+        state = spmd.TrainState(0, params, tx.init(params))
+        step = spmd.make_train_step(cfg, tx, mesh=mesh)
+        before = {n: f.launches for n, f in ops.KERNELS.items()}
+        losses = []
+        for _ in range(3):
+            state, m = step(state, tokens)
+            losses.append(m["loss"].item())
+        runs.append((losses, {n: f.launches - before[n]
+                              for n, f in ops.KERNELS.items()}))
+    assert runs[0] == runs[1]
+    assert runs[1][1]["flash_attention_bwd"] == 3 * cfg.n_layers
+
+
+def test_pipeline_on_the_card_equals_the_dense_forward(nccl_of_one):
+    """Both stages on one card: the rotor's hidden equals the dense
+    forward's within the flash kernels' bf16 tolerance."""
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.parallel import pipeline
+
+    cfg = llama.tiny_config(dtype=torch.bfloat16, fused_ops=True,
+                            n_layers=4, max_seq_len=256)
+    params = llama.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    tokens = torch.randint(0, cfg.vocab_size, (4, 256), device="cuda",
+                           generator=torch.Generator(device="cuda").manual_seed(1))
+    pcfg = pipeline.PipelineConfig(stages=2, microbatches=4)
+    with torch.no_grad():
+        want = llama.forward_hidden(params, tokens, cfg)
+        got = pipeline.pipeline_forward_hidden(
+            pipeline.stage_params(params, 2), tokens, cfg, pcfg)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)

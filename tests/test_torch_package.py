@@ -42,10 +42,11 @@ def test_importing_and_serving_loads_no_jax_module():
     take a third from the restored state, then a step of each other model (Mixtral,
     ViT, T5, the UNet, and a UNet sample), then build RLlib's PPO and
     take one ``train()`` step, then serve the engine through
-    ``build_llm_deployment`` on the local runtime (a reply and a stream);
+    ``build_llm_deployment`` on the local runtime (a reply and a stream),
+    then a sharded step and a pipeline step on a mesh of one rank (gloo);
     no jax* and no ray_tpu / ray_tpu.* module may load."""
     code = (
-        "import sys, torch\n"
+        "import os, sys, torch\n"
         "import ray_tpu_torch, ray_tpu_torch.ops\n"
         "from ray_tpu_torch.models import llama\n"
         "from ray_tpu_torch.serve.llm import LLMEngine\n"
@@ -125,6 +126,23 @@ def test_importing_and_serving_loads_no_jax_module():
         "assert len(list(h.options('stream', stream=True).remote(req))) == 3\n"
         "serve.shutdown()\n"
         "ray_tpu_torch.shutdown()\n"
+        "import torch.distributed as dist\n"
+        "from ray_tpu_torch.parallel import mesh as pmesh, pipeline\n"
+        "dist.init_process_group('gloo', store=dist.FileStore(\n"
+        "    os.path.join(d, 'store'), 1), rank=0, world_size=1)\n"
+        "m = pmesh.mesh_2d(device_type='cpu')\n"
+        "st = spmd.sharded_init(tcfg, m, torch.Generator().manual_seed(0),\n"
+        "                       tx, device='cpu')\n"
+        "spmd.assert_params_sharded(st.params, m,\n"
+        "                           llama.param_logical_axes(tcfg))\n"
+        "st, _ = spmd.make_train_step(tcfg, tx, mesh=m)(st, tok)\n"
+        "pc = pipeline.PipelineConfig(2, 2)\n"
+        "ps = spmd.shard_params(pipeline.stage_params(llama.init_params(\n"
+        "    tcfg, g, 'cpu'), 2), m, pipeline.pipeline_param_logical_axes(\n"
+        "    tcfg), 'cpu')\n"
+        "st = spmd.TrainState(0, ps, tx.init(ps))\n"
+        "st, _ = pipeline.make_pipeline_train_step(tcfg, pc, m, tx)(st, tok)\n"
+        "dist.destroy_process_group()\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'ray_tpu'))\n"
         "print('BAD', bad)\n")
@@ -163,6 +181,16 @@ def test_device_none_means_the_card():
                                 device="cpu")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         spmd.train_state_from_tree(spmd.train_state_tree(cpu), cfg, tx)
+    from ray_tpu_torch.parallel import mesh
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        spmd.sharded_init(cfg, None, torch.Generator().manual_seed(0), tx)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        spmd.shard_params(cpu.params, None, llama.param_logical_axes(cfg))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mesh.make_mesh(mesh.MeshSpec())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mesh.make_mesh(mesh.MeshSpec(), "cuda")
     from ray_tpu_torch.models import diffusion, mixtral, t5, vit
 
     for init, mcfg in ((mixtral.init_params, mixtral.tiny_moe_config()),

@@ -114,6 +114,35 @@ def allreduce_loop(config):
                   "foreign": foreign_modules()})
 
 
+def mesh_llama_loop(config):
+    """``mesh_2d()`` over the gang's world (one rank a worker), then Llama's
+    sharded step on it; reports the losses and the mesh's shape."""
+    import torch
+
+    from ray_tpu_torch import train
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.parallel import spmd
+    from ray_tpu_torch.parallel.mesh import AXES, mesh_2d
+
+    mesh = mesh_2d(device_type="cpu")
+    cfg = llama.tiny_config(**config["cfg"])
+    logical = llama.param_logical_axes(cfg)
+    params = spmd.shard_params(
+        llama.from_jax_params(config["params"], cfg, "cpu"), mesh, logical,
+        "cpu")
+    tx = spmd.default_optimizer(**config["tx"])
+    state = spmd.TrainState(0, params, tx.init(params))
+    step = spmd.make_train_step(cfg, tx, mesh=mesh)
+    tokens = torch.from_numpy(config["tokens"])
+    losses = []
+    for _ in range(config["steps"]):
+        state, metrics = step(state, tokens)
+        losses.append(float(metrics["loss"]))
+    spmd.assert_params_sharded(state.params, mesh, logical)
+    train.report({"losses": losses, "foreign": foreign_modules(),
+                  "mesh": dict(zip(AXES, mesh.shape))})
+
+
 def ddp_linear_loop(config):
     """DDP linear regression, each rank on its own data."""
     import torch
