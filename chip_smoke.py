@@ -2,7 +2,7 @@
 """Run the PyTorch/CUDA port (``ray_tpu_torch``) end to end on one CUDA
 card and check it.
 
-    python3 chip_smoke.py              # phases 1-15, the smoke
+    python3 chip_smoke.py              # phases 1-17, the smoke
     python3 chip_smoke.py --spec-ab    # phases 1-2, then speculation off
                                        # against on (bf16), no result line
     python3 chip_smoke.py --flash [DIR]     # phases 1-2, the flash kernels
@@ -23,6 +23,8 @@ card and check it.
                                             # result line
     python3 chip_smoke.py --parallel        # phases 1-2, 8 and 16, no
                                             # result line
+    python3 chip_smoke.py --data            # phases 1-2 and 17, no result
+                                            # line
 
 ``--flash`` runs against the package of the checkout at DIR (default:
 this one): the flash kernels against their plain versions at phase 3's
@@ -171,8 +173,9 @@ script exits non-zero without printing its last line:
     use_gpu=True))``: the worker is another process, its kernel launches
     equal phase 8's and its losses are within 2e-3 of phase 8's; its step
     ms beside phase 8's direct step, a round's overhead (the driver's time
-    between rounds less the worker's step), tokens/s, MFU, peak memory.
-    (b) Llama-3.2-1B at its published widths and depth, bf16, 4 steps,
+    between rounds less the worker's step), tokens/s, MFU, peak memory,
+    the last step profiled (its device idle share, the step left out of
+    the median). (b) Llama-3.2-1B at its published widths and depth, bf16, 4 steps,
     the whole state (``spmd.train_state_tree``, ~9 GB) saved every 2 steps
     by ``train.save_pytree`` and loaded straight back bit-equal; the first
     attempt fails at step 3 and ``FailureConfig(max_failures=1)`` restarts
@@ -199,6 +202,33 @@ script exits non-zero without printing its last line:
     steps on ``MeshSpec(tp=2)`` and on ``MeshSpec(fsdp=2)``: losses and
     grad norms within 2e-3 of the world-of-one step, the flash kernels at
     the local head counts; step ms (gloo through the host).
+17. Data (``ray_tpu_torch.data``). (b) runs at the end of phase 12, on
+    its params tree before it is freed: batch inference through
+    ``build_llm_processor`` on ``init(local_mode=True)``, full-depth
+    Llama-3-8B bf16, phase 5's engine in one pool actor
+    (``concurrency=1``, ``batch_size=8``), ``from_items`` over phase 5's 16
+    prompts (``parallelism=2``), 32 new tokens each: every row's tokens
+    identical to a direct engine's with the same prefix-cache history
+    (each request's ``cached_prefix_len`` recorded), every kernel of phase
+    5's path launched; rows/s and tokens/s (the pool actor's engine build
+    timed apart) beside phase 5's closed loop. (a) and (c) after phase 15,
+    on its ``init()`` cluster: (a) phase 15a's loop in a GPU worker with
+    its tokens from a Dataset of 5 rows
+    (each phase 8's ``RandomState(8)`` row, made by a map stage) handed to
+    ``DataParallelTrainer(datasets=...)`` -> ``streaming_split(1)`` ->
+    ``train.iter_device_batches``: losses bit-equal to 15a's, every batch
+    on the worker's card, launches a step equal to phase 8's; the step ms
+    (the batch's fetch included) beside 15a's and phase 8's, the profiled
+    step's device idle share beside 15a's, the consumer's wait for each
+    batch, a standalone pinned copy of one batch's size; (c) ``bench.py``'s
+    data suite at its sizes: the channel against the task exchange of a
+    96,000 x 17 float64 ``random_shuffle`` in GB/s, best of 2 (bench.py
+    takes 3), with at least one channel exchange that returned counted,
+    and ``iter_batches(device_put="cuda")`` over 65,536 x 256 f32 in
+    batches of 4096 through three matmuls, buffered against inline
+    ``.to("cuda")`` and a pre-staged batch (the arms' sums equal).
+    ``--data`` runs 17b on params of its own, then 17a (15a's loop run
+    first as its pre-staged arm) and 17c on a cluster of their own.
 10. The model zoo, after phase 8: (a) Mixtral, 2 layers at
     MIXTRAL_8X7B's widths in f32, B=1, S=256: the loss and every gradient
     through the flash kernels against the plain route, and every token's
@@ -244,8 +274,10 @@ script exits non-zero without printing its last line:
    deployments as ``launches_phase12``, summed over phase 13's replica
    processes as ``launches_phase13`` and over phase 14's as
    ``launches_phase14``, phase 15a's trainer worker's over its 5 steps as
-   ``launches_phase15``, and the flash rows' launches a step of phase 10b
-   as ``launches_phase10``) is printed just before the last line.
+   ``launches_phase15``, phase 16a's as ``launches_phase16``, phase 17a's
+   worker's and 17b's processor's summed as ``launches_phase17``, and the
+   flash rows' launches a step of phase 10b as ``launches_phase10``) is
+   printed just before the last line.
 
 The last line is ``{"ok": true, "device": {...}}``. Needs one card; exits
 non-zero at once without one.
@@ -295,8 +327,13 @@ ENGINE_KW = dict(max_batch=8, max_len=512, prompt_buckets=[32, 64],
 SPEC_DRAFT_LEN = 4
 PAGE = ENGINE_KW["prefix_block"]
 PAGED_S = -(-(ENGINE_KW["max_len"] + SPEC_DRAFT_LEN + 1) // PAGE) * PAGE
-# Phase 8, the training cell (bench.py's 8B training shape at batch 1).
+# Phase 8, the training cell (bench.py's 8B training shape at batch 1),
+# and its kernels' launches a step.
 TRAIN_B, TRAIN_S, TRAIN_STEPS = 1, 2048, 5
+TRAIN_PER_STEP = {"flash_attention": 64, "flash_attention_bwd": 32,
+                  "qk_rope": 96, "rms_norm": 65, "rms_norm_residual": 64,
+                  "swiglu": 64, "decode_attention": 0,
+                  "paged_decode_attention": 0}
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, FLOP/s.
 HBM_BYTES_S = 3.35e12
@@ -1004,6 +1041,7 @@ def phase_engine(smi):
     eng = make_engine("phase 5", smi)
     prompts, warmup = phase5_prompts(eng.cfg.vocab_size)
     launches, stats = serve("phase 5", eng, prompts, warmup, smi)
+    MEASURED["phase5_decode_tokens_s"] = stats["decode_tokens_s"]
     if stats["prefix_hits"] < 1:
         raise AssertionError(f"no prefix-cache hit: {stats}")
     require_launches("phase 5", launches,
@@ -1936,13 +1974,15 @@ def phase12b(cfg, params, smi, seq, want):
     return launches
 
 
-def phase_serve(smi):
+def phase_serve(smi, then=None):
     """Phase 12: the engine served through its deployment,
     ``ray_tpu_torch.init(local_mode=True)`` -> ``serve.run(
     build_llm_deployment(...))`` -> ``handle.remote``, full-depth
     Llama-3-8B bf16. Returns the kernels' launches over the deployments'
     traffic (the direct engines' comparison runs not counted) and the
-    closed loops' numbers (``direct``, ``pair``, ``one``, ``two``)."""
+    closed loops' numbers (``direct``, ``pair``, ``one``, ``two``), with
+    ``then(cfg, params)``'s result under ``then``: a later phase run on
+    phase 12's tree before it is freed."""
     import gc
 
     from ray_tpu_torch.models import llama
@@ -1999,6 +2039,8 @@ def phase_serve(smi):
     require_launches("phase 12a", launches,
                      ("paged_decode_attention",) + TRAIN_ONLY)
     add_counts(launches, phase12b(cfg, params, smi, seq, want))
+    t12 = time.perf_counter() - t0
+    after = then(cfg, params) if then else None
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -2015,10 +2057,9 @@ def phase_serve(smi):
         f"handle - direct {one['hop_ms']} ms a request (median; the direct "
         f"engine beside, less alone: {one['beside_ms']}), echo hop "
         f"{one['echo_ms']} ms; "
-        f"{time.perf_counter() - t0:.1f} s; kernel launches {launches}; on "
-        f"{smi}")
+        f"{t12:.1f} s; kernel launches {launches}; on {smi}")
     return launches, {"direct": direct, "pair": pair, "one": one,
-                      "two": two}
+                      "two": two, "then": after}
 
 
 # --------------------------------------------------------------- phase 13
@@ -2954,10 +2995,7 @@ def phase_train(smi):
         raise AssertionError("phase 8: a non-finite loss or grad norm")
     if not losses[-1] < losses[1]:
         raise AssertionError(f"phase 8: the loss did not fall: {losses}")
-    per_step = {"flash_attention": 64, "flash_attention_bwd": 32,
-                "qk_rope": 96, "rms_norm": 65, "rms_norm_residual": 64,
-                "swiglu": 64, "decode_attention": 0,
-                "paged_decode_attention": 0}
+    per_step = dict(TRAIN_PER_STEP)
     want = {n: c * TRAIN_STEPS for n, c in per_step.items()}
     if launches != want:
         raise AssertionError(f"phase 8 launches {launches}, expected {want}")
@@ -3331,11 +3369,20 @@ def trainer_loops():
     no part of this script). Each reports what the driver checks."""
     def llama8b_loop(config):
         """Phase 8's setup and steps in the worker: Llama-3-8B bf16 from
-        ``_gen(11)``, ``RandomState(8)`` tokens, 5 steps; each step's loss,
-        grad norm, wall ms (synchronized, before the host reads the loss,
-        as phase 8 times it), the kernels' launches so far, peak memory,
-        the process and its visible cards."""
+        ``_gen(11)``, 5 steps on phase 8's ``RandomState(8)`` tokens, put
+        on the card once or, with ``config["dataset"]``, each step's batch
+        from the trainer's shard of that dataset through
+        ``train.iter_device_batches(batch_size=1)``. Each step reports its
+        loss, grad norm, wall ms (from the batch's fetch to a synchronize,
+        before the host reads the loss, as phase 8 times it), the wait for
+        its batch, the batch (device, dtype, shape, equal to the tokens),
+        the kernels' launches so far, peak memory, the process and its
+        visible cards. The last step runs under the profiler (its device
+        busy ms); after it, the batches left over and ``copy_ms``."""
         import importlib
+
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
 
         from ray_tpu_torch import train
         from ray_tpu_torch.models import llama
@@ -3348,25 +3395,67 @@ def trainer_loops():
         cfg = dataclasses.replace(llama.LLAMA3_8B, fused_ops=True)
         tx = spmd.default_optimizer(lr=1e-4, warmup=1)
         state = spmd.init_train_state(cfg, _gen(11), tx)
-        tokens = torch.from_numpy(np.random.RandomState(8).randint(
-            0, cfg.vocab_size, (TRAIN_B, TRAIN_S))).to("cuda")
+        row = np.random.RandomState(8).randint(0, cfg.vocab_size,
+                                               (TRAIN_B, TRAIN_S))
+        dataset = config.get("dataset")
+        if dataset is None:
+            batches = iter([{"tokens": torch.from_numpy(row).to("cuda")}]
+                           * TRAIN_STEPS)
+        else:
+            batches = train.iter_device_batches(dataset, batch_size=TRAIN_B)
         step = spmd.make_train_step(cfg, tx)
+        torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         for fn in kernels.values():
             fn.launches = 0
         for i in range(TRAIN_STEPS):
+            last = i == TRAIN_STEPS - 1
+            prof = (profile(activities=[ProfilerActivity.CPU,
+                                        ProfilerActivity.CUDA])
+                    if last else contextlib.nullcontext())
             t = time.perf_counter()
-            state, metrics = step(state, tokens)
-            torch.cuda.synchronize()
+            with prof:
+                batch = next(batches)
+                wait = time.perf_counter() - t
+                tokens = batch["tokens"]
+                state, metrics = step(state, tokens)
+                torch.cuda.synchronize()
             wall = time.perf_counter() - t
+            busy = (sum(ev.time_range.elapsed_us() for ev in prof.events()
+                        if ev.device_type == DeviceType.CUDA
+                        and not ev.is_user_annotation) / 1e3
+                    if last else None)
             train.report({
                 "step": i, "loss": metrics["loss"].item(),
                 "grad_norm": metrics["grad_norm"].item(),
-                "step_ms": wall * 1e3,
+                "step_ms": wall * 1e3, "wait_ms": wait * 1e3,
+                "on": str(tokens.device), "dtype": str(tokens.dtype),
+                "shape": list(tokens.shape),
+                "equal": bool(torch.equal(tokens.cpu(),
+                                          torch.from_numpy(row))),
                 "launches": {n: fn.launches for n, fn in kernels.items()},
-                "peak": torch.cuda.max_memory_allocated(), "pid": os.getpid(),
+                "busy_ms": busy, "peak": torch.cuda.max_memory_allocated(),
+                "pid": os.getpid(),
                 "visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
-                "device": torch.cuda.get_device_name(0)})
+                "device": torch.cuda.get_device_name(0),
+                "rest": sum(1 for _ in batches) if last else None,
+                "copy_ms": copy_ms(row) if last else None})
+
+    def copy_ms(row, n=20):
+        """A standalone copy of one batch's size (the [1, 2048] int64 row,
+        pinned) on a side stream, CUDA events, mean of ``n``: what the
+        loader's copy of a batch costs, not a timing of its own copies."""
+        pinned = torch.from_numpy(row).pin_memory()
+        side = torch.cuda.Stream()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
+        with torch.cuda.stream(side):
+            pinned.to("cuda", non_blocking=True)
+            start.record(side)
+            for _ in range(n):
+                pinned.to("cuda", non_blocking=True)
+            end.record(side)
+        end.synchronize()
+        return start.elapsed_time(end) / n
 
     def ckpt_loop(config):
         """Llama-3.2-1B bf16 trained from ``_gen(12)`` on ``RandomState(9)``
@@ -3540,18 +3629,25 @@ def phase15a(smi, loop, phase8):
         raise AssertionError(f"phase 15a: the loss did not fall: {losses}")
     walls = [r["step_ms"] for r in rounds]
     steady = median(walls[1:-1])
+    idle = 1 - last["busy_ms"] / steady
+    MEASURED["phase15a"] = {"losses": losses, "step_ms": steady,
+                            "idle": idle}
     gaps = [b - a for a, b in zip(clock.times, clock.times[1:])]
-    overhead = [g * 1e3 - w for g, w in zip(gaps[:TRAIN_STEPS - 1],
-                                            walls[1:])]
+    # The last round also carries the profiler's event walk and the copy
+    # timing, done after its step and before its report: left out.
+    overhead = [g * 1e3 - w for g, w in zip(gaps[:TRAIN_STEPS - 2],
+                                            walls[1:-1])]
     log(f"  phase 15a trainer step: {steady} ms (median of steps 1-"
         f"{TRAIN_STEPS - 2}; step 0 {walls[0]} ms) against phase 8's "
         f"direct step {phase8['step_ms']} ms in this call, ratio "
         f"{steady / phase8['step_ms']}; {TRAIN_B * TRAIN_S / steady * 1e3} "
         f"tokens/s, MFU {phase8['flops'] / (steady / 1e3) / BF16_FLOPS}; "
         f"a round's overhead (the driver's time between rounds less the "
-        f"worker's step) ms {overhead}, median {median(overhead)}; peak "
+        f"worker's step; the profiled last round left out) ms {overhead}, "
+        f"median {median(overhead)}; peak "
         f"memory {last['peak'] / 1e9} GB (phase 8 {phase8['peak'] / 1e9} "
-        f"GB); worker pid {last['pid']} (driver {os.getpid()}), "
+        f"GB); the profiled last step's device idle share {idle}; worker "
+        f"pid {last['pid']} (driver {os.getpid()}), "
         f"CUDA_VISIBLE_DEVICES={last['visible']!r}, {last['device']}; fit "
         f"{fit_s:.1f} s; launches {last['launches']}; on {smi}")
     return last["launches"]
@@ -3661,31 +3757,55 @@ def phase15c(smi, loop):
         f"{time.perf_counter() - t0:.1f} s; on {smi}")
 
 
-def phase_trainer(smi):
-    """Phase 15, after phase 8: ``ray_tpu_torch.train`` on the cluster
-    runtime, one GPU worker process at a time (15a Llama-3-8B through the
-    trainer, 15b Llama-3.2-1B checkpoints with a failure and a resume, 15c
-    ``TorchTrainer`` on NCCL). Returns the 15a worker's launches."""
+def on_cluster(label, run):
+    """``run(storage)`` on a fresh ``ray_tpu_torch.init()`` cluster (the
+    card counted as ``GPU``) with a scratch storage path, after checking
+    that this process holds under 2 GiB of the card; then the cluster
+    shut down, the storage removed, and every cluster process gone."""
     import gc
     import shutil
     import tempfile
 
     import ray_tpu_torch
 
-    t0 = time.perf_counter()
     gc.collect()
     torch.cuda.empty_cache()
     held = torch.cuda.memory_allocated()
     if held >= 2 * 2**30:
-        raise AssertionError(f"phase 15: {held} bytes still allocated "
+        raise AssertionError(f"{label}: {held} bytes still allocated "
                              "before the trainer's worker starts")
-    phase8 = dict(MEASURED["phase8"])
-    storage = tempfile.mkdtemp(prefix="rtt_phase15_")
-    MEASURED["phase15_storage"] = phase8["storage"] = storage
-    llama8b_loop, ckpt_loop, nccl_loop = trainer_loops()
+    storage = tempfile.mkdtemp(prefix="rtt_phase_")
     rt = ray_tpu_torch.init(object_store_memory=1 << 30)
     procs = list(rt._procs)
     try:
+        out = run(storage)
+    finally:
+        try:
+            ray_tpu_torch.shutdown()
+        finally:
+            shutil.rmtree(storage, ignore_errors=True)
+    deadline = time.time() + 30
+    while any(alive(p.pid) for p in procs):
+        if time.time() > deadline:
+            raise AssertionError(f"{label}: cluster processes outlived "
+                                 "shutdown")
+        time.sleep(0.1)
+    return out
+
+
+def phase_trainer(smi, data=False):
+    """Phase 15, after phase 8: ``ray_tpu_torch.train`` on the cluster
+    runtime, one GPU worker process at a time (15a Llama-3-8B through the
+    trainer, 15b Llama-3.2-1B checkpoints with a failure and a resume, 15c
+    ``TorchTrainer`` on NCCL); with ``data``, phase 17a and 17c after them
+    on the same cluster. Returns the 15a worker's launches and 17a's (or
+    None)."""
+    phase8 = dict(MEASURED["phase8"])
+    llama8b_loop, ckpt_loop, nccl_loop = trainer_loops()
+
+    def run(storage):
+        t0 = time.perf_counter()
+        MEASURED["phase15_storage"] = phase8["storage"] = storage
         t = time.perf_counter()
         launches = phase15a(smi, llama8b_loop, phase8)
         log(f"phase 15a took {time.perf_counter() - t:.1f} s")
@@ -3695,20 +3815,368 @@ def phase_trainer(smi):
         t = time.perf_counter()
         phase15c(smi, nccl_loop)
         log(f"phase 15c took {time.perf_counter() - t:.1f} s")
+        log(f"phase 15 trainer: 15a-15c passed in "
+            f"{time.perf_counter() - t0:.1f} s; on {smi}")
+        return launches, (phase_data(smi, llama8b_loop, storage) if data
+                          else None)
+
+    return on_cluster("phase 15", run)
+
+
+# --------------------------------------------------------------- phase 17
+
+# 17c, bench.py's data suite (bench.py:2348-2480) at its sizes.
+P17C_SHUFFLE_ROWS, P17C_SHUFFLE_WIDTH, P17C_SHUFFLE_BLOCKS = 96_000, 16, 48
+P17C_INGEST_ROWS, P17C_INGEST_D, P17C_INGEST_BS = 65_536, 256, 4096
+
+
+def train_dataset(vocab):
+    """Phase 17a's source: ``TRAIN_STEPS`` rows, each phase 8's [2048]
+    token row, made by a map stage from the row index."""
+    from ray_tpu_torch import data as rdata
+
+    def tokens(batch):
+        row = np.random.RandomState(8).randint(0, vocab, (TRAIN_B, TRAIN_S))
+        return {"tokens": np.repeat(row, len(batch["step"]), axis=0)}
+
+    return rdata.from_numpy({"step": np.arange(TRAIN_STEPS)},
+                            parallelism=TRAIN_STEPS).map_batches(tokens)
+
+
+def phase17a_run(loop, storage, dataset):
+    """One ``DataParallelTrainer`` fit of phase 15a's loop in a GPU
+    worker, its tokens pre-staged or (``dataset``) from a Dataset; returns
+    its rounds."""
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.train import (DataParallelTrainer, RunConfig,
+                                     ScalingConfig)
+
+    result = DataParallelTrainer(
+        loop, train_loop_config={"dataset": "train"} if dataset else None,
+        scaling_config=ScalingConfig(num_workers=1, use_gpu=True),
+        run_config=RunConfig(name=f"phase17a-{int(dataset)}",
+                             storage_path=storage),
+        datasets=({"train": train_dataset(llama.LLAMA3_8B.vocab_size)}
+                  if dataset else None)).fit()
+    if result.error is not None:
+        raise AssertionError(f"phase 17a: {result.error}")
+    rounds = result.metrics_dataframe
+    if [r["step"] for r in rounds] != list(range(TRAIN_STEPS)):
+        raise AssertionError(f"phase 17a: rounds {rounds}")
+    return rounds
+
+
+def phase17a(smi, loop, storage):
+    """Phase 15a's training with its tokens from a ``ray_tpu_torch.data``
+    Dataset: ``DataParallelTrainer(datasets={"train": ds})`` ->
+    ``streaming_split(1)`` -> ``train.iter_device_batches`` in the GPU
+    worker. Losses bit-equal to the pre-staged arm's (15a's in the whole
+    run; in ``--data`` 15a's loop run here first); every batch on the
+    worker's card; launches a step equal to phase 8's. Returns the
+    worker's launches."""
+    if "phase15a" in MEASURED:
+        pre = dict(MEASURED["phase15a"], label="15a")
+    else:
+        rounds = phase17a_run(loop, storage, dataset=False)
+        steady = median([r["step_ms"] for r in rounds][1:-1])
+        pre = {"losses": [r["loss"] for r in rounds], "step_ms": steady,
+               "idle": 1 - rounds[-1]["busy_ms"] / steady,
+               "label": "the pre-staged arm (15a's loop)"}
+    rounds = phase17a_run(loop, storage, dataset=True)
+    last = rounds[-1]
+    if last["pid"] == os.getpid():
+        raise AssertionError("phase 17a: the loop ran in the driver")
+    bad = [(r["step"], r["on"], r["dtype"], r["shape"], r["equal"])
+           for r in rounds
+           if (r["on"], r["dtype"], r["shape"], r["equal"]) != (
+               "cuda:0", "torch.int64", [TRAIN_B, TRAIN_S], True)]
+    if bad or last["rest"] != 0:
+        raise AssertionError(f"phase 17a: batches not phase 8's tokens on "
+                             f"the worker's card: {bad}; {last['rest']} "
+                             "batches left over")
+    want = {n: c * TRAIN_STEPS for n, c in TRAIN_PER_STEP.items()}
+    if last["launches"] != want:
+        raise AssertionError(f"phase 17a: launches {last['launches']}, "
+                             f"expected {want}")
+    losses = [r["loss"] for r in rounds]
+    if losses != pre["losses"]:
+        raise AssertionError(f"phase 17a: losses {losses} not bit-equal to "
+                             f"{pre['label']}'s {pre['losses']}")
+    walls = [r["step_ms"] for r in rounds]
+    steady = median(walls[1:-1])
+    idle = 1 - last["busy_ms"] / steady
+    waits = [r["wait_ms"] for r in rounds]
+    p8 = MEASURED.get("phase8", {}).get("step_ms", "not run in this mode")
+    log(f"  phase 17a losses {losses}, bit-equal to {pre['label']}'s; "
+        f"every batch a [1, {TRAIN_S}] int64 tensor on cuda:0 of the "
+        f"worker (CUDA_VISIBLE_DEVICES={last['visible']!r}, "
+        f"{last['device']}), equal to phase 8's tokens; launches "
+        f"{last['launches']} (phase 8's a step x {TRAIN_STEPS})")
+    log(f"  phase 17a step through the Dataset: {steady} ms (median of steps "
+        f"1-{TRAIN_STEPS - 2}, each from the batch's fetch to the step's "
+        f"synchronize; step 0 {walls[0]} ms) against {pre['label']}'s "
+        f"{pre['step_ms']} ms (ratio {steady / pre['step_ms']}) and phase "
+        f"8's {p8} ms; profiled step {walls[-1]} ms, device busy "
+        f"{last['busy_ms']} ms, idle share {idle} ({pre['label']}'s "
+        f"{pre['idle']}); the consumer's wait for a batch (queue wait) ms "
+        f"{waits}; a standalone pinned copy of one batch on a side stream "
+        f"{last['copy_ms']} ms; peak memory {last['peak'] / 1e9} GB; on "
+        f"{smi}")
+    return last["launches"]
+
+
+def phase17b(smi, cfg, params):
+    """Batch inference: ``build_llm_processor`` on
+    ``init(local_mode=True)`` over full-depth Llama-3-8B bf16 (``params``
+    by reference), phase 5's engine, ``concurrency=1``, ``batch_size=8``,
+    ``from_items`` over phase 5's 16 prompts with ``parallelism=2``, 32
+    new tokens each, greedy. Every kernel count is set to 0 just before
+    the processor runs and read just after. Each row's tokens are held
+    to a direct engine's on the same params with the same prefix-cache
+    history: the engine's ``generate`` is wrapped to record each
+    request's ``cached_prefix_len`` (the slots fill and hit in whatever
+    order the block's 8 concurrent requests arrive, and bf16 greedy
+    tokens may differ between a full prefill and a prefix hit's suffix
+    prefill); a direct engine takes the 16 prompts in order, and a row
+    whose prefix hit differs from its request there is held to a fresh
+    direct engine that repeats the row's history. Returns the launches."""
+    import ray_tpu_torch
+    from ray_tpu_torch import data as rdata
+    from ray_tpu_torch import ops
+    from ray_tpu_torch.data import build_llm_processor
+    from ray_tpu_torch.serve.llm import LLMEngine
+
+    t_phase = time.perf_counter()
+    prompts, _ = phase5_prompts(cfg.vocab_size)
+    cached, built = {}, []
+    generate, construct = LLMEngine.generate, LLMEngine.__init__
+
+    def recording(self, prompt_ids, *args, **kwargs):
+        out = generate(self, prompt_ids, *args, **kwargs)
+        cached[tuple(prompt_ids)] = out["cached_prefix_len"]
+        return out
+
+    def timed(self, *args, **kwargs):
+        t = time.perf_counter()
+        construct(self, *args, **kwargs)
+        built.append(time.perf_counter() - t)
+
+    processor = build_llm_processor(
+        engine_kwargs=dict(ENGINE_KW, cfg=cfg, params=params),
+        max_new_tokens=SERVE_NEW, batch_size=8, concurrency=1)
+    ray_tpu_torch.init(local_mode=True)
+    LLMEngine.generate, LLMEngine.__init__ = recording, timed
+    try:
+        ds = rdata.from_items([{"qid": i, "prompt_ids": p}
+                               for i, p in enumerate(prompts)],
+                              parallelism=2)
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        rows = processor(ds).take_all()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts()
     finally:
+        LLMEngine.generate, LLMEngine.__init__ = generate, construct
+        ray_tpu_torch.shutdown()
+    if [int(r["qid"]) for r in rows] != list(range(len(prompts))):
+        raise AssertionError(f"phase 17b: rows {[r['qid'] for r in rows]}")
+    got = [[int(t) for t in r["generated_ids"]] for r in rows]
+    history = [cached[tuple(p)] for p in prompts]
+    want, direct_cached = [], []
+    eng = phase9_engine(cfg, params, "phase 17b direct", smi)
+    try:
+        for p in prompts:
+            out = eng.generate(p, max_new_tokens=SERVE_NEW, timeout=600)
+            want.append(out["token_ids"])
+            direct_cached.append(out["cached_prefix_len"])
+    finally:
+        eng.close()
+    redone = []
+    for j, p in enumerate(prompts):
+        if history[j] == direct_cached[j]:
+            continue
+        eng = phase9_engine(cfg, params, f"phase 17b row {j}", smi)
         try:
-            ray_tpu_torch.shutdown()
+            if history[j]:
+                holder = next(q for q in prompts[:j] + prompts[j + 1:]
+                              if q[:history[j]] == p[:history[j]])
+                eng.generate(holder, max_new_tokens=SERVE_NEW, timeout=600)
+            out = eng.generate(p, max_new_tokens=SERVE_NEW, timeout=600)
         finally:
-            shutil.rmtree(storage, ignore_errors=True)
-    deadline = time.time() + 30
-    while any(alive(p.pid) for p in procs):
-        if time.time() > deadline:
-            raise AssertionError("phase 15: cluster processes outlived "
-                                 "shutdown")
-        time.sleep(0.1)
-    log(f"phase 15 trainer: 15a-15c passed in {time.perf_counter() - t0:.1f}"
-        f" s; on {smi}")
+            eng.close()
+        if out["cached_prefix_len"] != history[j]:
+            raise AssertionError(f"phase 17b row {j}: could not repeat its "
+                                 f"prefix hit {history[j]}: {out}")
+        want[j] = out["token_ids"]
+        redone.append(j)
+    same_tokens("phase 17b", got, want)
+    require_launches("phase 17b", launches,
+                     ("paged_decode_attention",) + TRAIN_ONLY)
+    if len(built) != 1:
+        raise AssertionError(f"phase 17b: the pool built {len(built)} "
+                             "engines, not one")
+    n_tok = sum(len(g) for g in got)
+    decode = sum(len(g) - 1 for g in got)
+    served = wall - built[0]
+    p5 = MEASURED.get("phase5_decode_tokens_s", "not run in this mode")
+    log(f"  phase 17b processor: {len(rows)} rows in {wall} s, of it the "
+        f"pool actor's engine build {built[0]} s; after the build "
+        f"{len(rows) / served} rows/s, {n_tok / served} generated tokens/s, "
+        f"{decode / served} decode tokens/s (the whole run "
+        f"{len(rows) / wall} rows/s, {n_tok / wall} generated tokens/s, "
+        f"{decode / wall} decode tokens/s; phase 5's closed loop: {p5} "
+        f"decode tokens/s); every "
+        f"row's tokens identical to a direct engine's (prefix hits "
+        f"{history}; the direct sequence's {direct_cached}; rows held to a "
+        f"fresh engine repeating their history: {redone}); launches "
+        f"{launches}; on {smi}")
+    log(f"phase 17b took {time.perf_counter() - t_phase:.1f} s")
     return launches
+
+
+def data_shuffle(smi):
+    """17c, shuffle: ``random_shuffle`` of 96,000 rows of an id and 16
+    float64 columns in 48 blocks, the channel exchange against the task
+    exchange in turns (2 each, after a warm-up ``materialize``; bench.py
+    takes 3); GB/s of the best of each, and the channel exchanges
+    counted."""
+    from ray_tpu_torch import data as rdata
+    from ray_tpu_torch.core.config import GLOBAL_CONFIG as cfg
+    from ray_tpu_torch.data import _exchange
+
+    width = P17C_SHUFFLE_WIDTH
+    ds = rdata.range(P17C_SHUFFLE_ROWS,
+                     parallelism=P17C_SHUFFLE_BLOCKS).map_batches(
+        lambda b: {"id": b["id"],
+                   "x": np.tile(b["id"][:, None].astype(np.float64),
+                                (1, width))})
+    nbytes = P17C_SHUFFLE_ROWS * (width + 1) * 8
+    counts = {"channel": 0}
+    orig = _exchange._channel_exchange
+
+    def counting(*a, **k):
+        out = orig(*a, **k)
+        counts["channel"] += 1
+        return out
+
+    _exchange._channel_exchange = counting
+    times = {"channel": [], "tasks": []}
+    try:
+        ds.materialize()
+        for rep in range(2):
+            for arm in times:
+                cfg.set("data_exchange_transport", arm)
+                t0 = time.perf_counter()
+                out = ds.random_shuffle(seed=rep).materialize()
+                if out.count() != P17C_SHUFFLE_ROWS:
+                    raise AssertionError(f"phase 17c: {arm} shuffle lost "
+                                         "rows")
+                times[arm].append(time.perf_counter() - t0)
+    finally:
+        cfg.set("data_exchange_transport", "channel")
+        _exchange._channel_exchange = orig
+    if counts["channel"] < 1:
+        raise AssertionError("phase 17c: no channel exchange ran (every "
+                             "channel arm fell back to tasks)")
+    gbps = {arm: nbytes / min(ts) / 1e9 for arm, ts in times.items()}
+    log(f"  phase 17c shuffle ({P17C_SHUFFLE_ROWS} x {width + 1} float64, "
+        f"{P17C_SHUFFLE_BLOCKS} blocks, {nbytes / 1e6} MB): channel "
+        f"{gbps['channel']} GB/s, tasks {gbps['tasks']} GB/s (best of 2 "
+        f"each, in turns; s {times}), channel/tasks "
+        f"{gbps['channel'] / gbps['tasks']}; data_channel_exchanges "
+        f"{counts['channel']}; on {smi}")
+
+
+def data_ingest(smi):
+    """17c, ingest A/B: ``iter_batches(batch_size=4096,
+    device_put="cuda")`` over 65,536 rows of 256 f32 (4 MiB a batch), each
+    batch through the same step (three ``torch.matmul``s, the sum read
+    back), buffered (the loader thread) against inline (``.to("cuda")`` on
+    the consumer's thread) in turns, twice each after a warm-up, and the
+    same count of steps on one pre-staged batch; both arms' sums equal."""
+    from ray_tpu_torch import data as rdata
+
+    d, bs = P17C_INGEST_D, P17C_INGEST_BS
+    ing = rdata.range(P17C_INGEST_ROWS, parallelism=16).map_batches(
+        lambda b: {"x": np.tile(b["id"][:, None].astype(np.float32),
+                                (1, d))})
+    w = torch.full((d, d), 1.0 / d, device="cuda")
+
+    def step(x):
+        y = torch.matmul(x, w)
+        y = torch.matmul(torch.tanh(y), w)
+        return torch.matmul(y, w).sum().item()
+
+    def buffered():
+        return [step(b["x"]) for b in ing.iter_batches(batch_size=bs,
+                                                       device_put="cuda")]
+
+    def inline():
+        return [step(torch.from_numpy(hb["x"]).to("cuda"))
+                for hb in ing.iter_batches(batch_size=bs)]
+
+    step(torch.ones((bs, d), device="cuda"))
+    if buffered() != inline():
+        raise AssertionError("phase 17c ingest: the arms' sums differ")
+    t_buf, t_inl = [], []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        n_steps = len(buffered())
+        t_buf.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        if len(inline()) != n_steps:
+            raise AssertionError("phase 17c ingest: the arms' step counts "
+                                 "differ")
+        t_inl.append(time.perf_counter() - t0)
+    xb = torch.ones((bs, d), device="cuda")
+    t0 = time.perf_counter()
+    for _ in range(n_steps):
+        step(xb)
+    t_roof = time.perf_counter() - t0
+    log(f"  phase 17c ingest ({P17C_INGEST_ROWS} x {d} f32, batches of {bs}"
+        f", {n_steps} steps a pass): steps/s buffered "
+        f"{n_steps / min(t_buf)}, inline {n_steps / min(t_inl)}, pre-staged "
+        f"{n_steps / t_roof}; overlap speedup (inline / buffered) "
+        f"{min(t_inl) / min(t_buf)}, efficiency (pre-staged / buffered) "
+        f"{t_roof / min(t_buf)}; s buffered {t_buf}, inline {t_inl}; "
+        f"host cores {len(os.sched_getaffinity(0))}; on {smi}")
+
+
+def phase_data(smi, loop, storage):
+    """Phase 17a and 17c on phase 15's cluster (or, in ``--data``, one of
+    their own): 17a the trainer fed by a Dataset in a GPU worker, 17c the
+    shuffle and ingest A/Bs in this driver. Returns 17a's launches."""
+    t0 = time.perf_counter()
+    launches = phase17a(smi, loop, storage)
+    log(f"phase 17a took {time.perf_counter() - t0:.1f} s")
+    t = time.perf_counter()
+    data_shuffle(smi)
+    data_ingest(smi)
+    log(f"phase 17c took {time.perf_counter() - t:.1f} s")
+    log(f"phase 17 data: 17a and 17c passed in "
+        f"{time.perf_counter() - t0:.1f} s; on {smi}")
+    return launches
+
+
+def phase_data_alone(smi):
+    """``--data``: phase 17b on full-depth Llama-3-8B drawn here from
+    phase 12's seed, then freed; then 17a and 17c on a cluster of their
+    own. Returns nothing."""
+    import gc
+
+    from ray_tpu_torch.models import llama
+
+    cfg = dataclasses.replace(llama.LLAMA3_8B, fused_ops=True,
+                              use_decode_kernel=True)
+    params = llama.init_params(cfg, _gen(ENGINE_KW["seed"]))
+    phase17b(smi, cfg, params)
+    del params
+    gc.collect()
+    llama8b_loop = trainer_loops()[0]
+    on_cluster("phase 17", lambda storage: phase_data(smi, llama8b_loop,
+                                                      storage))
 
 
 # --------------------------------------------------------------- phase 10
@@ -4340,7 +4808,16 @@ def rl_gate_algos(device):
 
     def offline():
         if "d" not in data:
-            data["d"] = OfflineData.from_batches(expert_batches())
+            # OfflineData reads a ray_tpu_torch.data Dataset: once, on the
+            # in-process runtime; then the columns are held on the host.
+            import ray_tpu_torch
+
+            ray_tpu_torch.init(local_mode=True)
+            try:
+                data["d"] = OfflineData.from_batches(expert_batches())
+                len(data["d"])
+            finally:
+                ray_tpu_torch.shutdown()
         return data["d"]
 
     def evaluated(result, algo):
@@ -5163,6 +5640,10 @@ def main() -> int:
         phase_parallel(smi)
         log(f"total {time.perf_counter() - t_start:.1f} s on {smi}")
         return 0
+    if args == ["--data"]:
+        phase_data_alone(smi)
+        log(f"total {time.perf_counter() - t_start:.1f} s on {smi}")
+        return 0
     if args == ["--spec-ab"]:
         spec_ab(smi)
         log(f"total {time.perf_counter() - t_start:.1f} s on {smi}")
@@ -5178,10 +5659,12 @@ def main() -> int:
     launches["paged_decode_attention"] = paged["paged_decode_attention"]
     phase_all_knobs(smi)
     tier = phase_engine_tier(smi)
-    served, phase12 = phase_serve(smi)
+    served, phase12 = phase_serve(smi, then=lambda cfg, params: phase17b(
+        smi, cfg, params))
     cluster, disagg = phase_cluster(smi, name, phase12)
     train = phase_train(smi)
-    trainer = phase_trainer(smi)
+    trainer, data = phase_trainer(smi, data=True)
+    add_counts(data, phase12["then"])
     parallel = phase_parallel(smi)
     for kernel in TRAIN_ONLY:
         launches[kernel] = train[kernel]
@@ -5195,6 +5678,7 @@ def main() -> int:
         row["launches_phase14"] = disagg[row["name"]]
         row["launches_phase15"] = trainer[row["name"]]
         row["launches_phase16"] = parallel[row["name"]]
+        row["launches_phase17"] = data[row["name"]]
     fused_apply_cost(smi)
     log(f"total {time.perf_counter() - t_start:.1f} s on {smi}")
     print(json.dumps({"kernels": rows}), flush=True)

@@ -36,11 +36,13 @@ and the disaggregated deployment over it
 mesh (``parallel.mesh``: the six-axis ``DeviceMesh`` over the process
 group, the models' logical-axis tables as DTensor placements, the sharded
 step, ring attention over ``sp``, the GPipe pipeline over ``pp``, experts
-over ``ep``), whose ranks may be a ``TorchTrainer`` gang. A worker
+over ``ep``), whose ranks may be a ``TorchTrainer`` gang; and ``data``
+(``Dataset``, its streaming executor and exchanges, device ingest on
+pinned memory and a copy stream, ``build_llm_processor``). A worker
 leased with ``GPU`` sees its lease's cards alone (``CUDA_VISIBLE_DEVICES``,
 set by the node manager), so its own card is ``cuda:0``; a CPU worker
-sees none. ``ROADMAP.md`` lists what is left (among it ``data``,
-``tune``, client mode, jobs, remote env runners and learner gangs).
+sees none. ``ROADMAP.md`` lists what is left (among it ``tune``, client
+mode, jobs, remote env runners and learner gangs).
 
 The tests run the serve path on the CPU (``tests/test_torch_serve*.py``,
 ``device="cpu"`` in ``engine_kwargs``); ``python3 chip_smoke.py --serve``

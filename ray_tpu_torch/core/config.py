@@ -1,6 +1,6 @@
 """Runtime configuration flag table (``ray_tpu/core/config.py``, trimmed to
-the flags the local runtime, the cluster runtime, the compiled DAGs and
-serve read).
+the flags the local runtime, the cluster runtime, the compiled DAGs,
+serve and data read).
 
 Equivalent of the reference's RAY_CONFIG macro table (reference:
 src/ray/common/ray_config_def.h), as a typed Python registry: every flag is
@@ -216,6 +216,42 @@ _d("dag_overlap_comm", bool, False,
    "Wins when send latency and compute can genuinely run in parallel "
    "(multi-core hosts, cross-node channels); on single-core hosts the "
    "thread hop costs more than it saves")
+
+# --- data ---
+_d("data_memory_budget_bytes", int, 512 * 1024**2,
+   "streaming execution: target cap on bytes of blocks in flight across "
+   "all operators of one pipeline (reference: ReservationOpResourceAllocator "
+   "budgets in streaming_executor_state.py); 0 disables byte backpressure "
+   "and only the per-operator concurrency caps apply")
+_d("data_block_size_estimate", int, 8 * 1024**2,
+   "assumed block size before the first real block lands (seeds the "
+   "memory-budget admission until running averages exist)")
+_d("data_executor", str, "streaming",
+   "physical executor: 'streaming' runs map stages on long-lived operator "
+   "actors connected by bounded channel queues (falls back to 'pull' off a "
+   "cluster runtime or inside worker processes); 'pull' forces the "
+   "task-per-block generator chain")
+_d("data_streaming_lanes", int, 2,
+   "lanes (operator-actor replicas) per task-pool map stage under the "
+   "streaming executor; actor-pool stages use their own pool bounds")
+_d("data_queue_capacity", int, 8,
+   "bounded inter-operator queue depth in FRAMES per lane edge (rides "
+   "dag ring/peer channel backpressure; blocks stay in the object store, "
+   "frames carry refs)")
+_d("data_exchange_transport", str, "channel",
+   "shuffle partition traffic: 'channel' streams partition pieces over "
+   "mapper->reducer channel meshes (falls back to 'tasks' off-cluster, on "
+   "failure, or when the exchange would exceed the in-memory working-set "
+   "bound); 'tasks' forces the per-task-RPC two-stage exchange")
+_d("data_exchange_mappers", int, 2,
+   "mapper actors in a channel-backed exchange")
+_d("data_exchange_reducers", int, 2,
+   "reducer actors in a channel-backed exchange (each owns "
+   "num_outputs/reducers partitions)")
+
+_d("device_prefetch_depth", int, 2,
+   "host->device prefetch pipeline depth for data: batches copied ahead "
+   "of the consumer by iter_batches(device_put=...)")
 
 # --- cluster runtime: head, node manager, workers, object store ---
 _d("actor_connect_timeout_s", float, 120.0,

@@ -3,9 +3,9 @@
 The same surface as ``ray_tpu.rllib``: env runners, PPO/DQN/SAC/IMPALA
 learners and algorithms, offline BC and CQL, multi-agent PPO, the numpy
 envs and replay buffers. Learners, runners and configs take ``device``
-(None = the card; ``"cpu"`` runs on the CPU). Remote env runners, learner
-gangs, IMPALA's asynchronous runners and ``OfflineData`` over a
-``ray_tpu.data`` ``Dataset`` ride the cluster runtime's actors and
+(None = the card; ``"cpu"`` runs on the CPU). ``OfflineData`` reads
+a ``ray_tpu_torch.data`` ``Dataset``. Remote env runners, learner gangs
+and IMPALA's asynchronous runners ride the cluster runtime's actors and
 collectives, and raise ``NotImplementedError`` until the port has them.
 """
 

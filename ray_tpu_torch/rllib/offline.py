@@ -1,14 +1,15 @@
 """Offline RL: experience datasets, BC and discrete CQL
 (``ray_tpu/rllib/offline.py``).
 
-``OfflineData`` holds the transition columns as numpy on the host:
-``from_batches`` and ``from_buffer`` keep the merged columns directly,
-which is what ``ray_tpu``'s ``_materialize`` makes of its ``Dataset``, so
-``sample`` and ``iter_epochs`` give ``ray_tpu``'s indices from the same
-numpy generators. The constructor also takes any object with
-``iter_batches(batch_size=None)`` yielding column dicts (read once, then
-held). A ``ray_tpu.data`` ``Dataset`` lives in ``ray_tpu``'s runtime and
-raises until the port has that runtime.
+``OfflineData`` wraps a ``ray_tpu_torch.data`` ``Dataset`` of transition
+columns (``from_batches`` and ``from_buffer`` build one with
+``data.from_numpy``, as ``ray_tpu``'s build a ``ray_tpu.data`` one), or
+any object with ``iter_batches(batch_size=None)`` yielding column dicts.
+It is read once, then sampled from host memory, so ``sample`` and
+``iter_epochs`` give ``ray_tpu``'s indices from the same numpy
+generators. Reading a ``Dataset`` needs a runtime (``init()``, or
+``init(local_mode=True)``). A ``ray_tpu.data`` ``Dataset`` lives in
+``ray_tpu``'s runtime and is refused.
 
 ``BCLearner`` (cross-entropy on the dataset's actions) and ``CQLLearner``
 (the double-DQN TD update plus ``cql_alpha * (logsumexp_a Q - Q(s,
@@ -28,7 +29,7 @@ from ray_tpu_torch import resolve_device
 from ray_tpu_torch.rllib import models
 from ray_tpu_torch.rllib.dqn import DQNLearner, huber
 from ray_tpu_torch.rllib.env import make_env
-from ray_tpu_torch.rllib.env_runner import RUNTIME_ITEM, obs_tensor
+from ray_tpu_torch.rllib.env_runner import obs_tensor
 from ray_tpu_torch.rllib.learner import Adam, host_stats, to_tensors
 from ray_tpu_torch.rllib.learner_group import LearnerGroup
 
@@ -36,46 +37,48 @@ _COLUMNS = ("obs", "actions", "rewards", "next_obs", "dones")
 
 
 class OfflineData:
-    """Transition columns for offline learners: a dict of numpy columns,
-    or any object with ``iter_batches(batch_size=None)``."""
+    """Experience container bridging RL to the data plane: a
+    ``ray_tpu_torch.data`` Dataset (or any object with
+    ``iter_batches(batch_size=None)``) with the transition columns."""
 
     def __init__(self, dataset):
         if type(dataset).__module__.split(".")[0] == "ray_tpu":
-            raise NotImplementedError(
-                f"OfflineData over a ray_tpu Dataset waits for "
-                f"{RUNTIME_ITEM}; pass numpy columns (from_batches, "
-                "from_buffer) or an object with iter_batches()")
-        if isinstance(dataset, dict):
-            self.dataset = None
-            self._cached: Optional[Dict[str, np.ndarray]] = {
-                k: np.asarray(dataset[k]) for k in _COLUMNS}
-        elif hasattr(dataset, "iter_batches"):
-            self.dataset = dataset
-            self._cached = None
-        else:
-            raise TypeError(f"OfflineData takes a dict of columns or an "
-                            f"object with iter_batches(), not "
-                            f"{type(dataset).__name__}")
+            raise TypeError(
+                "OfflineData takes a ray_tpu_torch.data Dataset; a ray_tpu "
+                "Dataset lives in ray_tpu's runtime")
+        if not hasattr(dataset, "iter_batches"):
+            raise TypeError(f"OfflineData takes a dataset with "
+                            f"iter_batches(), not {type(dataset).__name__}")
+        self.dataset = dataset
+        self._cached: Optional[Dict[str, np.ndarray]] = None
 
     # ------------------------------------------------------ constructors
 
     @classmethod
     def from_batches(cls, batches) -> "OfflineData":
         """From transition dicts as produced by the env runners."""
-        return cls({k: np.concatenate([np.asarray(b[k]) for b in batches])
-                    for k in _COLUMNS})
+        from ray_tpu_torch import data as rdata
+
+        merged = {
+            k: np.concatenate([np.asarray(b[k]) for b in batches])
+            for k in _COLUMNS}
+        return cls(rdata.from_numpy(merged))
 
     @classmethod
     def from_buffer(cls, buffer) -> "OfflineData":
-        """Snapshot a live ReplayBuffer's contents."""
+        """Snapshot a live ReplayBuffer's contents (the replay-buffer ->
+        dataset bridge)."""
+        from ray_tpu_torch import data as rdata
+
         n = len(buffer)
-        return cls({
+        arrays = {
             "obs": buffer._obs[:n].copy(),
             "actions": buffer._actions[:n].copy(),
             "rewards": buffer._rewards[:n].copy(),
             "next_obs": buffer._next_obs[:n].copy(),
             "dones": buffer._dones[:n].copy(),
-        })
+        }
+        return cls(rdata.from_numpy(arrays))
 
     # ------------------------------------------------------------ access
 

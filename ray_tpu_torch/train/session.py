@@ -146,10 +146,11 @@ class TrainSession:
         Yields batches from the named dataset shard already placed on
         ``device`` (default: ``resolve_device(None)``, this worker's
         card, which raises without one) through the shard's own
-        ``iter_batches(batch_size=, device_put=, prefetch_depth=)``. The
-        port's ``Dataset`` is still to come (ROADMAP item 10);
-        plain-sequence shards have no batch iterator and raise
-        ``TypeError``.
+        ``iter_batches(batch_size=, device_put=, prefetch_depth=)``: a
+        ``ray_tpu_torch.data`` shard (a ``StreamSplitIterator`` of
+        ``streaming_split``) stages each batch in pinned memory and copies
+        it on a side stream ahead of the step. Plain-sequence shards have
+        no batch iterator and raise ``TypeError``.
         """
         shard = self.get_dataset_shard(name)
         if not hasattr(shard, "iter_batches"):

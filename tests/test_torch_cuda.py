@@ -1376,3 +1376,70 @@ def test_pipeline_on_the_card_equals_the_dense_forward(nccl_of_one):
             pipeline.stage_params(params, 2), tokens, cfg, pcfg)
     torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
                                atol=2e-2)
+
+
+# ------------------------------------------------------ data: device ingest
+
+
+@pytest.fixture
+def data_runtime(card):
+    """The in-process runtime for ``ray_tpu_torch.data`` pipelines."""
+    import ray_tpu_torch
+
+    ray_tpu_torch.init(local_mode=True)
+    try:
+        yield card
+    finally:
+        ray_tpu_torch.shutdown()
+
+
+def _ingest_columns(n=4096, d=64):
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    return {"x": rng.normal(size=(n, d)).astype(np.float32),
+            "id": np.arange(n), "s": np.array(["w"] * n, dtype=object)}
+
+
+def test_ingest_batches_land_on_the_card_equal_to_the_hosts(data_runtime):
+    import numpy as np
+
+    from ray_tpu_torch import data as rdata
+
+    ds = rdata.from_numpy(_ingest_columns(), parallelism=8)
+    host = list(ds.iter_batches(batch_size=500))
+    dev = list(ds.iter_batches(batch_size=500, device_put="cuda"))
+    torch.cuda.synchronize()
+    assert len(dev) == len(host) == 9
+    for d, h in zip(dev, host):
+        for k in ("x", "id"):
+            assert d[k].device == torch.device("cuda", 0)
+            np.testing.assert_array_equal(d[k].cpu().numpy(), h[k])
+        assert d["s"].dtype == object       # passed through untouched
+
+
+@pytest.mark.parametrize("hold", [0, 3])
+def test_ingest_survives_a_consumer_that_lags_behind_the_loader(
+        data_runtime, hold):
+    """The consumer's stream reads each batch after a long sleep kernel,
+    while the loader copies ahead on its own stream; the consumer drops
+    the batch (``hold=0``) or keeps the last three. A missed
+    ``record_stream`` would let the caching allocator hand a dropped
+    batch's memory to a later copy before the read ran."""
+    from ray_tpu_torch import data as rdata
+
+    cols = _ingest_columns()
+    ds = rdata.from_numpy(cols, parallelism=16)
+    sums, held = [], []
+    for batch in ds.iter_batches(batch_size=256, device_put="cuda",
+                                 prefetch_depth=2):
+        torch.cuda._sleep(5_000_000)        # ~ms on the consumer's stream
+        sums.append(batch["x"].double().sum(dim=1))
+        held.append(batch)
+        del held[:max(0, len(held) - hold)]
+        del batch
+    torch.cuda.synchronize()
+    got = torch.cat(sums).cpu().numpy()
+    want = cols["x"].astype("float64").sum(axis=1)
+    assert got.shape == want.shape
+    assert (abs(got - want) <= 1e-9 * (1 + abs(want))).all()

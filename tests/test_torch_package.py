@@ -43,7 +43,8 @@ def test_importing_and_serving_loads_no_jax_module():
     ViT, T5, the UNet, and a UNet sample), then build RLlib's PPO and
     take one ``train()`` step, then serve the engine through
     ``build_llm_deployment`` on the local runtime (a reply and a stream),
-    then a sharded step and a pipeline step on a mesh of one rank (gloo);
+    a ``data`` pipeline with a shuffle and device ingest on the CPU and
+    ``build_llm_processor`` there, then a sharded step and a pipeline step on a mesh of one rank (gloo);
     no jax* and no ray_tpu / ray_tpu.* module may load."""
     code = (
         "import os, sys, torch\n"
@@ -125,6 +126,19 @@ def test_importing_and_serving_loads_no_jax_module():
         "assert h.remote(req).result(timeout=60)['num_generated'] == 3\n"
         "assert len(list(h.options('stream', stream=True).remote(req))) == 3\n"
         "serve.shutdown()\n"
+        "from ray_tpu_torch import data as rdata\n"
+        "ds = rdata.range(64, parallelism=4).map_batches(\n"
+        "    lambda b: {'id': b['id'] * 2}).random_shuffle(seed=0)\n"
+        "bs = list(ds.iter_batches(batch_size=16, device_put='cpu'))\n"
+        "assert sorted(torch.cat([b['id'] for b in bs]).tolist()) == \\\n"
+        "    list(range(0, 128, 2))\n"
+        "proc = rdata.build_llm_processor(\n"
+        "    preprocess=lambda r: {'prompt_ids': [1, 2, int(r['id']) % 7]},\n"
+        "    engine_kwargs=dict(cfg=cfg, params=p, max_batch=2, max_len=64,\n"
+        "                       prompt_buckets=[8, 16], device='cpu'),\n"
+        "    max_new_tokens=2, batch_size=2)\n"
+        "rows = proc(rdata.range(4)).take_all()\n"
+        "assert [len(r['generated_ids']) for r in rows] == [2] * 4, rows\n"
         "ray_tpu_torch.shutdown()\n"
         "import torch.distributed as dist\n"
         "from ray_tpu_torch.parallel import mesh as pmesh, pipeline\n"

@@ -6,7 +6,9 @@ Gaussian draws ``ray_tpu`` makes from its state's key (split into key,
 next, pi each update): one update, then more in a row, the Polyak step
 included. ``OfflineData``'s ``sample`` and ``iter_epochs`` give
 ``ray_tpu``'s indices on the same columns (``ray_tpu``'s side reads them
-through ``iter_batches``, no cluster). BC and CQL updates on ``ray_tpu``'s
+through ``iter_batches``, no cluster; the port's ``from_batches`` and
+``from_buffer`` build a ``ray_tpu_torch.data`` Dataset, read on the
+port's in-process runtime, which a module fixture starts). BC and CQL updates on ``ray_tpu``'s
 weights; the offline gates at ``ray_tpu``'s configs and thresholds on the
 scripted expert's data. Tolerances as ``tests/test_torch_rllib.py``:
 values within 1e-5 of their tensor's largest value (a scalar stat: of
@@ -18,11 +20,14 @@ import numpy as np
 import pytest
 import torch
 
+import ray_tpu_torch
+
 from ray_tpu.rllib.env import CartPoleVecEnv as JCartPole
 from ray_tpu.rllib.offline import BCLearner as JBCLearner
 from ray_tpu.rllib.offline import CQLLearner as JCQLLearner
 from ray_tpu.rllib.offline import OfflineData as JOfflineData
 from ray_tpu.rllib.sac import SACLearner as JSACLearner
+from ray_tpu_torch import data as tdata
 from ray_tpu_torch.rllib import (BCConfig, BCLearner, CQLConfig,
                                  CQLLearner, OfflineData, ReplayBuffer,
                                  SACConfig, SACLearner)
@@ -31,6 +36,17 @@ from ray_tpu_torch.rllib.env import CartPoleVecEnv, PendulumVecEnv
 
 TOL = 1e-5
 CPU = "cpu"
+
+
+@pytest.fixture(scope="module", autouse=True)
+def runtime():
+    """The port's in-process runtime: ``OfflineData.from_batches`` and
+    ``from_buffer`` read a ``ray_tpu_torch.data`` Dataset."""
+    ray_tpu_torch.init(local_mode=True)
+    try:
+        yield
+    finally:
+        ray_tpu_torch.shutdown()
 
 
 def np_tree(tree):
@@ -274,15 +290,38 @@ def test_offline_data_from_buffer_bridge(expert):
         buf.add_batch(b["obs"], b["actions"], b["rewards"], b["next_obs"],
                       b["dones"])
     data = OfflineData.from_buffer(buf)
-    assert len(data) == len(buf) == 160
+    assert isinstance(data.dataset, tdata.Dataset)
+    assert data.dataset.count() == len(data) == len(buf) == 160
     np.testing.assert_array_equal(data._materialize()["obs"], buf._obs[:160])
+    for k in ("actions", "rewards", "next_obs", "dones"):
+        np.testing.assert_array_equal(data._materialize()[k],
+                                      getattr(buf, f"_{k}")[:160])
+
+
+def test_offline_data_roundtrip(expert):
+    """``ray_tpu``'s test of the same name: ``from_batches`` over a
+    Dataset, ``sample`` and one epoch of ``iter_epochs``; the Dataset's
+    rows are the batches' rows in order."""
+    batches = expert[:50]
+    data = OfflineData.from_batches(batches)
+    assert isinstance(data.dataset, tdata.Dataset)
+    assert len(data) == 50 * 8
+    s = data.sample(32, np.random.default_rng(0))
+    assert s["obs"].shape == (32, 4)
+    assert s["actions"].dtype in (np.int32, np.int64)
+    seen = sum(len(b["actions"]) for b in data.iter_epochs(64, epochs=1))
+    assert seen == (len(data) // 64) * 64
+    rows = data.dataset.take_all()
+    np.testing.assert_array_equal(
+        np.stack([r["obs"] for r in rows]),
+        np.concatenate([b["obs"] for b in batches]))
 
 
 def test_offline_data_refuses_a_runtime_dataset():
     class Dataset(_Blocks):
         __module__ = "ray_tpu.data.dataset"
 
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(TypeError, match="ray_tpu_torch.data Dataset"):
         OfflineData(Dataset([]))
     with pytest.raises(TypeError):
         OfflineData([1, 2, 3])
