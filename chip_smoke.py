@@ -12,7 +12,9 @@ card and check it.
     python3 chip_smoke.py --decode [DIR]    # phases 1-2, the decode and
                                             # RoPE kernels, no result line
     python3 chip_smoke.py --decode-ab DIR   # --decode for DIR and this one
-    python3 chip_smoke.py --rllib           # phases 1 and 11, no result line
+    python3 chip_smoke.py --rllib           # phases 1 and 11 (11d on a
+                                            # cluster of its own), no
+                                            # result line
     python3 chip_smoke.py --serve           # phases 1-2 and 12, no result
                                             # line
     python3 chip_smoke.py --cluster         # phases 1-2, 13 and 14, no
@@ -67,7 +69,8 @@ script exits non-zero without printing its last line:
    kernel runs, the contiguous one does not; (b) paged decode,
    speculation, chunked prefill and int8 weights all on, with repetitive,
    long and short prompts — speculation and chunked prefill both run.
-9. The engine tier, full-depth Llama-3-8B: (a) bf16, one params tree
+9. The engine tier, Llama-3-8B (9a and 9b at its widths cut to 8 of its
+   32 layers, ``SERVE_LAYERS``; 9c at full depth): (a) bf16, one params tree
    shared by every engine: a prefill-role and a decode-role engine take
    phase 5's warm-up and 16 prompts one at a time through
    ``prefill_remote`` -> ``install_remote``, greedy tokens identical to a
@@ -83,7 +86,8 @@ script exits non-zero without printing its last line:
    own cache; spilled and pulled blocks, no rejects, pull ms a page. (c)
    f32: a one-slot engine where a priority-1 arrival parks a long
    priority-0 request; both finish with their solo runs' tokens.
-12. The serve deployment, full-depth Llama-3-8B bf16, one params tree
+12. The serve deployment, Llama-3-8B bf16 cut to ``SERVE_LAYERS``, one
+    params tree
     from a seed passed by reference to every engine:
     ``ray_tpu_torch.init(local_mode=True)`` -> ``serve.run(
     build_llm_deployment(use_gpu=True, engine_kwargs=...))`` ->
@@ -95,9 +99,7 @@ script exits non-zero without printing its last line:
     the 16, alternating (two replicas without serve). (a) One replica: the
     same sequence through the handle, tokens identical, the ms each
     request adds against the direct engine and an echo deployment's round
-    trip (the hop alone); the closed loop; then the direct sequence again
-    beside idle serve threads, beside the bare runtime and alone (the
-    drift within the call). Two replicas: the sequence,
+    trip (the hop alone); the closed loop. Two replicas: the sequence,
     then three fresh prompts each sent
     as reply, stream, reply (the stream equal to the second reply), then
     four prompts sharing a 48-token prefix (the three after the first
@@ -122,8 +124,9 @@ script exits non-zero without printing its last line:
     seed on its card; the class swapped for ``counting_server()``'s
     subclass of ``LLMServer``, which reads the replica process's kernel
     counters): phase 5's warm-up and 16 prompts one at a time, tokens
-    identical to a direct engine here fed the same sequence; the closed
-    loop; an echo deployment's round trip across processes. (c) Two
+    identical to a direct engine here fed the same sequence (the first of
+    its two passes; phase 14 holds to both); the closed loop; an echo
+    deployment's round trip across processes. (c) Two
     replicas of ``{"GPU": 0.5}`` in two worker processes on the one card:
     both hold the tree (their own ``memory_allocated``, and nvidia-smi's
     compute apps and card memory), the sequence one request at a time
@@ -133,16 +136,18 @@ script exits non-zero without printing its last line:
     kernels, no paged or flash kernel. Teardown leaves no process the
     cluster started alive and no compute app beyond those before it.
     Decode tokens/s, TTFT, TPOT and the driver's and replicas' CPU cores,
-    beside phase 12's in the same call. 13b's direct engine takes the
-    sequence twice (phase 14 sends it twice).
+    beside phase 12's in the same call. Phases 13 and 14 serve
+    Llama-3-8B's widths cut to ``SERVE_LAYERS``, one tree in this process.
 14. Disaggregated serving and the cluster fleet tier, on phase 13's
-    cluster, full-depth Llama-3-8B bf16, phase 5's engine configuration.
+    cluster, Llama-3-8B bf16 cut to ``SERVE_LAYERS``, phase 5's engine
+    configuration, held to the direct engine here that took phase 5's
+    sequence twice.
     (a) ``build_llm_deployment(disaggregated=True, use_gpu=True)`` with
     each pool's replicas asking ``{"GPU": 0.5}``: one prefill and one
     decode replica in two worker processes on the one card, each drawing
     the weights from the seed. Phase 5's warm-up and 16 prompts one at a
-    time as replies, then again as streams, tokens identical to 13b's
-    direct engine over the same two passes; every edge a ring; the
+    time as replies, then again as streams, tokens identical to the
+    direct engine's over the same two passes; every edge a ring; the
     prefill replica launches no decode kernel, the decode replica one a
     layer and step; the handoff's ms a page from the replicas' own
     timestamps (the prefill replica's channel write to the decode
@@ -204,7 +209,7 @@ script exits non-zero without printing its last line:
     the local head counts; step ms (gloo through the host).
 17. Data (``ray_tpu_torch.data``). (b) runs at the end of phase 12, on
     its params tree before it is freed: batch inference through
-    ``build_llm_processor`` on ``init(local_mode=True)``, full-depth
+    ``build_llm_processor`` on ``init(local_mode=True)``, phase 12's
     Llama-3-8B bf16, phase 5's engine in one pool actor
     (``concurrency=1``, ``batch_size=8``), ``from_items`` over phase 5's 16
     prompts (``parallelism=2``), 32 new tokens each: every row's tokens
@@ -257,7 +262,21 @@ script exits non-zero without printing its last line:
     iteration split into env steps, policy forwards with host copies, and
     the update; host syncs an iteration (PyTorch's sync debug mode); env
     steps/s; one profiled update's device busy time and idle share; the
-    same iteration on the CPU; one DQN and one SAC iteration. Launches no
+    same iteration on the CPU; one DQN and one SAC iteration. (d) The
+    remote modes, on phase 15's ``init()`` cluster after 17c (``--rllib``:
+    on a cluster of its own, after 11c): (i) the actor collectives among 8
+    CPU rank actors, checked as ``ray_tpu``'s test checks them; (ii) the
+    DQN learner gang of (iii), 2 in GPU workers on ``{"GPU": 0.5}`` each,
+    before it trains, against one DQN learner on the card in this process,
+    one update of the same seeded 128-row batch: every weight within rtol
+    1e-4, atol 1e-5, ``td_errors`` in batch order; after (iii), the ms of
+    a gang update and of a local one; (iii) that DQN, with 2 remote
+    runners (CPU workers), trained on from there to ``ray_tpu``'s gate
+    (best return >= 40 within 45 iterations), the iteration that reached
+    it and the ms of an iteration; (iv) IMPALA with
+    2 asynchronous runners, 4 training steps, two rollouts in flight
+    throughout, 512 env steps; (v) one iteration each of PPO and
+    multi-agent PPO with 2 remote runners, finite losses. Launches no
     port kernel.
 6. Timing, last: an empty kernel (the launch floor), then each kernel,
    its plain version and (where one exists) the one PyTorch call that
@@ -325,6 +344,13 @@ MODEL_TOL = 2e-3
 ENGINE_KW = dict(max_batch=8, max_len=512, prompt_buckets=[32, 64],
                  decode_chunk=8, prefix_block=16, seed=0)
 SPEC_DRAFT_LEN = 4
+# Phases 9a-9b, 12 (with 17b), 13 and 14 serve Llama-3-8B's widths cut to
+# this many of its 32 layers; phases 5, 7 and 9c serve all 32. Those
+# phases send phase 5's sequence one request at a time again and again,
+# and a request's decode is host-bound, its time in proportion to the
+# depth: at 32 layers the script ran past its 1200 s limit, and at 16 it
+# kept too little of it on a slow host.
+SERVE_LAYERS = 8
 PAGE = ENGINE_KW["prefix_block"]
 PAGED_S = -(-(ENGINE_KW["max_len"] + SPEC_DRAFT_LEN + 1) // PAGE) * PAGE
 # Phase 8, the training cell (bench.py's 8B training shape at batch 1),
@@ -1240,11 +1266,19 @@ def decode_breakdown(eng, smi, chunks=3):
 
 # ---------------------------------------------------------------- phase 9
 
+def serve_cfg():
+    """Llama-3-8B bf16 with the port's kernels, cut to ``SERVE_LAYERS``."""
+    from ray_tpu_torch.models import llama
+
+    return dataclasses.replace(llama.LLAMA3_8B, fused_ops=True,
+                               use_decode_kernel=True, n_layers=SERVE_LAYERS)
+
+
 def phase9_engine(cfg, params, label, smi, **knobs):
     from ray_tpu_torch.serve.llm import LLMEngine
 
     eng = LLMEngine(cfg, params, **dict(ENGINE_KW, **knobs))
-    log(f"{label} engine: knobs {knobs or 'none'}, "
+    log(f"{label} engine: {cfg.n_layers} layers, knobs {knobs or 'none'}, "
         f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated; on "
         f"{smi}")
     return eng
@@ -1596,17 +1630,16 @@ def phase9c(smi):
 
 
 def phase_engine_tier(smi):
-    """Phase 9: the engine tier on full-depth Llama-3-8B (9a, 9b: bf16,
-    one params tree shared by every engine; 9c: f32). Returns the kernels'
-    launches over the phase's engines."""
+    """Phase 9: the engine tier on Llama-3-8B (9a, 9b: bf16 at
+    ``SERVE_LAYERS``, one params tree shared by every engine; 9c: f32 at
+    full depth). Returns the kernels' launches over the phase's engines."""
     import gc
 
     from ray_tpu_torch.models import llama
 
     gc.collect()
     torch.cuda.empty_cache()
-    cfg = dataclasses.replace(llama.LLAMA3_8B, fused_ops=True,
-                              use_decode_kernel=True)
+    cfg = serve_cfg()
     t0 = time.perf_counter()
     params = llama.init_params(cfg, _gen(ENGINE_KW["seed"]))
     launches = {}
@@ -1828,51 +1861,9 @@ def phase12a_one(cfg, params, smi, seq, want, direct_ms, prompts):
         add_counts(launches, read_counts())
         numbers["hop_ms"] = median(hop)
         numbers["echo_ms"] = echo[0]
-        # The direct sequence again, the replica gone but serve's threads
-        # up and idle (the controller's sweep, the router's long-poll, the
-        # runtime's refcount flush, an echo replica); then with serve shut
-        # down and only the runtime up; then (below) with neither: what
-        # each costs a host-bound engine, against drift over the phase.
-        from ray_tpu_torch import serve as rserve
-
-        rserve.delete(SERVE_NAME)
-        deadline = time.time() + 60
-        while any(t.name == "llm-engine" for t in threading.enumerate()):
-            if time.time() > deadline:
-                raise AssertionError("phase 12a: the replica's engine "
-                                     "thread outlived its deletion")
-            time.sleep(0.05)
-        echo_hop(keep=True)
-        beside = {"idle serve": direct_beside(cfg, params, seq, want,
-                                              "idle serve", smi)}
-        rserve.shutdown()
-        beside["the runtime alone"] = direct_beside(
-            cfg, params, seq, want, "the runtime alone", smi)
     finally:
         serve_teardown()
-    beside["nothing (again)"] = direct_beside(cfg, params, seq, want,
-                                              "nothing (again)", smi)
-    parts = []
-    for label, ms in beside.items():
-        d = sorted(x - y for x, y in zip(ms, direct_ms))
-        parts.append(f"beside {label}: median {median(ms)}, paired "
-                     f"difference median {median(d)} (quartiles "
-                     f"{d[len(d) // 4]} / {d[3 * len(d) // 4]})")
-    log(f"  phase 12a direct engine, one request at a time, ms a request "
-        f"(alone at the phase's start: median {median(direct_ms)}); "
-        + "; ".join(parts) + f"; on {smi}")
-    numbers["beside_ms"] = {k: median(sorted(x - y for x, y in zip(
-        v, direct_ms))) for k, v in beside.items()}
     return launches, numbers
-
-
-def direct_beside(cfg, params, seq, want, label, smi):
-    """The direct sequence once more (tokens held to ``want``); its ms a
-    request."""
-    toks, ms = direct_sequence(cfg, params, seq,
-                               f"phase 12a direct beside {label}", smi)
-    same_tokens(f"phase 12a direct beside {label}", toks, want)
-    return ms
 
 
 def phase12a_two(cfg, params, smi, seq, prompts):
@@ -1977,8 +1968,8 @@ def phase12b(cfg, params, smi, seq, want):
 def phase_serve(smi, then=None):
     """Phase 12: the engine served through its deployment,
     ``ray_tpu_torch.init(local_mode=True)`` -> ``serve.run(
-    build_llm_deployment(...))`` -> ``handle.remote``, full-depth
-    Llama-3-8B bf16. Returns the kernels' launches over the deployments'
+    build_llm_deployment(...))`` -> ``handle.remote``, Llama-3-8B bf16
+    at ``SERVE_LAYERS``. Returns the kernels' launches over the deployments'
     traffic (the direct engines' comparison runs not counted) and the
     closed loops' numbers (``direct``, ``pair``, ``one``, ``two``), with
     ``then(cfg, params)``'s result under ``then``: a later phase run on
@@ -1990,8 +1981,7 @@ def phase_serve(smi, then=None):
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    cfg = dataclasses.replace(llama.LLAMA3_8B, fused_ops=True,
-                              use_decode_kernel=True)
+    cfg = serve_cfg()
     params = llama.init_params(cfg, _gen(ENGINE_KW["seed"]))
     prompts, warmup = phase5_prompts(cfg.vocab_size)
     seq = [warmup] + prompts
@@ -2054,8 +2044,7 @@ def phase_serve(smi, then=None):
         f"{two['ttft_ms_p50']}; p50 TPOT ms {direct['tpot_ms_p50']}, "
         f"{one['tpot_ms_p50']}, {two['tpot_ms_p50']}; process CPU cores "
         f"{direct['cpu_cores']}, {one['cpu_cores']}, {two['cpu_cores']}; "
-        f"handle - direct {one['hop_ms']} ms a request (median; the direct "
-        f"engine beside, less alone: {one['beside_ms']}), echo hop "
+        f"handle - direct {one['hop_ms']} ms a request (median), echo hop "
         f"{one['echo_ms']} ms; "
         f"{t12:.1f} s; kernel launches {launches}; on {smi}")
     return launches, {"direct": direct, "pair": pair, "one": one,
@@ -2235,18 +2224,13 @@ def phase13a(smi, name):
     return [gpu_pid, cpu_pid]
 
 
-def phase13b(cfg, params, smi, seq, prompts):
+def phase13b(cfg, smi, seq, prompts, want, direct_ms):
     """One replica in a worker process: the sequence's tokens equal a
-    direct engine's in this process fed the same sequence, the closed
-    loop, an echo deployment's round trip across processes. The direct
-    engine then takes the sequence a second time (phase 14 sends it twice,
-    as replies and as streams). Returns (launches, numbers, pids, the
-    direct engine's tokens over both passes)."""
+    direct engine's in this process fed the same sequence (``want``, in
+    ``direct_ms``), the closed loop, an echo deployment's round trip
+    across processes. Returns (launches, numbers, pids)."""
     from ray_tpu_torch import serve as rserve
 
-    want2, direct_ms = direct_sequence(cfg, params, seq + seq,
-                                       "phase 13b direct", smi)
-    want, direct_ms = want2[:len(seq)], direct_ms[:len(seq)]
     h, replicas, procs = cluster_deploy(cfg, 1, smi, 1.0)
     try:
         replica_call(replicas, "zero_launches")
@@ -2273,7 +2257,7 @@ def phase13b(cfg, params, smi, seq, prompts):
             f"on {smi}")
     finally:
         rserve.delete(CLUSTER_NAME)
-    return launches, numbers, [pid for pid, _ in procs], want2
+    return launches, numbers, [pid for pid, _ in procs]
 
 
 def phase13c(cfg, params, smi, seq, prompts):
@@ -2360,24 +2344,25 @@ def phase_cluster(smi, name, phase12=None, only14=False):
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    cfg = dataclasses.replace(llama.LLAMA3_8B, fused_ops=True,
-                              use_decode_kernel=True)
-    # The replicas draw the same tree from ENGINE_KW's seed on their card;
-    # the driver's direct engines read this one (one tree here at most).
-    params = llama.init_params(cfg, _gen(ENGINE_KW["seed"]))
+    cfg = serve_cfg()
     prompts, warmup = phase5_prompts(cfg.vocab_size)
     seq = [warmup] + prompts
     apps_before = len(compute_apps()[0])
     rt = ray_tpu_torch.init(object_store_memory=2 << 30)
-    pids, one = [], None
+    # The replicas draw the same tree from ENGINE_KW's seed on their card;
+    # the driver's direct engines read one drawn here. One direct engine
+    # takes the sequence twice: 13b holds its replica to the first pass,
+    # 14a its replies and streams to both.
+    pids, one, params = [], None, None
     try:
-        if only14:
-            want, _ = direct_sequence(cfg, params, seq + seq,
-                                      "phase 14 direct", smi)
-        else:
+        params = llama.init_params(cfg, _gen(ENGINE_KW["seed"]))
+        want, direct_ms = direct_sequence(cfg, params, seq + seq,
+                                          "phase 13-14 direct", smi)
+        if not only14:
             pids += phase13a(smi, name)
-            b_launches, one, b_pids, want = phase13b(cfg, params, smi, seq,
-                                                     prompts)
+            b_launches, one, b_pids = phase13b(
+                cfg, smi, seq, prompts, want[:len(seq)],
+                direct_ms[:len(seq)])
             c_launches, two, c_pids = phase13c(cfg, params, smi, seq,
                                                prompts)
             pids += b_pids + c_pids
@@ -2433,7 +2418,8 @@ def phase_cluster(smi, name, phase12=None, only14=False):
                   f"{phase12['pair']['tpot_ms_p50']}, "
                   f"{phase12['pair']['cpu_cores']}; echo hop in one process "
                   f"{phase12['one']['echo_ms']} ms")
-    log(f"phase 13 cluster: decode tokens/s one replica (worker process) "
+    log(f"phase 13 cluster ({SERVE_LAYERS} of Llama-3-8B's 32 layers): "
+        f"decode tokens/s one replica (worker process) "
         f"{one['decode_tokens_s']}, two replicas (two processes) "
         f"{two['decode_tokens_s']} (two/one "
         f"{two['decode_tokens_s'] / one['decode_tokens_s']}); from 16 "
@@ -3797,9 +3783,9 @@ def phase_trainer(smi, data=False):
     """Phase 15, after phase 8: ``ray_tpu_torch.train`` on the cluster
     runtime, one GPU worker process at a time (15a Llama-3-8B through the
     trainer, 15b Llama-3.2-1B checkpoints with a failure and a resume, 15c
-    ``TorchTrainer`` on NCCL); with ``data``, phase 17a and 17c after them
-    on the same cluster. Returns the 15a worker's launches and 17a's (or
-    None)."""
+    ``TorchTrainer`` on NCCL); with ``data``, phase 17a and 17c, then
+    phase 11d, after them on the same cluster. Returns the 15a worker's
+    launches and 17a's (or None)."""
     phase8 = dict(MEASURED["phase8"])
     llama8b_loop, ckpt_loop, nccl_loop = trainer_loops()
 
@@ -3817,8 +3803,11 @@ def phase_trainer(smi, data=False):
         log(f"phase 15c took {time.perf_counter() - t:.1f} s")
         log(f"phase 15 trainer: 15a-15c passed in "
             f"{time.perf_counter() - t0:.1f} s; on {smi}")
-        return launches, (phase_data(smi, llama8b_loop, storage) if data
-                          else None)
+        if not data:
+            return launches, None
+        data_launches = phase_data(smi, llama8b_loop, storage)
+        phase11d(smi)
+        return launches, data_launches
 
     return on_cluster("phase 15", run)
 
@@ -3927,7 +3916,7 @@ def phase17a(smi, loop, storage):
 
 def phase17b(smi, cfg, params):
     """Batch inference: ``build_llm_processor`` on
-    ``init(local_mode=True)`` over full-depth Llama-3-8B bf16 (``params``
+    ``init(local_mode=True)`` over phase 12's Llama-3-8B bf16 (``params``
     by reference), phase 5's engine, ``concurrency=1``, ``batch_size=8``,
     ``from_items`` over phase 5's 16 prompts with ``parallelism=2``, 32
     new tokens each, greedy. Every kernel count is set to 0 just before
@@ -4161,15 +4150,14 @@ def phase_data(smi, loop, storage):
 
 
 def phase_data_alone(smi):
-    """``--data``: phase 17b on full-depth Llama-3-8B drawn here from
-    phase 12's seed, then freed; then 17a and 17c on a cluster of their
-    own. Returns nothing."""
+    """``--data``: phase 17b on phase 12's tree (``serve_cfg()``) drawn
+    here from phase 12's seed, then freed; then 17a and 17c on a cluster
+    of their own. Returns nothing."""
     import gc
 
     from ray_tpu_torch.models import llama
 
-    cfg = dataclasses.replace(llama.LLAMA3_8B, fused_ops=True,
-                              use_decode_kernel=True)
+    cfg = serve_cfg()
     params = llama.init_params(cfg, _gen(ENGINE_KW["seed"]))
     phase17b(smi, cfg, params)
     del params
@@ -4994,7 +4982,7 @@ def off_policy_iteration_split(algo, warmup):
         algo.train()
     if len(algo.buffer) < algo.config.learning_starts:
         raise AssertionError("phase 11c: learning has not started")
-    runner = algo._local_runner
+    runner = algo.env_runners._local
     step = runner.env.step = _Clock(runner.env.step)
     collect = algo._collect = _Clock(algo._collect)
     update = algo.learner_group.update_from_batch = _Clock(
@@ -5073,6 +5061,284 @@ def phase_rllib(smi):
     require_launches("phase 11", read_counts(), tuple(ops.KERNELS))
     log(f"phase 11 RLlib: {time.perf_counter() - t0:.1f} s; on {smi}")
     return gates
+
+
+# -------------------------------------------------------------- phase 11d
+
+# ray_tpu's tolerance of a learner gang against one learner
+# (tests/test_rllib_dqn.py:150-163).
+GANG_RTOL, GANG_ATOL = 1e-4, 1e-5
+
+
+def phase11d_collectives(smi, world=8):
+    """(i) ``world`` CPU rank actors (``num_cpus=0``) join one group at
+    once and run allreduce, allgather, barrier, reducescatter and
+    broadcast, checked as ray_tpu's test checks them
+    (tests/test_rllib_dqn.py:97-131)."""
+    import ray_tpu_torch
+    from ray_tpu_torch.actor import create_actors
+
+    # Defined here, so the cluster ships the class by value.
+    @ray_tpu_torch.remote(num_cpus=0)
+    class Rank:
+        def __init__(self, rank, world):
+            from ray_tpu_torch.util import collective
+
+            collective.init_collective_group(world, rank, "p11d")
+            self.rank = rank
+
+        def run(self):
+            from ray_tpu_torch.util import collective as col
+
+            out = col.allreduce(np.full(4, self.rank + 1.0), "p11d")
+            gathered = col.allgather(np.array([self.rank]), "p11d")
+            col.barrier("p11d")
+            chunk = col.reducescatter(np.arange(8.0), "p11d")
+            b = col.broadcast(np.array([42.0]) if self.rank == 3 else None,
+                              root=3, group_name="p11d")
+            return (out.tolist(), [g.tolist() for g in gathered],
+                    chunk.tolist(), b.tolist())
+
+    t = time.perf_counter()
+    ranks = create_actors(lambda i: Rank.remote(i, world), world)
+    try:
+        results = ray_tpu_torch.get([r.run.remote() for r in ranks],
+                                    timeout=120)
+    finally:
+        for r in ranks:
+            ray_tpu_torch.kill(r)
+        ray_tpu_torch.kill(ray_tpu_torch.get_actor("rtpu-collective-p11d"))
+    total = float(sum(range(1, world + 1)))
+    for rank, (red, gathered, chunk, b) in enumerate(results):
+        if (red != [total] * 4 or gathered != [[i] for i in range(world)]
+                or chunk != [float(rank) * world] or b != [42.0]):
+            raise AssertionError(f"phase 11d(i) rank {rank}: {red}, "
+                                 f"{gathered}, {chunk}, {b}")
+    log(f"  phase 11d(i): {world} rank actors, allreduce, allgather, "
+        f"barrier, reducescatter and broadcast as ray_tpu's test checks "
+        f"them; {(time.perf_counter() - t) * 1e3} ms with the actors' "
+        f"start; on {smi}")
+
+
+def gpu_held(total, want, timeout=10.0):
+    """The cluster's GPU in use, once it reads ``want`` (the head's view
+    follows the node's heartbeats) or at ``timeout``."""
+    import ray_tpu_torch
+
+    deadline = time.time() + timeout
+    while True:
+        held = total - ray_tpu_torch.available_resources().get("GPU", 0.0)
+        if abs(held - want) < 1e-6 or time.time() > deadline:
+            return held
+        time.sleep(0.2)
+
+
+def phase11d_gang(smi, algo, device, rows=128):
+    """(ii) The gang of (iii)'s DQN, 2 learners each in a GPU worker on
+    ``{"GPU": 0.5}``, before it trains, against one DQN learner built in
+    this process as the gang's ranks build theirs (the config's arguments
+    and seed): one update on the same seeded batch, every weight within
+    GANG_RTOL/GANG_ATOL, ``td_errors`` in batch order. Returns the local
+    learner and the batch, which time an update after (iii)."""
+    from ray_tpu_torch.rllib import DQNLearner
+
+    c = algo.config
+    local = DQNLearner(4, 2, hidden=c.hidden, lr=c.lr, gamma=c.gamma,
+                       target_update_freq=c.target_update_freq,
+                       seed=c.seed, device=device)
+    rng = np.random.default_rng(1)
+    batch = {
+        "obs": rng.normal(size=(rows, 4)).astype(np.float32),
+        "actions": rng.integers(0, 2, rows).astype(np.int32),
+        "rewards": rng.normal(size=rows).astype(np.float32),
+        "next_obs": rng.normal(size=(rows, 4)).astype(np.float32),
+        "dones": np.zeros(rows, np.float32),
+    }
+    want = local.update_from_batch(dict(batch))
+    got = algo.learner_group.update_from_batch(dict(batch))
+    td = np.asarray(got["td_errors"])
+    if td.shape != (rows,) or not np.allclose(
+            td, want["td_errors"], rtol=GANG_RTOL, atol=GANG_ATOL):
+        raise AssertionError(f"phase 11d(ii): td_errors {td.shape} not "
+                             f"the local learner's in batch order")
+    w_gang = algo.learner_group.get_weights()["q"]
+    worst = 0.0
+    for k, w in local.get_weights()["q"].items():
+        w = w.detach().cpu().numpy()
+        g = w_gang[k].numpy()
+        if not np.allclose(g, w, rtol=GANG_RTOL, atol=GANG_ATOL):
+            raise AssertionError(f"phase 11d(ii): weight {k} off by "
+                                 f"{np.abs(g - w).max()}")
+        worst = max(worst, float(np.abs(g - w).max()))
+    log(f"  phase 11d(ii): (iii)'s DQN gang of 2 against one learner on "
+        f"the card in this process, {rows} rows: every weight within rtol "
+        f"{GANG_RTOL} atol {GANG_ATOL} (worst {worst}), td_errors in batch "
+        f"order; on {smi}")
+    return local, batch
+
+
+def phase11d_dqn(smi, device, budget=45, threshold=40.0, timed=10):
+    """(ii) and (iii) on one DQN with 2 remote runners (CPU workers) and 2
+    learners on the card, ``ray_tpu``'s config and gate
+    (tests/test_rllib_dqn.py:172-195): its gang held to one learner before
+    it trains (ii, one update, so (iii) starts from it), then trained to
+    the gate, best return >= ``threshold`` within ``budget`` iterations
+    (iii); then the ms of a gang update and of a local one (medians of
+    ``timed``)."""
+    import ray_tpu_torch
+    from ray_tpu_torch.rllib import DQNConfig
+
+    total = ray_tpu_torch.cluster_resources().get("GPU", 0.0)
+    t = time.perf_counter()
+    algo = (DQNConfig(device=device).environment("CartPole")
+            .env_runners(num_env_runners=2, num_envs_per_env_runner=4,
+                         rollout_fragment_length=32)
+            .training(lr=1e-3, train_batch_size=64,
+                      num_steps_sampled_before_learning_starts=500,
+                      updates_per_iteration=32)
+            .learners(num_learners=2).build())
+    start_s = time.perf_counter() - t
+    best, it, learning_ms = -float("inf"), 0, []
+    try:
+        held = gpu_held(total, 1.0 if device is None else 0.0)
+        if device is None and abs(held - 1.0) > 1e-6:
+            raise AssertionError(f"phase 11d(ii): the gang holds {held} GPU, "
+                                 "not two leases of 0.5")
+        local, batch = phase11d_gang(smi, algo, device)
+        t0 = time.perf_counter()
+        while it < budget and best < threshold:
+            t = time.perf_counter()
+            result = algo.train()
+            if result["learners"]["default_policy"]:
+                learning_ms.append((time.perf_counter() - t) * 1e3)
+            it += 1
+            ret = result["env_runners"]["episode_return_mean"]
+            if ret is not None:
+                best = max(best, ret)
+        took = time.perf_counter() - t0
+        gang_ms, local_ms = [], []
+        for _ in range(timed):
+            t = time.perf_counter()
+            algo.learner_group.update_from_batch(dict(batch))
+            gang_ms.append((time.perf_counter() - t) * 1e3)
+            t = time.perf_counter()
+            local.update_from_batch(dict(batch))
+            if device is None:
+                torch.cuda.synchronize()
+            local_ms.append((time.perf_counter() - t) * 1e3)
+    finally:
+        algo.stop()
+    if best < threshold:
+        raise AssertionError(f"phase 11d(iii): best {best} < {threshold} "
+                             f"within {budget} iterations")
+    log(f"  phase 11d(iii): DQN, 2 remote runners and 2 learners on the "
+        f"card (GPU held {held} of {total}; built with its runners and gang "
+        f"in {start_s} s): best {best} >= {threshold} at iteration {it} of "
+        f"{budget}, {took} s; ms an iteration once learning started, "
+        f"median of {len(learning_ms)}: {median(learning_ms)}; on {smi}")
+    log(f"  phase 11d(ii): ms an update of the {len(batch['actions'])}-row "
+        f"batch, median of {timed}: gang {median(gang_ms)}, local "
+        f"{median(local_ms)} (gang/local "
+        f"{median(gang_ms) / median(local_ms)}); on {smi}")
+    return {"gang_ms": median(gang_ms), "local_ms": median(local_ms),
+            "start_s": start_s, "iterations": it,
+            "iteration_ms": median(learning_ms)}
+
+
+def phase11d_builds(device):
+    """The algorithms of (iv) and (v), by label: IMPALA with 2
+    asynchronous runners, PPO and multi-agent PPO (phase 11b's shared
+    policy) with 2 remote runners each."""
+    from ray_tpu_torch.rllib import PPOConfig
+    from ray_tpu_torch.rllib.impala import IMPALAConfig
+    from ray_tpu_torch.rllib.multi_agent import (IndependentEnsembleEnv,
+                                                 MultiAgentPPOConfig)
+
+    def pair(num_envs, seed):
+        return IndependentEnsembleEnv({"a0": "CartPole", "a1": "CartPole"},
+                                      num_envs=num_envs, seed=seed)
+
+    return {
+        "IMPALA": lambda: (IMPALAConfig(device=device).environment("CartPole")
+                           .env_runners(num_env_runners=2,
+                                        num_envs_per_env_runner=4,
+                                        rollout_fragment_length=32).build()),
+        "PPO": lambda: (PPOConfig(device=device).environment("CartPole")
+                        .env_runners(num_env_runners=2,
+                                     num_envs_per_env_runner=8,
+                                     rollout_fragment_length=128)
+                        .training(lr=3e-4, minibatch_size=512).build()),
+        "multi-agent PPO": lambda: MultiAgentPPOConfig(
+            env=pair, policies=("shared",),
+            policy_mapping={"a0": "shared", "a1": "shared"},
+            num_env_runners=2, num_envs_per_runner=8, rollout_len=128,
+            minibatch_size=512, seed=0, device=device).build()}
+
+
+def phase11d_impala(smi, algo, steps=4):
+    """(iv) IMPALA with 2 asynchronous runners: ``steps`` training steps,
+    each consuming one rollout and re-arming its runner, two rollouts in
+    flight throughout; ``_total_steps`` 4 envs x 32 steps a rollout."""
+    if len(algo._inflight) != 2:
+        raise AssertionError(f"phase 11d(iv): {len(algo._inflight)} "
+                             "rollouts in flight after the build")
+    ms = []
+    for _ in range(steps):
+        t = time.perf_counter()
+        stats = algo.training_step()
+        ms.append((time.perf_counter() - t) * 1e3)
+        if not np.isfinite(stats["total_loss"]) or len(algo._inflight) != 2:
+            raise AssertionError(f"phase 11d(iv): loss {stats}, "
+                                 f"{len(algo._inflight)} in flight")
+    if algo._total_steps != steps * 32 * 4:
+        raise AssertionError(f"phase 11d(iv): {algo._total_steps} env "
+                             f"steps, not {steps * 32 * 4}")
+    log(f"  phase 11d(iv): IMPALA, 2 asynchronous runners, {steps} steps, "
+        f"2 rollouts in flight throughout, {algo._total_steps} env steps; "
+        f"ms a step {ms}; on {smi}")
+    return {"steps": steps, "step_ms": ms}
+
+
+def phase11d_ppo(smi, label, algo):
+    """(v) One iteration of PPO or multi-agent PPO with 2 remote runners:
+    finite losses."""
+    t = time.perf_counter()
+    result = algo.train()
+    ms = (time.perf_counter() - t) * 1e3
+    losses = {pid: s["total_loss"] for pid, s in result["learners"].items()}
+    if not all(np.isfinite(v) for v in losses.values()):
+        raise AssertionError(f"phase 11d(v) {label}: losses {losses}")
+    log(f"  phase 11d(v): {label}, 2 remote runners, one iteration of "
+        f"{result['num_env_steps_sampled_lifetime']} env steps in {ms} ms, "
+        f"losses {losses}; on {smi}")
+
+
+def phase11d(smi, device=None):
+    """Phase 11d, RLlib's remote modes on the running ``init()`` cluster:
+    (i)-(v) above, each algorithm built, run and stopped in turn; (ii) and
+    (iii) share one DQN. No port kernel may launch in this process.
+    Returns the numbers of (ii)-(iv)."""
+    from ray_tpu_torch import ops
+
+    t0 = time.perf_counter()
+    zero_counts()
+    phase11d_collectives(smi)
+    out = {"dqn": phase11d_dqn(smi, device)}
+    for label, build in phase11d_builds(device).items():
+        t = time.perf_counter()
+        algo = build()
+        log(f"  phase 11d: {label} built with its 2 runners in "
+            f"{time.perf_counter() - t} s")
+        try:
+            if label == "IMPALA":
+                out["impala"] = phase11d_impala(smi, algo)
+            else:
+                phase11d_ppo(smi, label, algo)
+        finally:
+            algo.stop()
+    require_launches("phase 11d", read_counts(), tuple(ops.KERNELS))
+    log(f"phase 11d took {time.perf_counter() - t0:.1f} s; on {smi}")
+    return out
 
 
 # ---------------------------------------------------------------- phase 6
@@ -5619,6 +5885,7 @@ def main() -> int:
     smi, name = phase_device()
     if args == ["--rllib"]:
         phase_rllib(smi)
+        on_cluster("phase 11d", lambda storage: phase11d(smi))
         log(f"total {time.perf_counter() - t_start:.1f} s on {smi}")
         return 0
     phase_build()
@@ -5652,24 +5919,38 @@ def main() -> int:
         (flash_probe if args[0] == "--flash" else decode_probe)(smi, root)
         log(f"total {time.perf_counter() - t_start:.1f} s on {smi}")
         return 0
+    def done(label):
+        log(f"elapsed {time.perf_counter() - t_start:.1f} s after {label}")
+
+    done("phases 1-2")
     phase_kernels()
     phase_model()
+    done("phases 3-4")
     launches = phase_engine(smi)
     paged = phase_paged_engine(smi)
     launches["paged_decode_attention"] = paged["paged_decode_attention"]
     phase_all_knobs(smi)
+    done("phases 5 and 7")
     tier = phase_engine_tier(smi)
+    done("phase 9")
     served, phase12 = phase_serve(smi, then=lambda cfg, params: phase17b(
         smi, cfg, params))
+    done("phase 12 and 17b")
     cluster, disagg = phase_cluster(smi, name, phase12)
+    done("phases 13-14")
     train = phase_train(smi)
+    done("phase 8")
     trainer, data = phase_trainer(smi, data=True)
     add_counts(data, phase12["then"])
+    done("phases 15, 17a, 17c and 11d")
     parallel = phase_parallel(smi)
+    done("phase 16")
     for kernel in TRAIN_ONLY:
         launches[kernel] = train[kernel]
     zoo = phase_zoo(smi)
+    done("phase 10")
     phase_rllib(smi)
+    done("phases 11a-11c")
     rows = phase_timing(launches, tier, served)
     for row in rows:
         if row["name"] in TRAIN_ONLY:

@@ -16,11 +16,13 @@ single-card training step: ``parallel.spmd`` (``init_train_state``,
 ``make_train_step``, ``default_optimizer``) over ``models.llama.loss_fn``
 (remat, chunked cross-entropy), causal flash attention forward and
 backward, and the fused ops' backward; the other model families
-(``models.mixtral``, ``vit``, ``t5``, ``diffusion``); and ``rllib`` in
-its local modes (env runners, PPO/DQN/SAC/IMPALA/BC/CQL learners and
-algorithms, multi-agent PPO); the two runtimes: ``init()`` starts the
-cluster runtime (``core.cluster_runtime``: a head, a node manager and
-worker processes over the node's shm object store, ``cluster/``), and
+(``models.mixtral``, ``vit``, ``t5``, ``diffusion``); and ``rllib`` (env
+runners, PPO/DQN/SAC/IMPALA/BC/CQL learners and algorithms, multi-agent
+PPO; locally, or with runner actors and learner gangs over
+``util.collective``'s actor collectives); the two runtimes: ``init()``
+starts the cluster runtime (``core.cluster_runtime``: a head, a node
+manager and worker processes over the node's shm object store,
+``cluster/``), and
 ``init(local_mode=True)`` the in-process one (``core.local_runtime``:
 tasks, actors, objects on threads); and the serve stack on either:
 ``serve`` (controller, router, replicas, handles, streaming) and
@@ -42,7 +44,7 @@ pinned memory and a copy stream, ``build_llm_processor``). A worker
 leased with ``GPU`` sees its lease's cards alone (``CUDA_VISIBLE_DEVICES``,
 set by the node manager), so its own card is ``cuda:0``; a CPU worker
 sees none. ``ROADMAP.md`` lists what is left (among it ``tune``, client
-mode, jobs, remote env runners and learner gangs).
+mode and jobs).
 
 The tests run the serve path on the CPU (``tests/test_torch_serve*.py``,
 ``device="cpu"`` in ``engine_kwargs``); ``python3 chip_smoke.py --serve``

@@ -9,7 +9,8 @@ resolve methods dynamically and serialize as (actor_id, method signatures).
 from __future__ import annotations
 
 import functools
-from typing import Any, Dict, Optional
+from concurrent.futures import ThreadPoolExecutor
+from typing import Any, Callable, Dict, List, Optional
 
 from ray_tpu_torch.core.ids import ActorID
 from ray_tpu_torch.core.runtime_context import require_runtime
@@ -160,3 +161,29 @@ def _resources_from_options(opts: Dict[str, Any]):
     if defaulted:
         d["CPU"] = 1.0
     return ResourceSet.from_dict(d), defaulted
+
+
+def create_actors(make: Callable[[int], ActorHandle], n: int
+                  ) -> List[ActorHandle]:
+    """``[make(i) for i in range(n)]`` with the creations in parallel.
+    An actor's creation returns once its constructor has run in its
+    worker, and a cold worker spends seconds importing torch, so creations
+    one after another add those seconds up. If one fails, the others are
+    killed and its error raised."""
+    if n <= 1:
+        return [make(i) for i in range(n)]
+    with ThreadPoolExecutor(max_workers=n,
+                            thread_name_prefix="create-actors") as pool:
+        futures = [pool.submit(make, i) for i in range(n)]
+    errors = [f.exception() for f in futures if f.exception() is not None]
+    made = [f.result() for f in futures if f.exception() is None]
+    if errors:
+        from ray_tpu_torch.api import kill
+
+        for a in made:
+            try:
+                kill(a)
+            except Exception:  # already dead, or the runtime is gone
+                pass
+        raise errors[0]
+    return made

@@ -1,12 +1,14 @@
-"""RLlib-lite in PyTorch (``ray_tpu/rllib``), local modes.
+"""RLlib-lite in PyTorch (``ray_tpu/rllib``).
 
 The same surface as ``ray_tpu.rllib``: env runners, PPO/DQN/SAC/IMPALA
 learners and algorithms, offline BC and CQL, multi-agent PPO, the numpy
 envs and replay buffers. Learners, runners and configs take ``device``
 (None = the card; ``"cpu"`` runs on the CPU). ``OfflineData`` reads
-a ``ray_tpu_torch.data`` ``Dataset``. Remote env runners, learner gangs
-and IMPALA's asynchronous runners ride the cluster runtime's actors and
-collectives, and raise ``NotImplementedError`` until the port has them.
+a ``ray_tpu_torch.data`` ``Dataset``. The remote modes ride the runtime's
+actors (``ray_tpu_torch.init()``): ``num_env_runners > 0`` starts env
+runner actors on the CPU (IMPALA's asynchronous), and ``num_learners >
+0`` a learner gang on ``device`` that averages gradients over
+``ray_tpu_torch.util.collective``.
 """
 
 from ray_tpu_torch.rllib.dqn import DQN, DQNConfig, DQNLearner

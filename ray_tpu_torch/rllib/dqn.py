@@ -7,7 +7,10 @@ keeps the two halves. ``compute_grads`` brings the loss, the mean Q and
 the TD errors (which the prioritised buffer needs on the host) back in one
 copy. The target network takes the online weights on every
 ``target_update_freq``-th update, counted from 1 as ``ray_tpu`` counts.
-Only the local runner and learner are ported.
+
+``num_env_runners > 0`` collects with ``_DQNRunner`` actors on the CPU
+(``env_runner.py``'s rule); ``num_learners > 0`` updates through a
+learner gang on ``device`` (``learner_group.py``).
 """
 
 from __future__ import annotations
@@ -22,7 +25,8 @@ import torch
 from ray_tpu_torch import resolve_device
 from ray_tpu_torch.rllib import models
 from ray_tpu_torch.rllib.env import make_env
-from ray_tpu_torch.rllib.env_runner import obs_tensor, require_local
+from ray_tpu_torch.rllib.env_runner import (RunnerGroup, fetch,
+                                            merge_runner_metrics, obs_tensor)
 from ray_tpu_torch.rllib.learner import Adam, to_tensors
 from ray_tpu_torch.rllib.learner_group import LearnerGroup
 from ray_tpu_torch.rllib.replay_buffers import (PrioritizedReplayBuffer,
@@ -128,7 +132,7 @@ class _DQNRunner:
         self._completed: list = []
 
     def set_weights(self, params) -> bool:
-        self._params = models.snapshot(params, self.device)
+        self._params = models.snapshot(fetch(params), self.device)
         return True
 
     def sample_transitions(self, n_steps: int,
@@ -250,7 +254,6 @@ class DQN:
     sync -> weight sync."""
 
     def __init__(self, config: DQNConfig):
-        require_local("num_env_runners", config.num_env_runners)
         self.config = config
         probe = make_env(config.env, num_envs=1, seed=config.seed)
         obs_size, num_actions = probe.observation_size, probe.num_actions
@@ -263,14 +266,14 @@ class DQN:
                 seed=config.seed, device=config.device)
 
         self.learner_group = LearnerGroup(
-            factory, num_learners=config.num_learners)
+            factory, num_learners=config.num_learners, device=config.device)
+        self.env_runners = RunnerGroup(
+            _DQNRunner, config.num_env_runners, config.seed, config.env,
+            config.num_envs_per_runner, device=config.device)
         buf_cls = (PrioritizedReplayBuffer if config.prioritized_replay
                    else ReplayBuffer)
         self.buffer = buf_cls(config.buffer_capacity, obs_size,
                               seed=config.seed)
-        self._local_runner = _DQNRunner(
-            config.env, config.num_envs_per_runner, config.seed,
-            config.device)
         self._sync_runner_weights()
         self._iteration = 0
         self._total_steps = 0
@@ -278,7 +281,7 @@ class DQN:
     # ------------------------------------------------------------- helpers
 
     def _sync_runner_weights(self) -> None:
-        self._local_runner.set_weights(self.learner_group.get_weights())
+        self.env_runners.sync_weights(self.learner_group.get_weights())
 
     def _epsilon(self) -> float:
         c = self.config
@@ -287,11 +290,15 @@ class DQN:
                                            - c.epsilon_initial)
 
     def _collect(self) -> int:
-        b = self._local_runner.sample_transitions(self.config.rollout_steps,
-                                                  self._epsilon())
-        self.buffer.add_batch(b["obs"], b["actions"], b["rewards"],
-                              b["next_obs"], b["dones"])
-        return int(b["steps"])
+        batches = self.env_runners.call("sample_transitions",
+                                        self.config.rollout_steps,
+                                        self._epsilon())
+        steps = 0
+        for b in batches:
+            self.buffer.add_batch(b["obs"], b["actions"], b["rewards"],
+                                  b["next_obs"], b["dones"])
+            steps += int(b["steps"])
+        return steps
 
     # --------------------------------------------------------------- train
 
@@ -314,16 +321,13 @@ class DQN:
         t0 = time.monotonic()
         learner_stats = self.training_step()
         self._iteration += 1
-        m = self._local_runner.get_metrics()
+        metrics = self.env_runners.call("get_metrics")
         return {
             "training_iteration": self._iteration,
             "num_env_steps_sampled_lifetime": self._total_steps,
             "epsilon": self._epsilon(),
             "time_this_iter_s": time.monotonic() - t0,
-            "env_runners": {
-                "episode_return_mean": m["episode_return_mean"],
-                "num_episodes": m["num_episodes"],
-            },
+            "env_runners": merge_runner_metrics(metrics),
             "learners": {"default_policy": learner_stats},
         }
 
@@ -332,3 +336,4 @@ class DQN:
 
     def stop(self) -> None:
         self.learner_group.stop()
+        self.env_runners.stop()

@@ -1,4 +1,4 @@
-"""Experience collection: ``EnvRunner`` and its local ``EnvRunnerGroup``
+"""Experience collection: ``EnvRunner`` and ``EnvRunnerGroup``
 (``ray_tpu/rllib/env_runner.py``).
 
 The runner steps a numpy vector env on the host and runs the policy on
@@ -7,12 +7,23 @@ and brings the action, its log-prob and the value back in one copy (a
 [3, B] f32 tensor: ``ray_tpu`` makes three ``np.asarray`` calls). The
 rollout dict keeps ``ray_tpu``'s keys, shapes and dtypes.
 
-``set_weights`` takes a tree of tensors (the learner's, on any device) or
-of numpy arrays and keeps a detached copy on the runner's device, so a
-rollout runs with the weights of the last sync, as ``ray_tpu``'s does.
+``set_weights`` takes an ``ObjectRef`` or a tree of tensors (the
+learner's, on any device) or of numpy arrays and keeps a detached copy on
+the runner's device, so a rollout runs with the weights of the last sync,
+as ``ray_tpu``'s does.
 
-Only the local group (``num_env_runners=0``) is ported: remote runners
-are actors of ``ray_tpu``'s runtime, which the port has not copied yet.
+``EnvRunnerGroup`` keeps one runner in-process (``num_env_runners=0``,
+on the group's ``device``) or starts N runner actors on the cluster
+runtime with seeds ``seed + 1000*i``. Remote runners run on the CPU, in
+CPU workers, as ``ray_tpu``'s do (its CPU workers force
+``JAX_PLATFORMS=cpu``; the port's see no card): each actor is built with
+``device="cpu"``, never the card's default, which would raise there.
+``sync_weights`` makes one host snapshot of the learner's weights, puts
+it once, and every runner gets that one object (a CUDA tensor cannot be
+got in a process without a card). ``EnvRunnerGroup`` is a
+``RunnerGroup``, which holds one runner of any class in-process or N
+actors of it, created in parallel (``actor.create_actors``), and calls
+them alike: every algorithm's runners go through one.
 """
 
 from __future__ import annotations
@@ -22,14 +33,13 @@ from typing import Any, Dict, List
 import numpy as np
 import torch
 
+import ray_tpu_torch
 from ray_tpu_torch import resolve_device
+from ray_tpu_torch.actor import create_actors
 from ray_tpu_torch.rllib import models
 from ray_tpu_torch.rllib.env import make_env
 
-#: What a remote mode raises: the cluster runtime is ported, the remote
-#: runners, learner gangs and collectives on it are not yet.
-RUNTIME_ITEM = ("the remote runner and learner actors on the cluster "
-                "runtime, not ported yet (ROADMAP.md, queue 1, item 7)")
+HOST = torch.device("cpu")
 
 
 def obs_tensor(obs: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -39,13 +49,35 @@ def obs_tensor(obs: np.ndarray, device: torch.device) -> torch.Tensor:
         device)
 
 
-def require_local(what: str, n: int) -> None:
-    """Raise for a remote mode (``n`` > 0 actors): they wait for the
-    runtime."""
-    if n:
-        raise NotImplementedError(
-            f"{what}={n}: remote actors wait for {RUNTIME_ITEM}; use 0, the "
-            "local mode")
+def host_weights(tree) -> Any:
+    """The weights a runner actor is sent: detached CPU copies, put once
+    and got by every runner."""
+    return models.snapshot(tree, HOST)
+
+
+def fetch(value):
+    """An ``ObjectRef`` got from the store; any other value as is."""
+    if isinstance(value, ray_tpu_torch.ObjectRef):
+        return ray_tpu_torch.get(value)
+    return value
+
+
+def merge_runner_metrics(metrics: List[Dict[str, Any]]) -> Dict[str, Any]:
+    """The runners' metrics as one: the mean of their mean returns (those
+    that finished an episode) and the sum of their episodes."""
+    returns = [m["episode_return_mean"] for m in metrics
+               if m.get("episode_return_mean") is not None]
+    return {"episode_return_mean":
+            float(np.mean(returns)) if returns else None,
+            "num_episodes": sum(m.get("num_episodes", 0) for m in metrics)}
+
+
+def kill_all(actors: List[Any]) -> None:
+    for a in actors:
+        try:
+            ray_tpu_torch.kill(a)
+        except Exception:  # already dead, or the runtime is gone
+            pass
 
 
 class EnvRunner:
@@ -65,7 +97,8 @@ class EnvRunner:
         self._completed: List[float] = []
 
     def set_weights(self, params) -> bool:
-        self._params = models.snapshot(params, self.device)
+        """params: an ObjectRef or a tree (the group puts once a sync)."""
+        self._params = models.snapshot(fetch(params), self.device)
         return True
 
     def _value(self, obs: np.ndarray) -> np.ndarray:
@@ -132,24 +165,61 @@ class EnvRunner:
         }
 
 
-class EnvRunnerGroup:
-    """The local runner (``num_env_runners=0``); remote runners raise."""
+class RunnerGroup:
+    """One runner ``cls(*args, seed=seed, device=device, **kwargs)`` in
+    this process (``n == 0``), or ``n`` runner actors of ``cls`` on the
+    CPU with seeds ``seed + 1000*i`` (``device="cpu"``, see the module
+    docstring), created in parallel. The algorithms step their runners
+    through ``call`` alike in both modes."""
+
+    def __init__(self, cls, n: int, seed: int, *args, device=None,
+                 **kwargs):
+        self._local = None
+        self._actors: List[Any] = []
+        if n == 0:
+            self._local = cls(*args, seed=seed, device=device, **kwargs)
+            return
+        remote_cls = ray_tpu_torch.remote(cls)
+        self._actors = create_actors(
+            lambda i: remote_cls.remote(*args, seed=seed + 1000 * i,
+                                        device="cpu", **kwargs), n)
+
+    @property
+    def actors(self) -> List[Any]:
+        return self._actors
+
+    def call(self, method: str, *args, **kwargs) -> List[Any]:
+        """``method(*args, **kwargs)`` on every runner; their results in
+        order."""
+        if self._local is not None:
+            return [getattr(self._local, method)(*args, **kwargs)]
+        return ray_tpu_torch.get([getattr(a, method).remote(*args, **kwargs)
+                                  for a in self._actors])
+
+    def sync_weights(self, params) -> None:
+        """The local runner takes ``params`` as they are; runner actors
+        get one host snapshot, put once."""
+        if self._local is not None:
+            self._local.set_weights(params)
+            return
+        self.call("set_weights", ray_tpu_torch.put(host_weights(params)))
+
+    def stop(self) -> None:
+        kill_all(self._actors)
+
+
+class EnvRunnerGroup(RunnerGroup):
+    """N ``EnvRunner`` actors on the CPU, or one local runner on
+    ``device`` when ``num_env_runners == 0``."""
 
     def __init__(self, env_spec, *, num_env_runners: int,
                  num_envs_per_runner: int, rollout_len: int, seed: int = 0,
                  device=None):
-        require_local("num_env_runners", num_env_runners)
-        self._local = EnvRunner(env_spec, num_envs_per_runner, rollout_len,
-                                seed, device)
-
-    def sync_weights(self, params) -> None:
-        self._local.set_weights(params)
+        super().__init__(EnvRunner, num_env_runners, seed, env_spec,
+                         num_envs_per_runner, rollout_len, device=device)
 
     def sample(self) -> List[Dict[str, np.ndarray]]:
-        return [self._local.sample()]
+        return self.call("sample")
 
     def get_metrics(self) -> List[Dict[str, Any]]:
-        return [self._local.get_metrics()]
-
-    def stop(self) -> None:
-        pass
+        return self.call("get_metrics")

@@ -1,14 +1,19 @@
 """IMPALA: actor-learner RL with the V-trace off-policy correction
-(``ray_tpu/rllib/impala.py``), local path.
+(``ray_tpu/rllib/impala.py``).
 
 The V-trace update (importance ratios, the reverse recursion for the
 targets, policy/value/entropy losses, one clipped Adam step) runs eagerly
 on the learner's device; the recursion is a reverse loop over T, one
 fused multiply-add a step, over the detached values and ratios, as
-``ray_tpu``'s ``stop_gradient``s make it. ``ray_tpu``'s asynchronous
-runners (one rollout in flight per runner actor, consumed as each lands)
-are actors of its runtime: ``num_env_runners > 0`` raises here until the
-port has that runtime.
+``ray_tpu``'s ``stop_gradient``s make it.
+
+``num_env_runners > 0`` runs the asynchronous loop: ``EnvRunner`` actors
+on the CPU (``env_runner.py``'s rule), one rollout in flight per runner,
+its metrics riding on it (``sample(include_metrics=True)``). Each
+``training_step`` takes whichever rollout lands first
+(``ray_tpu_torch.wait``), updates, and re-arms that runner with a host
+snapshot of the fresh weights, while the others keep sampling with their
+stale ones.
 """
 
 from __future__ import annotations
@@ -20,10 +25,12 @@ from typing import Any, Callable, Dict, Optional, Tuple, Union
 import numpy as np
 import torch
 
+import ray_tpu_torch
 from ray_tpu_torch import resolve_device
 from ray_tpu_torch.rllib import models
 from ray_tpu_torch.rllib.env import make_env
-from ray_tpu_torch.rllib.env_runner import EnvRunner, require_local
+from ray_tpu_torch.rllib.env_runner import (EnvRunnerGroup, host_weights,
+                                            merge_runner_metrics)
 from ray_tpu_torch.rllib.learner import Adam, host_stats, to_tensors
 
 
@@ -185,11 +192,10 @@ class IMPALAConfig:
 
 
 class IMPALA:
-    """The local actor-learner loop: sample, update, re-sync the runner."""
+    """The actor-learner loop: local, or asynchronous over runner
+    actors."""
 
     def __init__(self, config: IMPALAConfig):
-        require_local("num_env_runners (IMPALA's asynchronous runners)",
-                      config.num_env_runners)
         self.config = config
         probe = make_env(config.env, num_envs=1, seed=config.seed)
         self.learner = IMPALALearner(
@@ -203,17 +209,62 @@ class IMPALA:
             device=config.device)
         self._iteration = 0
         self._total_steps = 0
-        self._local = EnvRunner(config.env, config.num_envs_per_runner,
-                                config.rollout_len, config.seed,
-                                config.device)
-        self._local.set_weights(self.learner.get_weights())
+        self.env_runners = EnvRunnerGroup(
+            config.env, num_env_runners=config.num_env_runners,
+            num_envs_per_runner=config.num_envs_per_runner,
+            rollout_len=config.rollout_len, seed=config.seed,
+            device=config.device)
+        self.env_runners.sync_weights(self.learner.get_weights())
+        self._inflight: Dict[Any, Any] = {}  # rollout ref -> its runner
+        self._cached_metrics: Dict[int, Dict[str, Any]] = {}
+        # One rollout in flight per runner actor. Metrics ride the
+        # rollouts: a get_metrics call would queue behind the runner's
+        # next sample.
+        for a in self.env_runners.actors:
+            self._inflight[a.sample.remote(True)] = a
 
     # ------------------------------------------------------------- train
 
+    def _merge_metrics(self, key: int, m: Dict[str, Any]) -> None:
+        """Episode-count-weighted merge of one runner's successive
+        piggybacked metrics (several rollouts may land between train()
+        calls)."""
+        prev = self._cached_metrics.get(key)
+        if prev is None:
+            self._cached_metrics[key] = dict(m)
+            return
+        n1 = prev.get("num_episodes", 0)
+        n2 = m.get("num_episodes", 0)
+        r1, r2 = prev.get("episode_return_mean"), m.get("episode_return_mean")
+        if r2 is not None:
+            prev["episode_return_mean"] = (
+                r2 if r1 is None else (r1 * n1 + r2 * n2) / max(n1 + n2, 1))
+        prev["num_episodes"] = n1 + n2
+
     def training_step(self) -> Dict[str, Any]:
-        batch = self._local.sample()
+        """Local: sample, update, re-sync. Asynchronous: consume the first
+        rollout to land, update, re-arm its runner with fresh weights."""
+        if not self.env_runners.actors:
+            (batch,) = self.env_runners.sample()
+            stats = self.learner.update_from_batch(batch)
+            self.env_runners.sync_weights(self.learner.get_weights())
+            self._total_steps += int(np.prod(batch["actions"].shape))
+            return stats
+        ready, _ = ray_tpu_torch.wait(list(self._inflight), num_returns=1,
+                                      timeout=120)
+        if not ready:
+            raise TimeoutError("no rollout completed within 120s")
+        actor = self._inflight.pop(ready[0])
+        batch = ray_tpu_torch.get(ready[0])
+        m = batch.pop("metrics", None)
+        if m is not None:
+            self._merge_metrics(id(actor), m)
         stats = self.learner.update_from_batch(batch)
-        self._local.set_weights(self.learner.get_weights())
+        # The runner that finished gets fresh weights and is re-armed at
+        # once (its calls run in order); the others sample on with theirs.
+        actor.set_weights.remote(ray_tpu_torch.put(
+            host_weights(self.learner.get_weights())))
+        self._inflight[actor.sample.remote(True)] = actor
         self._total_steps += int(np.prod(batch["actions"].shape))
         return stats
 
@@ -221,15 +272,18 @@ class IMPALA:
         t0 = time.monotonic()
         learner_stats = self.training_step()
         self._iteration += 1
-        m = self._local.get_metrics()
+        if not self.env_runners.actors:
+            metrics = self.env_runners.get_metrics()
+        else:
+            # Only metrics that rode consumed rollouts: never a blocking
+            # get_metrics behind in-flight samples.
+            metrics = list(self._cached_metrics.values())
+            self._cached_metrics.clear()
         return {
             "training_iteration": self._iteration,
             "num_env_steps_sampled_lifetime": self._total_steps,
             "time_this_iter_s": time.monotonic() - t0,
-            "env_runners": {
-                "episode_return_mean": m["episode_return_mean"],
-                "num_episodes": m["num_episodes"],
-            },
+            "env_runners": merge_runner_metrics(metrics),
             "learners": {"default_policy": learner_stats},
         }
 
@@ -240,4 +294,4 @@ class IMPALA:
         self.learner.set_weights(params)
 
     def stop(self) -> None:
-        pass
+        self.env_runners.stop()

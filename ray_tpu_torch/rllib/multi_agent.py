@@ -1,11 +1,12 @@
 """Multi-agent environments, runner and independent-learner PPO
-(``ray_tpu/rllib/multi_agent.py``), local path.
+(``ray_tpu/rllib/multi_agent.py``).
 
 Each policy id owns one ``PPOLearner``; the agents that map to a policy
-share its parameters and pool their experience into it. The runner acts
-for every agent each step, one forward and one copy to the host an agent,
-as ``EnvRunner`` does. ``num_env_runners > 0`` raises until the port has
-``ray_tpu``'s actor runtime.
+share its parameters and pool their experience into it, across runners.
+The runner acts for every agent each step, one forward and one copy to
+the host an agent, as ``EnvRunner`` does. ``num_env_runners > 0`` samples
+with ``MultiAgentEnvRunner`` actors on the CPU (``env_runner.py``'s
+rule); their weights are one put of a dict of per-policy host trees.
 
 A multi-agent vector env steps a dict of per-agent action arrays and
 returns dict-of-arrays observations. All agents act every step;
@@ -24,7 +25,8 @@ import torch
 from ray_tpu_torch import resolve_device
 from ray_tpu_torch.rllib import models
 from ray_tpu_torch.rllib.env import VectorEnv, make_env
-from ray_tpu_torch.rllib.env_runner import obs_tensor, require_local
+from ray_tpu_torch.rllib.env_runner import (RunnerGroup, fetch,
+                                            merge_runner_metrics, obs_tensor)
 from ray_tpu_torch.rllib.learner import PPOLearner
 
 
@@ -104,9 +106,10 @@ class MultiAgentEnvRunner:
         self._completed: Dict[str, List[float]] = {a: []
                                                    for a in self.env.agent_ids}
 
-    def set_weights(self, weights: Dict[str, Any]) -> bool:
+    def set_weights(self, weights) -> bool:
+        """weights: {policy id: tree}, or an ObjectRef of one."""
         self._weights.update({pid: models.snapshot(w, self.device)
-                              for pid, w in weights.items()})
+                              for pid, w in fetch(weights).items()})
         return True
 
     def _params(self, agent: str):
@@ -206,7 +209,6 @@ class MultiAgentPPO:
     experience (parameter sharing)."""
 
     def __init__(self, config: MultiAgentPPOConfig):
-        require_local("num_env_runners", config.num_env_runners)
         self.config = config
         probe: MultiAgentVecEnv = config.env(num_envs=1, seed=config.seed)
         mapping = config.policy_mapping or {
@@ -234,23 +236,23 @@ class MultiAgentPPO:
                 minibatch_size=config.minibatch_size,
                 max_grad_norm=config.max_grad_norm, seed=config.seed + i,
                 device=config.device)
-        self._local = MultiAgentEnvRunner(
+        self.env_runners = RunnerGroup(
+            MultiAgentEnvRunner, config.num_env_runners, config.seed,
             config.env, config.num_envs_per_runner, config.rollout_len,
-            mapping, config.seed, config.device)
+            mapping, device=config.device)
         self._sync_weights()
         self._iteration = 0
         self._total_steps = 0
 
     def _sync_weights(self) -> None:
-        self._local.set_weights({pid: l.get_weights()
-                                 for pid, l in self.learners.items()})
+        self.env_runners.sync_weights(self.get_weights())
 
     def training_step(self) -> Dict[str, Dict[str, float]]:
-        rollout = self._local.sample()
-        # Pool experience per policy id across agents.
+        rollouts = self.env_runners.call("sample")
+        # Pool experience per policy id across agents and runners.
         stats: Dict[str, Dict[str, float]] = {}
         for pid, learner in self.learners.items():
-            batches = [rollout[a] for a in rollout
+            batches = [r[a] for r in rollouts for a in r
                        if self.policy_mapping[a] == pid]
             merged = _concat_agent_batches(batches)
             stats[pid] = learner.update_from_batch(merged)
@@ -262,11 +264,14 @@ class MultiAgentPPO:
         t0 = time.monotonic()
         learner_stats = self.training_step()
         self._iteration += 1
+        metrics = self.env_runners.call("get_metrics")
+        per_agent = {a: merge_runner_metrics([m[a] for m in metrics])
+                     for a in metrics[0]}
         return {
             "training_iteration": self._iteration,
             "num_env_steps_sampled_lifetime": self._total_steps,
             "time_this_iter_s": time.monotonic() - t0,
-            "env_runners": self._local.get_metrics(),
+            "env_runners": per_agent,
             "learners": learner_stats,
         }
 
@@ -274,7 +279,7 @@ class MultiAgentPPO:
         return {pid: l.get_weights() for pid, l in self.learners.items()}
 
     def stop(self) -> None:
-        pass
+        self.env_runners.stop()
 
 
 def _concat_agent_batches(batches: List[Dict[str, np.ndarray]]

@@ -13,7 +13,9 @@ generators. Reading a ``Dataset`` needs a runtime (``init()``, or
 
 ``BCLearner`` (cross-entropy on the dataset's actions) and ``CQLLearner``
 (the double-DQN TD update plus ``cql_alpha * (logsumexp_a Q - Q(s,
-a_data))``) share the learner protocol of ``dqn.py``.
+a_data))``) share the learner protocol of ``dqn.py``, so
+``num_learners > 0`` trains either through a learner gang on ``device``
+(``learner_group.py``).
 """
 
 from __future__ import annotations
@@ -260,7 +262,8 @@ class _OfflineAlgo:
                 "config.offline_data(...) before build()")
         self.data: OfflineData = config.data
         self.learner_group = LearnerGroup(
-            learner_factory, num_learners=config.num_learners)
+            learner_factory, num_learners=config.num_learners,
+            device=config.device)
         self._rng = np.random.default_rng(config.seed)
         self._iteration = 0
 
@@ -302,11 +305,13 @@ class BC(_OfflineAlgo):
     def __init__(self, config: BCConfig):
         probe = make_env(config.env, num_envs=1, seed=config.seed)
         obs_size, num_actions = probe.observation_size, probe.num_actions
+        # The factory travels to every learner actor: it closes over the
+        # learner's arguments, not the config, which holds the dataset.
+        kw = dict(hidden=config.hidden, lr=config.lr, seed=config.seed,
+                  device=config.device)
 
         def factory():
-            return BCLearner(obs_size, num_actions, hidden=config.hidden,
-                             lr=config.lr, seed=config.seed,
-                             device=config.device)
+            return BCLearner(obs_size, num_actions, **kw)
 
         super().__init__(config, factory)
 
@@ -361,11 +366,12 @@ class CQL(_OfflineAlgo):
         probe = make_env(config.env, num_envs=1, seed=config.seed)
         obs_size, num_actions = probe.observation_size, probe.num_actions
 
+        kw = dict(cql_alpha=config.cql_alpha, hidden=config.hidden,
+                  lr=config.lr, gamma=config.gamma,
+                  target_update_freq=config.target_update_freq,
+                  seed=config.seed, device=config.device)
+
         def factory():
-            return CQLLearner(
-                obs_size, num_actions, cql_alpha=config.cql_alpha,
-                hidden=config.hidden, lr=config.lr, gamma=config.gamma,
-                target_update_freq=config.target_update_freq,
-                seed=config.seed, device=config.device)
+            return CQLLearner(obs_size, num_actions, **kw)
 
         super().__init__(config, factory)

@@ -4,8 +4,8 @@
 The same fluent config (``PPOConfig().environment(...).env_runners(...)
 .training(...).build()``), loop and ``train()`` result dict as
 ``ray_tpu``'s; the config also carries ``device`` (None = the card) for
-the learner and the runner. Only the local runner is ported
-(``num_env_runners=0``).
+the learner and the local runner. ``num_env_runners > 0`` samples
+through ``EnvRunnerGroup``'s runner actors, on the CPU.
 """
 
 from __future__ import annotations
@@ -17,7 +17,8 @@ from typing import Any, Callable, Dict, List, Union
 import numpy as np
 
 from ray_tpu_torch.rllib.env import make_env
-from ray_tpu_torch.rllib.env_runner import EnvRunnerGroup
+from ray_tpu_torch.rllib.env_runner import (EnvRunnerGroup,
+                                            merge_runner_metrics)
 from ray_tpu_torch.rllib.learner import PPOLearner
 
 
@@ -120,19 +121,12 @@ class PPO:
         t0 = time.monotonic()
         learner_stats = self.training_step()
         self._iteration += 1
-        metrics = self.env_runners.get_metrics()
-        returns = [m["episode_return_mean"] for m in metrics
-                   if m.get("episode_return_mean") is not None]
-        episodes = sum(m.get("num_episodes", 0) for m in metrics)
         return {
             "training_iteration": self._iteration,
             "num_env_steps_sampled_lifetime": self._total_steps,
             "time_this_iter_s": time.monotonic() - t0,
-            "env_runners": {
-                "episode_return_mean":
-                    float(np.mean(returns)) if returns else None,
-                "num_episodes": episodes,
-            },
+            "env_runners": merge_runner_metrics(
+                self.env_runners.get_metrics()),
             "learners": {"default_policy": learner_stats},
         }
 

@@ -11,8 +11,13 @@ the Polyak step ``(1 - tau) * target + tau * critic``.
 
 ``ray_tpu`` splits its state's key into (key, next, pi) each update; the
 port draws the next-action and the actor's noise, in that order, from
-the learner's generator unless ``compute_grads`` is given them. Only the
-local runner and learner are ported.
+the learner's generator unless ``compute_grads`` is given them. In a
+learner gang every rank seeds its generator alike, as ``ray_tpu``'s ranks
+split the same key, and draws for its own shard.
+
+``num_env_runners > 0`` collects with ``_SACRunner`` actors on the CPU
+(``env_runner.py``'s rule); ``num_learners > 0`` updates through a
+learner gang on ``device`` (``learner_group.py``).
 """
 
 from __future__ import annotations
@@ -27,7 +32,8 @@ import torch
 from ray_tpu_torch import resolve_device
 from ray_tpu_torch.rllib import models
 from ray_tpu_torch.rllib.env import make_env
-from ray_tpu_torch.rllib.env_runner import obs_tensor, require_local
+from ray_tpu_torch.rllib.env_runner import (RunnerGroup, fetch,
+                                            merge_runner_metrics, obs_tensor)
 from ray_tpu_torch.rllib.learner import Adam, host_stats, to_tensors
 from ray_tpu_torch.rllib.learner_group import LearnerGroup
 from ray_tpu_torch.rllib.replay_buffers import ReplayBuffer
@@ -165,7 +171,7 @@ class _SACRunner:
         self._completed: list = []
 
     def set_weights(self, params) -> bool:
-        self._params = models.snapshot(params, self.device)
+        self._params = models.snapshot(fetch(params), self.device)
         return True
 
     def sample_transitions(self, n_steps: int) -> Dict[str, np.ndarray]:
@@ -293,7 +299,6 @@ class SAC:
     alpha update -> Polyak -> weight sync."""
 
     def __init__(self, config: SACConfig):
-        require_local("num_env_runners", config.num_env_runners)
         self.config = config
         probe = make_env(config.env, num_envs=1, seed=config.seed)
         if not probe.action_size:
@@ -311,24 +316,29 @@ class SAC:
                 device=config.device)
 
         self.learner_group = LearnerGroup(
-            factory, num_learners=config.num_learners)
+            factory, num_learners=config.num_learners, device=config.device)
+        self.env_runners = RunnerGroup(
+            _SACRunner, config.num_env_runners, config.seed, config.env,
+            config.num_envs_per_runner,
+            warmup_uniform_steps=config.warmup_uniform_steps,
+            device=config.device)
         self.buffer = ReplayBuffer(config.buffer_capacity, obs_size,
                                    seed=config.seed, action_size=act_size)
-        self._local_runner = _SACRunner(
-            config.env, config.num_envs_per_runner, config.seed,
-            config.warmup_uniform_steps, config.device)
         self._sync_runner_weights()
         self._iteration = 0
         self._total_steps = 0
 
     def _sync_runner_weights(self) -> None:
-        self._local_runner.set_weights(self.learner_group.get_weights())
+        self.env_runners.sync_weights(self.learner_group.get_weights())
 
     def _collect(self) -> int:
-        b = self._local_runner.sample_transitions(self.config.rollout_steps)
-        self.buffer.add_batch(b["obs"], b["actions"], b["rewards"],
-                              b["next_obs"], b["dones"])
-        return int(b["steps"])
+        steps = 0
+        for b in self.env_runners.call("sample_transitions",
+                                       self.config.rollout_steps):
+            self.buffer.add_batch(b["obs"], b["actions"], b["rewards"],
+                                  b["next_obs"], b["dones"])
+            steps += int(b["steps"])
+        return steps
 
     def training_step(self) -> Dict[str, Any]:
         self._total_steps += self._collect()
@@ -344,15 +354,12 @@ class SAC:
         t0 = time.monotonic()
         learner_stats = self.training_step()
         self._iteration += 1
-        m = self._local_runner.get_metrics()
+        metrics = self.env_runners.call("get_metrics")
         return {
             "training_iteration": self._iteration,
             "num_env_steps_sampled_lifetime": self._total_steps,
             "time_this_iter_s": time.monotonic() - t0,
-            "env_runners": {
-                "episode_return_mean": m["episode_return_mean"],
-                "num_episodes": m["num_episodes"],
-            },
+            "env_runners": merge_runner_metrics(metrics),
             "learners": {"default_policy": learner_stats},
         }
 
@@ -361,3 +368,4 @@ class SAC:
 
     def stop(self) -> None:
         self.learner_group.stop()
+        self.env_runners.stop()

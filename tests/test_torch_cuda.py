@@ -1048,6 +1048,82 @@ def test_cluster_gpu_actor_builds_an_engine_on_the_card(card_cluster):
     ray_tpu_torch.kill(a)
 
 
+def test_cluster_rllib_gang_on_half_gpu_leases_matches_a_learner_here(
+        card_cluster):
+    """A DQN learner gang of 2, each in a GPU worker on ``{"GPU": 0.5}``
+    (the node packs both onto the one card), against one DQN learner on
+    the card in this process on the same batch: every weight within
+    ray_tpu's gang tolerance (rtol 1e-4, atol 1e-5), TD errors in batch
+    order; the gang's weights come back as host tensors."""
+    import time
+
+    import numpy as np
+
+    import ray_tpu_torch
+    from ray_tpu_torch.rllib import DQNLearner, LearnerGroup
+
+    def factory():
+        return DQNLearner(4, 2, lr=1e-3, target_update_freq=1000, seed=7)
+
+    rng = np.random.default_rng(1)
+    batch = {
+        "obs": rng.normal(size=(128, 4)).astype(np.float32),
+        "actions": rng.integers(0, 2, 128).astype(np.int32),
+        "rewards": rng.normal(size=128).astype(np.float32),
+        "next_obs": rng.normal(size=(128, 4)).astype(np.float32),
+        "dones": np.zeros(128, np.float32),
+    }
+    total = ray_tpu_torch.cluster_resources()["GPU"]
+    gang = LearnerGroup(factory, num_learners=2)
+    try:
+        deadline = time.time() + 10
+        while (total - ray_tpu_torch.available_resources().get("GPU", 0.0)
+               < 1.0 - 1e-6 and time.time() < deadline):
+            time.sleep(0.2)
+        assert abs(total - ray_tpu_torch.available_resources().get(
+            "GPU", 0.0) - 1.0) < 1e-6
+        local = factory()
+        want = local.update_from_batch(dict(batch))
+        got = gang.update_from_batch(dict(batch))
+        np.testing.assert_allclose(got["td_errors"], want["td_errors"],
+                                   rtol=1e-4, atol=1e-5)
+        w = gang.get_weights()["q"]
+        for k, v in local.get_weights()["q"].items():
+            assert w[k].device.type == "cpu"
+            np.testing.assert_allclose(w[k].numpy(),
+                                       v.detach().cpu().numpy(),
+                                       rtol=1e-4, atol=1e-5, err_msg=k)
+    finally:
+        gang.stop()
+
+
+def test_cluster_rllib_dqn_gate_with_remote_runners_and_card_learners(
+        card_cluster):
+    """DQN with 2 remote runners (CPU workers) and 2 learners on the card:
+    ray_tpu's gate, best return >= 40 within 45 iterations
+    (tests/test_rllib_dqn.py:172-195)."""
+    from ray_tpu_torch.rllib import DQNConfig
+
+    algo = (DQNConfig().environment("CartPole")
+            .env_runners(num_env_runners=2, num_envs_per_env_runner=4,
+                         rollout_fragment_length=32)
+            .training(lr=1e-3, train_batch_size=64,
+                      num_steps_sampled_before_learning_starts=500,
+                      updates_per_iteration=32)
+            .learners(num_learners=2).build())
+    best = 0.0
+    try:
+        for _ in range(45):
+            ret = algo.train()["env_runners"]["episode_return_mean"]
+            if ret is not None:
+                best = max(best, ret)
+            if best >= 40.0:
+                break
+    finally:
+        algo.stop()
+    assert best >= 40.0, best
+
+
 def test_cluster_cuda_tensor_round_trip(card_cluster):
     """A CUDA bf16 tensor through put/get and through a GPU task's
     argument and return comes back on the card, bit-equal; a CPU task

@@ -1,6 +1,6 @@
 """The port's RLlib (``ray_tpu_torch.rllib``) against ``ray_tpu.rllib`` on
-the CPU: the numpy envs, the model functions, GAE, the PPO update, the env
-runner and the remote modes.
+the CPU: the numpy envs, the model functions, GAE, the PPO update and the
+env runner, locally (the remote modes: ``tests/test_torch_rllib_remote.py``).
 
 Weights come from ``ray_tpu``'s ``init_*_params`` through
 ``models.from_jax_params``; batches from numpy seeds; draws that
@@ -34,8 +34,7 @@ from ray_tpu.rllib import env as jenv
 from ray_tpu.rllib import models as jmodels
 from ray_tpu.rllib.env_runner import EnvRunner as JEnvRunner
 from ray_tpu.rllib.learner import PPOLearner as JPPOLearner
-from ray_tpu_torch.rllib import (EnvRunnerGroup, LearnerGroup, PPOConfig,
-                                 PPOLearner)
+from ray_tpu_torch.rllib import EnvRunnerGroup, PPOConfig, PPOLearner
 from ray_tpu_torch.rllib import env as tenv
 from ray_tpu_torch.rllib import models as tmodels
 from ray_tpu_torch.rllib.env_runner import EnvRunner
@@ -541,20 +540,6 @@ def test_ppo_train_result_and_weights():
     w = t2n(algo.get_weights())
     algo.set_weights(w)
     close_tree(t2n(algo.env_runners._local._params), w, atol=0)
-
-
-# ----------------------------------------------------------- remote modes
-
-@pytest.mark.parametrize("build", [
-    lambda: EnvRunnerGroup("CartPole", num_env_runners=2,
-                           num_envs_per_runner=2, rollout_len=4,
-                           device=CPU),
-    lambda: PPOConfig(device=CPU).env_runners(num_env_runners=2).build(),
-    lambda: LearnerGroup(lambda: None, num_learners=2),
-], ids=["env_runner_group", "ppo", "learner_group"])
-def test_remote_modes_raise(build):
-    with pytest.raises(NotImplementedError, match="item 7"):
-        build()
 
 
 # ----------------------------------------------------------------- gates

@@ -230,15 +230,6 @@ def test_epsilon_greedy_runner_actions():
     assert 0.4 < acts.mean() < 0.6
 
 
-@pytest.mark.parametrize("build", [
-    lambda: DQNConfig(device=CPU).env_runners(num_env_runners=2).build(),
-    lambda: DQNConfig(device=CPU).learners(num_learners=2).build(),
-], ids=["runners", "learners"])
-def test_dqn_remote_modes_raise(build):
-    with pytest.raises(NotImplementedError, match="item 7"):
-        build()
-
-
 def test_dqn_prioritized_training_updates_priorities():
     algo = (DQNConfig(device=CPU)
             .env_runners(num_envs_per_env_runner=4,

@@ -174,11 +174,6 @@ def test_impala_update_matches_ray_tpu():
             close(v.detach().numpy(), adam.nu[p[0]][p[1]], what="nu")
 
 
-def test_impala_remote_runners_raise():
-    with pytest.raises(NotImplementedError, match="asynchronous runners"):
-        IMPALAConfig(device=CPU).env_runners(num_env_runners=2).build()
-
-
 def test_impala_local_learning_gate():
     """CartPole return >= 150 within 150 iterations, ray_tpu's config
     (tests/test_rllib_impala.py:79-98)."""
@@ -282,9 +277,6 @@ def test_multi_agent_config_checks_and_remote_mode():
     with pytest.raises(ValueError, match="no mapped agent"):
         MultiAgentPPOConfig(env=_cartpole_pair, policies=("p", "q"),
                             policy_mapping={"a0": "p", "a1": "p"},
-                            device=CPU).build()
-    with pytest.raises(NotImplementedError, match="item 7"):
-        MultiAgentPPOConfig(env=_cartpole_pair, num_env_runners=2,
                             device=CPU).build()
 
 

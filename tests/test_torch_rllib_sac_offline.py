@@ -177,12 +177,6 @@ def test_sac_runner_and_remote_modes():
     assert np.abs(b["actions"]).max() <= 2.0
     with pytest.raises(ValueError, match="continuous"):
         _SACRunner("CartPole", 2, device=CPU)
-    for build in (
-            lambda: SACConfig(device=CPU).env_runners(
-                num_env_runners=2).build(),
-            lambda: SACConfig(device=CPU).learners(num_learners=2).build()):
-        with pytest.raises(NotImplementedError, match="item 7"):
-            build()
 
 
 def test_pendulum_env_contract():
