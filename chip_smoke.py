@@ -17,8 +17,8 @@ card and check it.
                                             # result line
     python3 chip_smoke.py --serve           # phases 1-2 and 12, no result
                                             # line
-    python3 chip_smoke.py --cluster         # phases 1-2, 13 and 14, no
-                                            # result line
+    python3 chip_smoke.py --cluster         # phases 1-2, 13 (with 18)
+                                            # and 14, no result line
     python3 chip_smoke.py --disagg          # phases 1-2 and 14, no result
                                             # line
     python3 chip_smoke.py --train           # phases 1-2, 8 and 15, no
@@ -138,6 +138,26 @@ script exits non-zero without printing its last line:
     Decode tokens/s, TTFT, TPOT and the driver's and replicas' CPU cores,
     beside phase 12's in the same call. Phases 13 and 14 serve
     Llama-3-8B's widths cut to ``SERVE_LAYERS``, one tree in this process.
+18. The front door, inside 13(b), on its one replica after 13(b)'s own
+    launches are read: ``serve.start_http_per_node()`` starts one HTTP
+    proxy actor on the one node (its ``/-/healthz`` and ``/-/routes``
+    list the deployment); the replica's engine is rebuilt fresh from the
+    seed (``counting_server()``'s ``fresh_engine``), so its cache history
+    is the direct engine's; phase 5's warm-up and 16 prompts go one at a
+    time over ``http.client`` as ``POST /llm13`` replies, then as
+    ``?stream=1`` streams: tokens identical to the direct engine's first
+    and second pass; an 8-client streamed closed loop over HTTP (decode
+    tokens/s, p50 TTFT and TPOT, the ms a request adds over 13(b)'s
+    handle median, the proxy process's CPU cores, beside 13(b)'s; 8 of
+    13(b)'s 16 prompts, one a client, to keep the script's length); the
+    replica's ``rtpu_llm_requests_total`` and
+    ``rtpu_llm_tokens_generated_total`` for the fresh engine, read from
+    the registry the replica publishes to the head's KV (published at
+    once through the replica's ``publish_metrics``), count phase 18's
+    requests and tokens exactly; the replica launches the decode and the
+    four fused kernels over phase 18 (``launches_phase18``), no paged or
+    flash kernel. Tracing stays off. The proxy's process is in 13's
+    no-survivor check.
 14. Disaggregated serving and the cluster fleet tier, on phase 13's
     cluster, Llama-3-8B bf16 cut to ``SERVE_LAYERS``, phase 5's engine
     configuration, held to the direct engine here that took phase 5's
@@ -292,7 +312,8 @@ script exits non-zero without printing its last line:
    launches over phase 9 as ``launches_phase9``, over phase 12's
    deployments as ``launches_phase12``, summed over phase 13's replica
    processes as ``launches_phase13`` and over phase 14's as
-   ``launches_phase14``, phase 15a's trainer worker's over its 5 steps as
+   ``launches_phase14``, the replica process's over phase 18 as
+   ``launches_phase18``, phase 15a's trainer worker's over its 5 steps as
    ``launches_phase15``, phase 16a's as ``launches_phase16``, phase 17a's
    worker's and 17b's processor's summed as ``launches_phase17``, and the
    flash rows' launches a step of phase 10b as ``launches_phase10``) is
@@ -2066,6 +2087,32 @@ def counting_server():
     from ray_tpu_torch.serve.llm import LLMServer
 
     class CountingLLMServer(LLMServer):
+        def __init__(self, **kw):
+            self._kw = kw
+            super().__init__(**kw)
+
+        def fresh_engine(self):
+            """Close the engine and build it again from the same kwargs
+            (weights drawn again from the seed): a cache history that
+            starts empty, as a direct engine's does."""
+            import gc
+
+            from ray_tpu_torch.serve.llm import LLMEngine
+
+            self.engine.close()
+            self.engine = None
+            gc.collect()
+            torch.cuda.empty_cache()
+            self.engine = LLMEngine(**self._kw)
+            return self.engine.stats()["engine"]
+
+        def publish_metrics(self):
+            """Publish this process's metric registry to the head's KV
+            now (the report loop's own step)."""
+            from ray_tpu_torch.core.runtime_context import require_runtime
+
+            require_runtime().publish_metrics()
+
         def zero_launches(self):
             from ray_tpu_torch import ops
 
@@ -2226,12 +2273,14 @@ def phase13a(smi, name):
 
 def phase13b(cfg, smi, seq, prompts, want, direct_ms):
     """One replica in a worker process: the sequence's tokens equal a
-    direct engine's in this process fed the same sequence (``want``, in
-    ``direct_ms``), the closed loop, an echo deployment's round trip
-    across processes. Returns (launches, numbers, pids)."""
+    direct engine's in this process fed the same sequence (the first pass
+    of ``want``, in ``direct_ms``), the closed loop, an echo deployment's
+    round trip across processes; then phase 18 on the same replica.
+    Returns (launches, numbers, pids, phase 18's launches)."""
     from ray_tpu_torch import serve as rserve
 
     h, replicas, procs = cluster_deploy(cfg, 1, smi, 1.0)
+    n = len(seq)
     try:
         replica_call(replicas, "zero_launches")
         got, ms = [], []
@@ -2239,7 +2288,7 @@ def phase13b(cfg, smi, seq, prompts, want, direct_ms):
             toks, _, t = handle_request(h, p)
             got.append(toks)
             ms.append(t)
-        same_tokens("phase 13b, one replica", got, want)
+        same_tokens("phase 13b, one replica", got, want[:n])
         numbers = cluster_closed_loop("phase 13b one replica in a worker "
                                       "process, closed loop", h, replicas,
                                       prompts, smi, cfg.vocab_size)
@@ -2251,13 +2300,16 @@ def phase13b(cfg, smi, seq, prompts, want, direct_ms):
         numbers["echo_ms"] = echo[0]
         log(f"  phase 13b one replica: {len(seq)} requests one at a time, "
             f"tokens identical to the direct engine's; ms a request, "
-            f"median: handle {median(ms)}, direct {median(direct_ms)}; an "
-            f"echo deployment's round trip across processes: median "
+            f"median: handle {median(ms)}, direct {median(direct_ms[:n])}; "
+            f"an echo deployment's round trip across processes: median "
             f"{echo[0]} ms, p90 {echo[1]} ms; replica launches {launches}; "
             f"on {smi}")
+        launches18, proxy_pid = phase18(cfg, smi, replicas, procs[0][0],
+                                        seq, prompts, want, ms, numbers)
     finally:
         rserve.delete(CLUSTER_NAME)
-    return launches, numbers, [pid for pid, _ in procs]
+    return (launches, numbers, [pid for pid, _ in procs] + [proxy_pid],
+            launches18)
 
 
 def phase13c(cfg, params, smi, seq, prompts):
@@ -2334,7 +2386,7 @@ def phase_cluster(smi, name, phase12=None, only14=False):
     fleet pair (``only14``: phase 14 alone, its direct engine run here).
     Returns the kernels' launches over each phase's deployments' traffic,
     summed over the replica processes (the direct engines' comparison runs
-    not counted): (phase 13's or None, phase 14's)."""
+    not counted): (phase 13's or None, phase 14's, phase 18's or None)."""
     import gc
 
     import ray_tpu_torch
@@ -2360,9 +2412,8 @@ def phase_cluster(smi, name, phase12=None, only14=False):
                                           "phase 13-14 direct", smi)
         if not only14:
             pids += phase13a(smi, name)
-            b_launches, one, b_pids = phase13b(
-                cfg, smi, seq, prompts, want[:len(seq)],
-                direct_ms[:len(seq)])
+            b_launches, one, b_pids, launches18 = phase13b(
+                cfg, smi, seq, prompts, want, direct_ms)
             c_launches, two, c_pids = phase13c(cfg, params, smi, seq,
                                                prompts)
             pids += b_pids + c_pids
@@ -2395,7 +2446,7 @@ def phase_cluster(smi, name, phase12=None, only14=False):
         f"compute app of theirs; phase 14 took {t14:.1f} s of "
         f"{time.perf_counter() - t0:.1f} s; on {smi}")
     if only14:
-        return None, total14
+        return None, total14, None
     for launches in [b_launches] + c_launches:
         require_launches("phase 13 replica process", launches,
                          ("paged_decode_attention",) + TRAIN_ONLY)
@@ -2433,7 +2484,200 @@ def phase_cluster(smi, name, phase12=None, only14=False):
         f"cores {one['cpu_cores']}, {two['cpu_cores']}; echo hop across "
         f"processes {one['echo_ms']} ms{beside}; kernel launches {total}; "
         f"on {smi}")
-    return total, total14
+    return total, total14, launches18
+
+
+# --------------------------------------------------------------- phase 18
+
+
+def http_call(conn, method, path, payload=None):
+    """One request on a kept-alive ``http.client`` connection. Returns
+    (status, content type, body bytes)."""
+    body = None if payload is None else json.dumps(payload).encode()
+    conn.request(method, path, body=body,
+                 headers={"Content-Type": "application/json"})
+    r = conn.getresponse()
+    return r.status, r.getheader("Content-Type") or "", r.read()
+
+
+def http_stream(conn, path, payload):
+    """A ``?stream=1`` POST: yields the items of its
+    ``application/jsonlines`` reply as they arrive; an ``{"error": ...}``
+    line raises."""
+    conn.request("POST", path, body=json.dumps(payload).encode(),
+                 headers={"Content-Type": "application/json"})
+    r = conn.getresponse()
+    if r.status != 200 or not (r.getheader("Content-Type") or "").startswith(
+            "application/jsonlines"):
+        raise AssertionError(f"phase 18 stream: {r.status} "
+                             f"{r.getheader('Content-Type')} {r.read()!r}")
+    while True:
+        line = r.readline()
+        if not line:
+            return
+        rec = json.loads(line)
+        if "error" in rec:
+            raise AssertionError(f"phase 18 stream: {rec['error']}")
+        yield rec["item"]
+
+
+def pid_listening_on(port):
+    """The pid of the process (in this pid namespace) listening on TCP
+    ``port``: the socket's inode from /proc/net/tcp, then the process
+    holding it."""
+    inodes = set()
+    for table in ("/proc/net/tcp", "/proc/net/tcp6"):
+        try:
+            with open(table) as f:
+                rows = f.read().splitlines()[1:]
+        except OSError:
+            continue
+        for row in rows:
+            col = row.split()
+            if col[3] == "0A" and int(col[1].rsplit(":", 1)[1], 16) == port:
+                inodes.add(f"socket:[{col[9]}]")
+    for pid in filter(str.isdigit, os.listdir("/proc")):
+        try:
+            for fd in os.listdir(f"/proc/{pid}/fd"):
+                if os.readlink(f"/proc/{pid}/fd/{fd}") in inodes:
+                    return int(pid)
+        except OSError:
+            continue
+    raise AssertionError(f"phase 18: no process listens on port {port}")
+
+
+def cpu_seconds(pid):
+    """User + system CPU seconds of ``pid`` (/proc/<pid>/stat)."""
+    with open(f"/proc/{pid}/stat") as f:
+        fields = f.read().rsplit(")", 1)[1].split()
+    return (int(fields[11]) + int(fields[12])) / os.sysconf("SC_CLK_TCK")
+
+
+def published_counts(pid, engine, names):
+    """``names``' samples labelled ``engine`` in the registry the process
+    ``pid`` published to the head's KV (``metrics/<node>/<pid>``)."""
+    from ray_tpu_torch.core.runtime_context import require_runtime
+
+    head = require_runtime().head
+    keys = [k for k in head.retrying_call("kv_keys", "default", b"metrics/",
+                                          timeout=30)
+            if k.decode().endswith(f"/{pid}")]
+    out = dict.fromkeys(names, 0.0)
+    for key in keys:
+        text = head.retrying_call("kv_get", "default", key, timeout=30)
+        for line in (text or b"").decode().splitlines():
+            metric, _, value = line.rpartition(" ")
+            name = metric.split("{", 1)[0]
+            if name in out and f'engine="{engine}"' in metric:
+                out[name] += float(value)
+    return out
+
+
+def phase18(cfg, smi, replicas, replica_pid, seq, prompts, want, handle_ms,
+            b_numbers):
+    """The front door on 13b's replica: HTTP replies and streams held to
+    the direct engine's two passes, the closed loop over HTTP, the
+    replica's registry counts from the head's KV, the launches over the
+    phase. Returns (launches, the proxy's pid)."""
+    import http.client
+
+    import ray_tpu_torch
+    from ray_tpu_torch import serve as rserve
+
+    t0 = time.perf_counter()
+    n = len(seq)
+    addrs = rserve.start_http_per_node()
+    alive_nodes = [x for x in ray_tpu_torch.nodes() if x.get("alive", True)]
+    if len(addrs) != 1 or len(alive_nodes) != 1:
+        raise AssertionError(f"phase 18: proxies {addrs} on nodes "
+                             f"{[x['node_id'] for x in alive_nodes]}")
+    host, port = next(iter(addrs.values())).rsplit(":", 1)
+    port = int(port)
+    proxy_pid = pid_listening_on(port)
+    t_up = time.perf_counter() - t0
+    conn = http.client.HTTPConnection(host, port, timeout=600)
+    st, ctype, body = http_call(conn, "GET", "/-/healthz")
+    if (st, json.loads(body)) != (200, {"status": "ok"}):
+        raise AssertionError(f"phase 18 /-/healthz: {st} {body!r}")
+    st, ctype, body = http_call(conn, "GET", "/-/routes")
+    if st != 200 or CLUSTER_NAME not in json.loads(body):
+        raise AssertionError(f"phase 18 /-/routes: {st} {body!r}")
+    (engine,) = replica_call(replicas, "fresh_engine")
+    replica_call(replicas, "zero_launches")
+    path = f"/{CLUSTER_NAME}"
+    replies, ms = [], []
+    for p in seq:
+        t1 = time.perf_counter()
+        st, ctype, body = http_call(conn, "POST", path, {
+            "prompt_ids": p, "max_new_tokens": SERVE_NEW})
+        ms.append((time.perf_counter() - t1) * 1e3)
+        if st != 200 or not ctype.startswith("application/json"):
+            raise AssertionError(f"phase 18 reply: {st} {ctype} {body!r}")
+        replies.append(json.loads(body)["result"]["token_ids"])
+    same_tokens("phase 18, replies over HTTP", replies, want[:n])
+    streams = [list(http_stream(conn, f"{path}/stream?stream=1", {
+        "prompt_ids": p, "max_new_tokens": SERVE_NEW})) for p in seq]
+    same_tokens("phase 18, streams over HTTP", streams, want[n:])
+    conn.close()
+    local = threading.local()
+
+    def stream(prompt, new_tokens):
+        c = getattr(local, "conn", None)
+        if c is None:
+            c = local.conn = http.client.HTTPConnection(host, port,
+                                                         timeout=600)
+        return http_stream(c, f"{path}/stream?stream=1", {
+            "prompt_ids": prompt, "max_new_tokens": new_tokens})
+
+    # Half of 13b's closed loop (8 of its 16 prompts, one a client), to
+    # keep the script inside its limit on a slow host.
+    loop_prompts = prompts[:8]
+    proxy_cpu0 = cpu_seconds(proxy_pid)
+    replica_cpu0 = cpu_seconds(replica_pid)
+    results, wall, cpu = closed_loop(stream, loop_prompts, SERVE_NEW)
+    numbers = closed_loop_numbers(
+        "phase 18 closed loop over HTTP", results, wall, cpu,
+        replica_call(replicas, "stats"), smi, cfg.vocab_size)
+    numbers["proxy_cpu_cores"] = (cpu_seconds(proxy_pid) - proxy_cpu0) / wall
+    numbers["replica_cpu_cores"] = (cpu_seconds(replica_pid)
+                                    - replica_cpu0) / wall
+    (launches,) = replica_call(replicas, "launches")
+    require_launches("phase 18 replica process", launches,
+                     ("paged_decode_attention",) + TRAIN_ONLY)
+    sent = 2 * n + len(loop_prompts)
+    tokens = (sum(map(len, replies)) + sum(map(len, streams))
+              + sum(len(r[0]) for r in results))
+    want_counts = {"rtpu_llm_requests_total": float(sent),
+                   "rtpu_llm_tokens_generated_total": float(tokens)}
+    replica_call(replicas, "publish_metrics")
+    deadline = time.time() + 30
+    while True:
+        counts = published_counts(replica_pid, engine, list(want_counts))
+        if counts == want_counts or time.time() > deadline:
+            break
+        time.sleep(0.5)
+    if counts != want_counts:
+        raise AssertionError(f"phase 18: the replica's published registry "
+                             f"counts {counts}, phase 18 sent {want_counts}")
+    numbers["hop_ms"] = median(ms) - median(handle_ms)
+    numbers["seconds"] = time.perf_counter() - t0
+    MEASURED["phase18"] = numbers
+    log(f"phase 18 the front door ({SERVE_LAYERS} of Llama-3-8B's 32 "
+        f"layers): one HTTP proxy (pid {proxy_pid}) up in {t_up:.1f} s; "
+        f"{n} requests one at a time over HTTP, replies then streams, "
+        f"tokens identical to the direct engine's two passes; ms a request, "
+        f"median: HTTP {median(ms)}, 13b's handle {median(handle_ms)}, the "
+        f"HTTP hop adds {numbers['hop_ms']} ms; closed loop over HTTP: "
+        f"decode tokens/s {numbers['decode_tokens_s']} (13b through the "
+        f"handle, 16 prompts {b_numbers['decode_tokens_s']}), p50 TTFT "
+        f"{numbers['ttft_ms_p50']} ms ({b_numbers['ttft_ms_p50']}), p50 "
+        f"TPOT {numbers['tpot_ms_p50']} ms ({b_numbers['tpot_ms_p50']}), "
+        f"CPU cores: proxy {numbers['proxy_cpu_cores']}, replica "
+        f"{numbers['replica_cpu_cores']} ({b_numbers['replica_cpu_cores']}),"
+        f" driver {numbers['cpu_cores']} ({b_numbers['cpu_cores']}); the "
+        f"replica's published registry for engine {engine}: {counts} "
+        f"(exact); launches {launches}; {numbers['seconds']:.1f} s; on {smi}")
+    return launches, proxy_pid
 
 
 # --------------------------------------------------------------- phase 14
@@ -5936,7 +6180,7 @@ def main() -> int:
     served, phase12 = phase_serve(smi, then=lambda cfg, params: phase17b(
         smi, cfg, params))
     done("phase 12 and 17b")
-    cluster, disagg = phase_cluster(smi, name, phase12)
+    cluster, disagg, front = phase_cluster(smi, name, phase12)
     done("phases 13-14")
     train = phase_train(smi)
     done("phase 8")
@@ -5957,6 +6201,7 @@ def main() -> int:
             row["launches_phase10"] = zoo[row["name"]]
         row["launches_phase13"] = cluster[row["name"]]
         row["launches_phase14"] = disagg[row["name"]]
+        row["launches_phase18"] = front[row["name"]]
         row["launches_phase15"] = trainer[row["name"]]
         row["launches_phase16"] = parallel[row["name"]]
         row["launches_phase17"] = data[row["name"]]

@@ -16,8 +16,10 @@ pubsub), re-designed as one threaded RPC service over the framed protocol:
   (STRICT_PACK / PACK / SPREAD / STRICT_SPREAD)
 - internal KV + pubsub channels (ACTOR, NODE, LOG) over server->client push
 
-A copy of ``ray_tpu/cluster/head.py`` without ``ray_tpu``'s flight
-recorder, metrics registry, RPC and resource witnesses.
+A copy of ``ray_tpu/cluster/head.py`` without ``ray_tpu``'s RPC and
+resource witnesses and its rolling upgrade. The head keeps the cluster's
+trace ring (spans flushed by every process, bounded by entries and bytes)
+and serves its flight-recorder ring.
 """
 
 from __future__ import annotations
@@ -31,8 +33,17 @@ from ray_tpu_torch.core.config import GLOBAL_CONFIG as cfg
 from ray_tpu_torch.core.task_spec import pg_key_from_strategy
 from ray_tpu_torch.cluster.persistence import HeadStore
 from ray_tpu_torch.cluster.protocol import ClientPool, RpcServer, blocking_rpc
+from ray_tpu_torch.util import flight_recorder as _flight
+from ray_tpu_torch.util import metrics as _metrics
 
 logger = logging.getLogger(__name__)
+
+#: Spans evicted from the head's trace ring by the byte/entry bounds —
+#: silent ring rotation hid exactly the "where did my spans go" question
+#: this counter answers.
+TRACE_SPANS_DROPPED = _metrics.Counter(
+    "rtpu_trace_spans_dropped_total",
+    "spans evicted from the head trace ring by the entry/byte bounds")
 
 class _TransientReservationFailure(Exception):
     """A node rejected a bundle after local re-check; retry placement."""
@@ -137,6 +148,7 @@ class HeadServer:
         import uuid as _uuid
 
         self.incarnation = _uuid.uuid4().hex[:12]
+        _flight.set_role("head")
         self._lock = threading.RLock()
         self._nodes: Dict[str, NodeInfo] = {}
         self._actors: Dict[bytes, ActorInfo] = {}
@@ -184,6 +196,17 @@ class HeadServer:
 
         self._unmet_demand = _collections.deque(
             maxlen=cfg.head_demand_window_max)
+        # Span sink for distributed tracing (util/tracing.py). Entries
+        # are (approx_bytes, span): bounded by COUNT and by BYTES —
+        # spans carry user attrs, and a count-only bound let one chatty
+        # tracer eat arbitrary head memory. No deque maxlen: evictions
+        # must be counted (TRACE_SPANS_DROPPED), not silent. Own lock:
+        # per-request span flushes from every traced worker/replica
+        # (plus trace_tail's O(ring) copies) must not contend with the
+        # scheduler-critical self._lock.
+        self._trace_lock = threading.Lock()
+        self._trace_ring = _collections.deque()
+        self._trace_ring_bytes = 0
         # Compiled-DAG channel registry: channel_id -> {addr, owner,
         # alive, ts}. The ONE-TIME negotiation point for cross-node
         # channel edges (reader registers its endpoint, writer looks it
@@ -454,10 +477,76 @@ class HeadServer:
                 return ("dir_resync", cur)
         return True
 
+    @staticmethod
+    def _sanitize_span(span) -> Tuple[int, dict]:
+        """(approx_bytes, span) with oversized attr values truncated.
+        Spans carry user ``args``: a multi-MB attribute must cost the
+        ring its true size — and get clipped — not ride in under an
+        entry-count bound."""
+        cap = int(cfg.trace_attr_max_bytes)
+        cost = 96
+        attrs = span.get("attrs")
+        if attrs:
+            for k, v in list(attrs.items()):
+                if isinstance(v, (int, float, bool)) or v is None:
+                    cost += len(k) + 16
+                    continue
+                s = v if isinstance(v, str) else repr(v)
+                if len(s) > cap:
+                    s = s[:cap] + "...[truncated]"
+                    attrs[k] = s
+                cost += len(k) + len(s)
+        cost += len(span.get("name", ""))
+        return cost, span
+
+    def rpc_trace_spans(self, conn, spans):
+        """Span sink (reference: trace export to the collector): every
+        process flushes finished spans here; bounded by entry count AND
+        bytes, evictions counted into rtpu_trace_spans_dropped_total."""
+        entries = [self._sanitize_span(s) for s in spans]
+        dropped = 0
+        with self._trace_lock:
+            for cost, span in entries:
+                self._trace_ring.append((cost, span))
+                self._trace_ring_bytes += cost
+            max_n = int(cfg.trace_ring_size)
+            max_b = int(cfg.trace_ring_max_bytes)
+            while self._trace_ring and (
+                    len(self._trace_ring) > max_n
+                    or self._trace_ring_bytes > max_b):
+                old_cost, _old = self._trace_ring.popleft()
+                self._trace_ring_bytes -= old_cost
+                dropped += 1
+        if dropped:
+            TRACE_SPANS_DROPPED.inc(dropped)
+        return True
+
+    def rpc_get_trace(self, conn, trace_id: str):
+        with self._trace_lock:
+            return [s for _c, s in self._trace_ring
+                    if s.get("trace_id") == trace_id]
+
+    def rpc_trace_tail(self, conn, limit: int = 5000):
+        """Most-recent spans regardless of trace id (trace_dump + bench
+        breakdown aggregation read this)."""
+        with self._trace_lock:
+            n = len(self._trace_ring)
+            return [s for _c, s in list(self._trace_ring)[max(0, n - int(limit)):]]
+
+    def rpc_trace_stats(self, conn):
+        with self._trace_lock:
+            return {"spans": len(self._trace_ring),
+                    "bytes": self._trace_ring_bytes,
+                    "dropped_total": TRACE_SPANS_DROPPED.get()}
+
     def rpc_clock_probe(self, conn):
         """Wall-clock probe: nodes (and trace_dump) estimate per-process
         clock offsets as head_time - (t_send + rtt/2)."""
         return time.time()
+
+    def rpc_dump_flight(self, conn):
+        """The head's flight-recorder ring (util/flight_recorder.py)."""
+        return _flight.dump_payload(clock_offset_s=0.0)
 
     def rpc_publish(self, conn, channel: str, payload: Any):
         """Worker-side publishers (reference: per-worker publishers in
@@ -568,6 +657,7 @@ class HeadServer:
                         self._rebucket(n)
                         dead_nodes.append(n.node_id)
             for node_id in dead_nodes:
+                _flight.record("node_dead", node=node_id[:12])
                 self._publish("NODE", {"event": "dead", "node_id": node_id})
                 self._on_node_dead(node_id)
             self._sweep_alive_watch()
@@ -997,6 +1087,8 @@ class HeadServer:
             except Exception:  # best-effort: the node is dead or dying; its TTL sweep releases the block
                 pass
             return None
+        _flight.record("lease_block_grant", block=block_id[:12],
+                       node=node_id[:12])
         return (node_id, node_addr, size, ttl_ms)
 
     def rpc_lease_block_grant(self, conn, block_id: str, owner_addr: str,
@@ -1269,6 +1361,8 @@ class HeadServer:
     def _actor_died(self, info: ActorInfo, reason: str,
                     try_restart: bool) -> None:
         restart = try_restart and info.restart_count < info.max_restarts
+        _flight.record("actor_died", actor=info.actor_id.hex()[:12],
+                       reason=reason[:120], restart=restart)
         with self._lock:
             info.state = RESTARTING if restart else DEAD
             info.worker_addr = None
@@ -1342,6 +1436,8 @@ class HeadServer:
             while len(self._channels) > self._CHANNELS_MAX:
                 cid, evicted = self._channels.popitem(last=False)
                 self._channel_index_drop(cid, evicted)
+        _flight.record("channel_register", ch=channel_id.hex()[:12],
+                       addr=addr)
         return True
 
     def _channel_index_add(self, cid: bytes, ent: dict) -> None:

@@ -24,6 +24,10 @@ def main() -> None:
     bind_to_parent()  # PDEATHSIG armed in the CHILD (no preexec_fn fork)
 
     faulthandler.register(signal.SIGUSR1)
+    from ray_tpu_torch.util import flight_recorder as _flight
+
+    _flight.set_role("node")
+    _flight.install_signal_handler()  # SIGUSR2 = dump the event ring
 
     p = argparse.ArgumentParser()
     p.add_argument("--head-addr", required=True)

@@ -43,9 +43,10 @@ one-process-per-host limit like multi-controller JAX's. A CPU pool worker
 gets ``CUDA_VISIBLE_DEVICES=""`` (and ``RTPU_GPUS=0``), so code there that
 asks for the card raises.
 
-A copy of ``ray_tpu/cluster/node_manager.py`` without ``ray_tpu``'s
-flight recorder, metrics registry and exporter, tracing, RPC and resource
-witnesses.
+A copy of ``ray_tpu/cluster/node_manager.py`` without ``ray_tpu``'s RPC
+and resource witnesses and its pull-manager spans. Each node serves its
+Prometheus text at ``GET /metrics`` (the port rides the ``metrics-port``
+label) and its flight-recorder ring over ``dump_flight``.
 """
 
 from __future__ import annotations
@@ -65,6 +66,7 @@ from ray_tpu_torch.core.config import GLOBAL_CONFIG as cfg
 from ray_tpu_torch.core.shm_store import ShmStore
 from ray_tpu_torch.cluster.protocol import (ClientPool, RpcClient, RpcServer,
                                       blocking_rpc)
+from ray_tpu_torch.util import flight_recorder as _flight
 
 logger = logging.getLogger(__name__)
 
@@ -203,6 +205,7 @@ class NodeManager:
                  object_store_bytes: int, host: str = "127.0.0.1"):
         self.node_id = node_id
         self.head_addr = head_addr
+        _flight.set_role("node", node_id=node_id)
         self.total = dict(resources)
         self.available = dict(resources)
         self.labels = labels
@@ -321,6 +324,26 @@ class NodeManager:
         # head's resource view (and its locality/pack decisions) tracks
         # reality at RPC latency, not heartbeat-period latency.
         self._hb_wake = threading.Event()
+        # Per-node Prometheus endpoint (reference: the per-node metrics
+        # agent exporting core metrics): GET /metrics on this port serves
+        # the process registry + live node gauges; the port is advertised
+        # as a node label for scrape-config discovery.
+        self._metrics_exporter = None
+        if cfg.metrics_export_port >= 0:
+            try:
+                from ray_tpu_torch.util.metrics_agent import start_exporter
+
+                self._metrics_exporter = start_exporter(
+                    host, cfg.metrics_export_port,
+                    collectors=[self._collect_node_metrics])
+                labels = dict(labels)
+                labels["metrics-port"] = str(self._metrics_exporter.port)
+                self.labels = labels
+            except Exception:
+                # Observability is optional, its absence is not: a node
+                # silently missing from scrapes looks like a dead node.
+                logger.warning("metrics exporter failed to start; node "
+                               "metrics disabled", exc_info=True)
         self._head = RpcClient(head_addr)
         acked = self._head.retrying_call("register_node", node_id,
                                          self.address, resources, labels,
@@ -332,6 +355,16 @@ class NodeManager:
         # node's span/flight timestamps onto the head's clock.
         self._clock_offset_s: Optional[float] = None
         self._evictions_seen = 0
+        # Spans emitted IN this process have no runtime to flush
+        # through: route them straight to the head.
+        from ray_tpu_torch.util import tracing as _tracing
+
+        def _trace_sink(spans, _head=self._head, _nid=node_id):
+            for s in spans:
+                s.setdefault("node", _nid)
+            _head.notify("trace_spans", spans)
+
+        _tracing.set_sink(_trace_sink)
         # Workers MUST be spawned from one long-lived thread: PDEATHSIG is
         # delivered when the spawning *thread* exits, and lease handlers run
         # on per-request threads.
@@ -376,6 +409,9 @@ class NodeManager:
             # tables via the death/drain path).
             for bid in list(self._lease_blocks):
                 del self._lease_blocks[bid]
+        if self._metrics_exporter is not None:
+            self._metrics_exporter.stop()
+            self._metrics_exporter = None
         with self._lock:
             workers = list(self._workers.values())
         for w in workers:
@@ -454,6 +490,7 @@ class NodeManager:
                 acked = self._head.call("heartbeat", self.node_id, payload,
                                         version, is_delta, self._dir_seq,
                                         timeout=period)
+                _flight.record("hb", acked=str(acked), delta=is_delta)
                 beats += 1
                 sync_every = cfg.clock_sync_period_beats
                 if sync_every > 0 and beats % sync_every == 1 % sync_every:
@@ -518,7 +555,8 @@ class NodeManager:
             self._clock_offset_s = (off if self._clock_offset_s is None
                                     else 0.7 * self._clock_offset_s
                                     + 0.3 * off)
-            # Offline dumps (SIGUSR2 / chaos-kill) must carry it too.
+            # Offline dumps (SIGUSR2) must carry it too.
+            _flight.set_clock_offset(self._clock_offset_s)
         except Exception as e:
             logger.debug("clock probe failed: %r", e)
 
@@ -532,10 +570,20 @@ class NodeManager:
             logger.debug("store stats read failed: %r", e)
             return
         if n_evictions > self._evictions_seen:
+            _flight.record("store_evict",
+                           n=n_evictions - self._evictions_seen,
+                           total=n_evictions)
             self._evictions_seen = n_evictions
 
     def rpc_clock_probe(self, conn):
         return time.time()
+
+    def rpc_dump_flight(self, conn):
+        """This node's flight ring + its head-relative clock offset."""
+        payload = _flight.dump_payload(
+            clock_offset_s=self._clock_offset_s or 0.0)
+        payload["node_id"] = self.node_id
+        return payload
 
     def _on_head_reregistered(self, new_inc: Optional[str]) -> None:
         """The head forgot us (restart or drain): the freshly-registered
@@ -737,6 +785,8 @@ class NodeManager:
             self._on_worker_dead(w)
 
     def _on_worker_dead(self, w: WorkerProc) -> None:
+        _flight.record("worker_dead", worker=w.worker_id[:12],
+                       addr=w.address or "")
         with self._lock:
             lease = self._leases.pop(w.lease_id, None) if w.lease_id else None
             if lease is not None:
@@ -840,6 +890,56 @@ class NodeManager:
                 with self._idle_cv:
                     self._spawn_done(cards)
                     self._idle_cv.notify_all()
+
+    def _collect_node_metrics(self):
+        """Live node gauges per scrape (store occupancy, workers, leases,
+        resource availability) — the node-plane view the reference's
+        metrics agent exports."""
+        from ray_tpu_torch.util.metrics_agent import gauge_lines
+
+        nid = {"node_id": self.node_id[:12]}
+        lines = []
+        try:
+            used, capacity, n_objects, n_evictions = self.store.stats()
+        except Exception:
+            # Loud but non-fatal: a raise would hit the exporter's
+            # per-collector swallow and silently drop the worker/lease
+            # gauges below along with the store's.
+            if not self._stop.is_set():
+                logger.warning("store stats unavailable for metrics "
+                               "scrape", exc_info=True)
+        else:
+            lines += gauge_lines(
+                "rtpu_node_store_bytes", "object store occupancy",
+                [({**nid, "kind": "used"}, used),
+                 ({**nid, "kind": "capacity"}, capacity)])
+            lines += gauge_lines(
+                "rtpu_node_store_objects", "objects resident in the store",
+                [(nid, n_objects)])
+        with self._lock:
+            n_workers = len(self._workers)
+            n_idle = sum(len(v) for v in self._idle.values())
+            n_leases = len(self._leases)
+            avail = dict(self.available)
+            total = dict(self.total)
+        lines += gauge_lines(
+            "rtpu_node_workers", "worker processes on this node",
+            [({**nid, "state": "alive"}, n_workers),
+             ({**nid, "state": "idle"}, n_idle)])
+        lines += gauge_lines("rtpu_node_leases", "active worker leases",
+                             [(nid, n_leases)])
+        lines += gauge_lines(
+            "rtpu_node_resource", "node resource totals and availability",
+            [({**nid, "resource": k, "kind": "total"}, v)
+             for k, v in total.items()]
+            + [({**nid, "resource": k, "kind": "available"}, v)
+               for k, v in avail.items()])
+        with self._pull_lock:
+            pulls = dict(self.pull_stats)
+        lines += gauge_lines(
+            "rtpu_node_pull", "pull-manager counters",
+            [({**nid, "kind": k}, v) for k, v in pulls.items()])
+        return lines
 
     def _spawn_worker(self, cards: Optional[Tuple[int, ...]] = None,
                       runtime_env=None) -> None:
@@ -1321,8 +1421,7 @@ class NodeManager:
                     "owner": owner_addr, "resources": dict(resources),
                     "remaining": int(size), "size": int(size),
                     "expires_at": time.monotonic() + ttl_ms / 1000.0}
-                # Same-lock acquire as the table insert (witness rule —
-                # see the lease grant path).
+        _flight.record("lease_block_install", block=block_id[:12])
         return True
 
     def rpc_lease_block_revoke(self, conn, block_id: str) -> bool:
@@ -1394,10 +1493,8 @@ class NodeManager:
         w.lease_id = lease_id
         with self._lock:
             self._leases[lease_id] = lease
-            # Registered under the SAME lock as the table insert: the
-            # death sweep pops (and note_release-s) under this lock, so
-            # an acquire landing after a racing release could otherwise
-            # mint a phantom permanently-open entry in the witness.
+        _flight.record("lease_grant", lease=lease_id[:12],
+                       worker=w.address, lessee=str(lease.lessee)[:40])
         return w.address, lease_id
 
     def rpc_return_lease(self, conn, lease_id: str, pool_worker: bool = True):
@@ -1406,6 +1503,8 @@ class NodeManager:
         still be executing a stale copy — never pool it (double-dispatch);
         terminate it and let the death sweep reap (execution-side dedup
         makes the re-routed copies safe)."""
+        _flight.record("lease_return", lease=lease_id[:12],
+                       pooled=pool_worker)
         with self._lock:
             lease = self._leases.pop(lease_id, None)
             if lease is None:
@@ -1573,8 +1672,8 @@ class NodeManager:
         own streams); the transfer fetches from the nearest holder and
         fans chunks of large objects out across several holders in
         parallel. Returns True when the object is locally available.
-        ``trace`` (a wire span context) is accepted and unused: the port
-        has no tracing."""
+        ``trace`` (a wire span context) is accepted and unused: the port's
+        pull manager records no spans."""
         from ray_tpu_torch.core.ids import ObjectID
 
         oid = ObjectID(oid_bytes)
@@ -1699,6 +1798,8 @@ class NodeManager:
             self.store.abort(oid)
             return False
         self.store.seal(oid)
+        _flight.record("store_seal", oid=oid.hex()[:12], bytes=total,
+                       via="pull")
         self._note_local_object(oid.binary(), total)
         with self._pull_lock:
             self.pull_stats["bytes_pulled"] += total

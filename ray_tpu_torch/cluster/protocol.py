@@ -64,6 +64,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 from ray_tpu_torch.core.config import GLOBAL_CONFIG as cfg
 from ray_tpu_torch.core.serialization import SERIALIZER
+from ray_tpu_torch.util import flight_recorder as _flight
 
 _LEN = struct.Struct("<I")
 
@@ -277,8 +278,8 @@ def _recv_msg(sock: socket.socket, sink_for: Optional[Callable] = None
 READONLY_RPCS = frozenset({
     "ping", "list_nodes", "list_actors", "list_leases", "list_task_events",
     "cluster_resources", "cluster_leases", "get_actor_info",
-    "get_named_actor",
-    "clock_probe", "pick_node", "pick_nodes",
+    "get_named_actor", "get_trace", "trace_tail", "trace_stats",
+    "clock_probe", "dump_flight", "pick_node", "pick_nodes",
     "object_locations", "scheduler_stats", "pg_table", "pg_ready",
     "kv_get", "kv_keys", "get_demand", "has_object", "store_stats",
     # channel negotiation: endpoint + liveness read (writers poll it
@@ -345,7 +346,7 @@ NON_RETRYABLE_RPCS = frozenset({
     # batched outbox per process, never a retry loop
     "object_added", "object_removed", "object_batch",
     # observability / control flushes (best-effort by contract)
-    "publish", "report_task_events", "report_backlog",
+    "trace_spans", "publish", "report_task_events", "report_backlog",
     # cancellation: re-delivery could cancel a legitimately re-executed
     # retry of the same task id
     "cancel_task",
@@ -521,6 +522,11 @@ class RpcServer:
 
     def _dispatch(self, conn: "PeerConnection", payload) -> None:
         req_id, method, args = payload
+        # Flight recorder: one ring append per dispatched RPC — the
+        # post-mortem record of what this process was serving in the
+        # seconds before a kill (heartbeats are recorded by their loops).
+        if method != "heartbeat":
+            _flight.record("rpc", m=method, notify=req_id == 0)
         fn = getattr(self.handler_obj, "rpc_" + method, None)
 
         def run():

@@ -252,6 +252,10 @@ class WorkerRuntime(ClusterCore):
             return (t_start, time.time(), name)
 
         attempt = 0
+        # Wire trace context (None when tracing is off OR the submitter
+        # was untraced): every span emit below gates on it, so the
+        # untraced path allocates no span state at all.
+        wire = spec.get("trace") if cfg.tracing_enabled else None
         # Context covers ARG RESOLUTION too: blocked scopes during arg
         # fetches must release the node resources + the execution slot, or
         # a task waiting for an upstream output would pin the worker.
@@ -261,8 +265,25 @@ class WorkerRuntime(ClusterCore):
         try:
             while True:
                 try:
-                    args, kwargs = self._resolve_args(spec["args"],
-                                                      spec["kwargs"])
+                    if wire is not None:
+                        from ray_tpu_torch.util import tracing as _tracing
+
+                        n_refs = (sum(1 for a in spec["args"]
+                                      if isinstance(a, ObjectRef))
+                                  + sum(1 for v in spec["kwargs"].values()
+                                        if isinstance(v, ObjectRef)))
+                        t_args0 = time.time()
+                        with _tracing.attach(wire):
+                            args, kwargs = self._resolve_args(
+                                spec["args"], spec["kwargs"])
+                        if n_refs:
+                            _tracing.emit_span(
+                                "task.arg_fetch", t_args0, time.time(),
+                                parent=wire,
+                                attrs={"task": name, "refs": n_refs})
+                    else:
+                        args, kwargs = self._resolve_args(spec["args"],
+                                                          spec["kwargs"])
                 except TaskError as te:
                     self._send_results(owner, task_id, return_ids,
                                        error=te, span=span())
@@ -285,14 +306,48 @@ class WorkerRuntime(ClusterCore):
                 try:
                     func = (self._fetch_function(spec["func_digest"])
                             if "func_digest" in spec else spec["func"])
-                    if spec.get("streaming"):
-                        self._execute_streaming(
-                            owner, task_id, func, args, kwargs,
-                            span, spec.get("stream_ahead"))
-                        return
-                    result = func(*args, **kwargs)
+                    traced = wire is not None
+                    if traced:
+                        from ray_tpu_torch.util import tracing as _tracing
+
+                        span_cm = _tracing.remote_span(f"task:{name}",
+                                                       wire)
+                    else:
+                        import contextlib as _contextlib
+
+                        span_cm = _contextlib.nullcontext()
+                    # finally-flush: a FAILED task's span (the one
+                    # operators most need) must ship now, not at the
+                    # next buffer high-water mark.
+                    try:
+                        with span_cm as span_h:
+                            if spec.get("streaming"):
+                                ok = self._execute_streaming(
+                                    owner, task_id, func, args, kwargs,
+                                    span, spec.get("stream_ahead"))
+                                if not ok and span_h is not None and \
+                                        hasattr(span_h, "_span"):
+                                    # streaming converts exceptions into
+                                    # stream_end records; reflect the
+                                    # failure on the span ourselves.
+                                    span_h._span["ok"] = False
+                                return
+                            result = func(*args, **kwargs)
+                    finally:
+                        if traced:
+                            _tracing.flush()
+                    t_seal0 = time.time() if traced else 0.0
                     self._send_results(owner, task_id, return_ids,
                                        value=result, span=span())
+                    if traced:
+                        # task.result_seal: serialize + (inline | shm
+                        # seal) + enqueue to the completion flusher.
+                        _tracing.emit_span(
+                            "task.result_seal", t_seal0, time.time(),
+                            parent=wire,
+                            attrs={"task": name,
+                                   "returns": len(return_ids)})
+                        _tracing.flush()
                     return
                 except TaskError as te:
                     self._send_results(owner, task_id, return_ids, error=te,
@@ -912,6 +967,40 @@ class WorkerRuntime(ClusterCore):
         os._exit(0)
 
 
+def _arm_flight_recorder() -> None:
+    """Tag this process's flight ring as a worker's, arm SIGUSR2 = dump,
+    and dump the ring on an unhandled fatal error (main thread or any
+    execution thread) before the process dies: the post-mortem a dead
+    worker's operators otherwise never get. Cold-spawned and
+    zygote-forked workers both call it."""
+    from ray_tpu_torch.util import flight_recorder as _flight
+
+    _flight.set_role("worker")
+    _flight.install_signal_handler()  # SIGUSR2 = dump the event ring
+
+    _orig_excepthook = sys.excepthook
+    _orig_thread_hook = threading.excepthook
+
+    def _dump_excepthook(exc_type, exc, tb):
+        path = _flight.dump_to_file(reason=f"unhandled:{exc_type.__name__}")
+        if path:
+            print(f"RTPU_FLIGHT: dumped {path}", file=sys.stderr,
+                  flush=True)
+        _orig_excepthook(exc_type, exc, tb)
+
+    def _dump_thread_hook(hook_args):
+        if not issubclass(hook_args.exc_type, SystemExit):
+            path = _flight.dump_to_file(
+                reason=f"unhandled-thread:{hook_args.exc_type.__name__}")
+            if path:
+                print(f"RTPU_FLIGHT: dumped {path}", file=sys.stderr,
+                      flush=True)
+        _orig_thread_hook(hook_args)
+
+    sys.excepthook = _dump_excepthook
+    threading.excepthook = _dump_thread_hook
+
+
 def _zygote_child(args, worker_id: str) -> None:
     """Post-fork worker setup: own PDEATHSIG (vs the zygote), own log
     file, then the normal worker runtime."""
@@ -935,6 +1024,7 @@ def _zygote_child(args, worker_id: str) -> None:
     devnull = os.open(os.devnull, os.O_RDONLY)
     os.dup2(devnull, 0)
     os.close(devnull)
+    _arm_flight_recorder()
     WorkerRuntime(args.head_addr, args.node_addr, args.node_id,
                   args.store_name, worker_id)
     while True:
@@ -1021,6 +1111,7 @@ def main() -> None:
     bind_to_parent()  # PDEATHSIG armed in the CHILD (no preexec_fn fork)
 
     faulthandler.register(signal.SIGUSR1)  # kill -USR1 <pid> dumps stacks
+    _arm_flight_recorder()
 
     WorkerRuntime(args.head_addr, args.node_addr, args.node_id,
                   args.store_name, args.worker_id)  # installs itself

@@ -46,6 +46,7 @@ from ray_tpu_torch.cluster.protocol import (ClientPool, ConnectionLost, RpcClien
 from ray_tpu_torch.exceptions import (ActorDiedError, GetTimeoutError, TaskError,
                                 WorkerCrashedError)
 from ray_tpu_torch.core.lineage import LineageRecord as _LineageRecord
+from ray_tpu_torch.util import metrics as _metrics
 
 logger = logging.getLogger(__name__)
 
@@ -122,7 +123,7 @@ class _InflightTask:
     __slots__ = ("spec_blob", "return_ids", "worker_addr", "retries_left",
                  "sched_key", "resources", "strategy", "name", "sys_retries",
                  "runtime_env", "streaming", "arg_ids", "enqueued_at",
-                 "pref_node")
+                 "pref_node", "trace_ctx", "submit_t")
 
     def __init__(self, spec_blob, return_ids, worker_addr, retries_left,
                  sched_key, resources, strategy, name, runtime_env=None,
@@ -148,6 +149,12 @@ class _InflightTask:
         # answer only depends on arg_ids + the slow-changing locality
         # cache. Re-resolved while unknown (locations may arrive late).
         self.pref_node: Any = False
+        # Distributed tracing: the submitter's wire span context (None
+        # when tracing is off — the dispatcher-side span emits are gated
+        # on it, so the untraced hot path allocates nothing) and the
+        # wall-clock submit time the dispatch span starts from.
+        self.trace_ctx: Optional[Dict[str, str]] = None
+        self.submit_t = 0.0
 
 
 class _StreamState:
@@ -315,7 +322,9 @@ class ClusterCore:
         self._pool = ClientPool()
         self.head = RpcClient(head_addr)
         self.node = RpcClient(node_addr)
+        from ray_tpu_torch.util import flight_recorder as _fl
 
+        _fl.set_role("driver" if is_driver else "worker", node_id=node_id)
         self._server = RpcServer(self).start()
         self.owner_addr = self._server.address
 
@@ -387,6 +396,9 @@ class ClusterCore:
         self._cancelled: set = set()
         self._cancelled_order: "_c.deque" = _c.deque()
         self._shutdown_flag = False
+        if cfg.metrics_report_period_ms > 0:
+            threading.Thread(target=self._metrics_report_loop, daemon=True,
+                             name="metrics-report").start()
         # Push-ack tracking: every push_task is an acked call collected off
         # the dispatch hot path; unacked pushes are retried (worker-side
         # task-id dedup makes retries exactly-once per worker).
@@ -762,7 +774,8 @@ class ClusterCore:
             self._put_plasma(oid, header, buffers)
             self.memory_store.put(oid, PlasmaStub(oid))
             self._note_object_location(oid.binary(), self.node_id, total)
-
+        _metrics.OBJECTS_PUT.inc()
+        _metrics.PUT_BYTES.inc(total)
         return ObjectRef(oid, self.owner_addr)
 
     def _put_plasma(self, oid: ObjectID, header: bytes, buffers) -> None:
@@ -817,11 +830,17 @@ class ClusterCore:
                                            else 600.0)
             ok = False
             failed_pulls = 0
+            pull_trace = None
+            if cfg.tracing_enabled:
+                # Parent the node-side pull to the requesting task's span.
+                from ray_tpu_torch.util import tracing as _tr
+
+                pull_trace = _tr.current()
             with self._blocked_scope():
                 while not ok and time.monotonic() < deadline:
                     try:
                         ok = bool(self.node.call("pull_object", oid.binary(),
-                                                 5000, None,
+                                                 5000, pull_trace,
                                                  timeout=8))
                     except ConnectionLost:
                         # Dead socket fails instantly — back off + reconnect
@@ -1246,8 +1265,9 @@ class ClusterCore:
         status = ("error" if any(k == "error" for _o, k, _p in results)
                   else "ok")
         if span is not None:
-
             t0, t1, name = span
+            _metrics.TASKS_FINISHED.inc()
+            _metrics.TASK_EXEC_SECONDS.observe(max(0.0, t1 - t0))
             event = {
                 "task_id": task_id_bytes.hex(), "name": name,
                 "duration_s": round(t1 - t0, 6), "status": status,
@@ -1344,6 +1364,54 @@ class ClusterCore:
 
     def rpc_clock_probe(self, conn):
         return time.time()
+
+    def _metrics_report_loop(self) -> None:
+        """Publish this process's metric registry to the head KV every
+        ``metrics_report_period_ms`` (reference: per-node metrics agents
+        pushing to Prometheus). A registry with no sample yet, or
+        unchanged since the last publish, is not sent."""
+        from ray_tpu_torch.util import metrics as _m
+
+        period = cfg.metrics_report_period_ms / 1000.0
+        last = None
+        while not self._shutdown_flag:
+            time.sleep(period)
+            if not _m.has_samples():
+                continue
+            text = _m.prometheus_text()
+            if text == last:
+                continue
+            try:
+                self.publish_metrics(text)
+                last = text
+            except Exception:
+                pass
+
+    def publish_metrics(self, text: Optional[str] = None) -> None:
+        """Write this process's registry (``text``, default: rendered
+        now) to the head KV: the driver as ``metrics/<node>``, as
+        ``ray_tpu``'s does; a worker as ``metrics/<node>/<pid>``, so a
+        replica's engine counters reach the head too."""
+        import os
+
+        from ray_tpu_torch.util import metrics as _m
+
+        key = f"metrics/{self.node_id[:12]}"
+        if not self.is_driver:
+            key += f"/{os.getpid()}"
+        if text is None:
+            text = _m.prometheus_text()
+        self.head.retrying_call("kv_put", "default", key.encode(),
+                                text.encode(), True, timeout=10)
+
+    def rpc_dump_flight(self, conn):
+        """This process's flight-recorder ring (drivers/workers serve it
+        too — trace_dump and post-mortems read any process)."""
+        from ray_tpu_torch.util import flight_recorder as _fl
+
+        payload = _fl.dump_payload()
+        payload["node_id"] = self.node_id
+        return payload
 
     # ------------------------------------------------------------------ tasks
 
@@ -1499,6 +1567,16 @@ class ClusterCore:
         spec["args"] = tuple(args)
         spec["kwargs"] = dict(kwargs)
         spec["return_ids"] = [o.binary() for o in return_ids]
+        trace_ctx = None
+        t_submit = 0.0
+        if cfg.tracing_enabled:
+            from ray_tpu_torch.util import tracing
+
+            t_submit = time.time()
+            ctx = tracing.current()
+            if ctx is not None:
+                spec["trace"] = ctx
+                trace_ctx = ctx
         spec_blob = SERIALIZER.encode(spec)
         if tmpl.spread:
             sched_key = _sched_key(tmpl.func, tmpl.resources, tmpl.strategy)
@@ -1510,6 +1588,9 @@ class ClusterCore:
                              tmpl.effective_retries, sched_key,
                              tmpl.resources, tmpl.strategy, tmpl.name,
                              tmpl.runtime_env, streaming=tmpl.streaming)
+        info.trace_ctx = trace_ctx
+        info.submit_t = t_submit
+        _metrics.TASKS_SUBMITTED.inc()
         arg_ids = self._register_submitted_args(task_id_bytes, args, kwargs)
         info.arg_ids = arg_ids
         if tmpl.streaming:
@@ -1518,12 +1599,29 @@ class ClusterCore:
             with self._streams_lock:
                 self._streams[task_id_bytes] = _StreamState()
             self._enqueue_task(task_id_bytes, info)
+            self._emit_submit_span(info, t_submit)
             return ObjectRefGenerator(self, task_id)
         self.lineage.record(task_id_bytes, _LineageRecord(
             spec_blob, sched_key, tmpl.resources, tmpl.strategy, tmpl.name,
             return_ids, arg_ids, runtime_env=tmpl.runtime_env))
         self._enqueue_task(task_id_bytes, info)
+        self._emit_submit_span(info, t_submit)
         return refs
+
+    @staticmethod
+    def _emit_submit_span(info: "_InflightTask", t_submit: float) -> None:
+        """task.submit: spec build + arg registration + enqueue (the
+        owner-side cost before the dispatcher takes over). Gated on the
+        task's captured wire context so the untraced path is one None
+        check."""
+        if info.trace_ctx is None:
+            return
+        from ray_tpu_torch.util import tracing
+
+        tracing.emit_span("task.submit", t_submit, time.time(),
+                          parent=info.trace_ctx,
+                          attrs={"task": info.name,
+                                 "args": len(info.arg_ids)})
 
     # ------------------------------------------------- streaming generators
 
@@ -1928,6 +2026,7 @@ class ClusterCore:
         lease = None
         via_block = False
         hint = self._locality_hint_for(sample)
+        t_lease0 = time.time() if sample.trace_ctx is not None else 0.0
         try:
             # Steady state: admit against the key's lease block
             # node-direct; only a missing/dead block pays the
@@ -1944,7 +2043,21 @@ class ClusterCore:
         finally:
             with self._lease_lock:
                 kq.pending_lease_requests -= 1
+        if sample.trace_ctx is not None:
+            # task.lease: pick_node + request_lease round-trip for the
+            # sampled task's scheduling key (grants are shared by the
+            # key's whole queue; the span is parented to the task whose
+            # shape/locality hint drove the request).
+            from ray_tpu_torch.util import tracing as _tr
 
+            _tr.emit_span(
+                "task.lease", t_lease0, time.time(),
+                parent=sample.trace_ctx,
+                attrs={"task": sample.name,
+                       "granted": lease is not None,
+                       "node": (lease.node_id or "") if lease else "",
+                       "worker": lease.worker_addr if lease else ""},
+                ok=env_err is None)
         if env_err is not None:
             # The env can never materialize: every queued task of this key
             # fails NOW with the real install error (not a hang).
@@ -2040,7 +2153,20 @@ class ClusterCore:
             waiter = worker.call_async(
                 "push_tasks",
                 [(tid, info.spec_blob) for tid, info in survivors])
+            for _tid, info in survivors:
+                if info.trace_ctx is not None:
+                    # task.dispatch: submit -> lease pairing -> push
+                    # frame on the wire (one span per push ATTEMPT —
+                    # emitted only after the frame actually sent, so a
+                    # dead-worker failure below records nothing).
+                    from ray_tpu_torch.util import tracing as _tr
 
+                    _tr.emit_span(
+                        "task.dispatch", info.submit_t or time.time(),
+                        time.time(), parent=info.trace_ctx,
+                        attrs={"task": info.name,
+                               "worker": lease.worker_addr,
+                               "node": lease.node_id or ""})
             self._push_acks.append(
                 [waiter, survivors, lease, kq, 0,
                  time.monotonic() + cfg.push_ack_timeout_s])
@@ -2690,7 +2816,7 @@ class ClusterCore:
             tuple(args), dict(kwargs),
             [o.binary() for o in return_ids], self.owner_addr))
         self._register_submitted_args(task_id.binary(), args, kwargs)
-
+        _metrics.ACTOR_CALLS.inc()
         # Seq assignment + enqueue are synchronous with the caller: two
         # sequential .remote() calls CANNOT be reordered (the sender thread
         # drains in seq order).

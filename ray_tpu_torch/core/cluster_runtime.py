@@ -1,6 +1,7 @@
 """Driver-side cluster runtime: boots head + node processes and connects
-(``ray_tpu/core/cluster_runtime.py``, without ``SimulatedCluster``, the
-metrics report loop and the rolling head upgrade).
+(``ray_tpu/core/cluster_runtime.py``, without ``SimulatedCluster`` and
+the rolling head upgrade; the metrics report loop lives in ``ClusterCore``,
+so workers publish their registries too).
 
 Parity target: the reference's Node/process-launcher path (reference:
 python/ray/_private/node.py:37 start_head_processes :1407,

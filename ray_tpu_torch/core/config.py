@@ -1,6 +1,6 @@
 """Runtime configuration flag table (``ray_tpu/core/config.py``, trimmed to
 the flags the local runtime, the cluster runtime, the compiled DAGs,
-serve and data read).
+serve, data and the metrics, tracing and flight-recorder modules read).
 
 Equivalent of the reference's RAY_CONFIG macro table (reference:
 src/ray/common/ray_config_def.h), as a typed Python registry: every flag is
@@ -10,8 +10,8 @@ overridable via ``RTPU_<NAME>`` environment variables and via the
 differ from ``ray_tpu``'s on purpose: ``log_dir`` and
 ``object_spilling_dir`` lie under the port's own directories in
 ``tempfile.gettempdir()``, so the two packages' clusters never share a
-session directory. The flags of the proxies, SLOs, QoS and autoscaling come
-with those modules (ROADMAP.md, queue 1, item 9).
+session directory. The witnesses' and the chaos harness's flags come with
+them (ROADMAP.md, queue 1, item 8b).
 """
 
 from __future__ import annotations
@@ -180,6 +180,88 @@ _d("serve_snapshot_journal", int, 64,
    "generations of per-replica change sets are journaled per "
    "deployment — long-pollers within the window receive only changed "
    "snapshots (O(touched)); anyone further behind gets a full resync")
+
+_d("serve_slo_ttft_budget_ms", float, 0.0,
+   "admission control: p99 TTFT budget per deployment at the ingress "
+   "proxy — past it, new requests queue (bounded) then shed with a "
+   "503. 0 disables admission control")
+_d("serve_slo_queue_depth", int, 32,
+   "admission control: max requests parked per deployment while the "
+   "p99 budget is breached before shedding")
+_d("serve_slo_queue_timeout_s", float, 5.0,
+   "admission control: max seconds a request waits in the admission "
+   "queue before shedding")
+_d("serve_slo_window", int, 64,
+   "admission control: sliding window of recent TTFT samples the "
+   "p99 estimate is computed over")
+_d("serve_slo_min_samples", int, 8,
+   "admission control: TTFT samples required before the p99 estimate "
+   "can gate admission (cold deployments admit freely)")
+_d("serve_slo_probe_inflight", int, 1,
+   "admission control: in-flight requests still admitted while over "
+   "budget — fresh samples must keep flowing or the p99 estimate "
+   "could never recover")
+_d("serve_autoscale_up_sustain_s", float, 2.0,
+   "serve autoscaling: seconds load must exceed target before scaling "
+   "up (one-tick spikes don't add replicas)")
+_d("serve_autoscale_down_sustain_s", float, 10.0,
+   "serve autoscaling: seconds load must sit below the down threshold "
+   "before scaling down (idle gaps between bursts don't thrash)")
+_d("serve_autoscale_down_threshold", float, 0.5,
+   "serve autoscaling: scale down only while mean ongoing per replica "
+   "is under this fraction of target_ongoing_requests")
+_d("serve_autoscale_cooldown_s", float, 5.0,
+   "serve autoscaling: min seconds between replica-count changes "
+   "(hysteresis both directions)")
+_d("serve_qos_tokens_per_s", float, 0.0,
+   "per-tenant QoS: default token-budget refill rate (LLM tokens/s — "
+   "prompt + max_new per request) for tenants without an explicit "
+   "TenantConfig. 0 (default) = unlimited budget; WFQ ordering and "
+   "priority classes still apply between contending tenants")
+_d("serve_qos_burst_tokens", float, 0.0,
+   "per-tenant QoS: default token-bucket capacity; 0 derives 4 seconds "
+   "of the refill rate (a short burst rides through, sustained flood "
+   "pins the tenant to its rate)")
+_d("serve_qos_tenant_idle_s", float, 600.0,
+   "per-tenant QoS: reap a lazily-minted tenant lane (bucket, WFQ "
+   "state, TTFT window) after this many seconds with nothing queued, "
+   "inflight, or recorded. Tenants installed via configure_tenant are "
+   "pinned and never reaped. 0 disables reaping (the tenant map then "
+   "grows with the distinct-tenant universe — bounded only by churn)")
+_d("serve_qos_queue_depth", int, 0,
+   "per-tenant QoS: max requests parked PER TENANT at the admission "
+   "gate before that tenant sheds (isolation: one flooding tenant "
+   "fills only its own queue). 0 = use serve_slo_queue_depth")
+
+# --- metrics, tracing, flight recorder ---
+_d("metrics_report_period_ms", int, 5000, "metrics push period")
+_d("metrics_export_port", int, 0,
+   "per-node Prometheus scrape port (GET /metrics on every node manager; "
+   "the bound port rides the node's 'metrics-port' label). 0 = ephemeral "
+   "port, -1 disables the exporter")
+_d("tracing_enabled", bool, False,
+   "distributed spans: task specs carry the submitter's trace context, "
+   "executors open child spans, spans flush to the head trace ring "
+   "(reference: the opt-in OpenTelemetry hooks in util/tracing/)")
+_d("trace_ring_size", int, 20_000, "head-side retained span cap (entries)")
+_d("trace_ring_max_bytes", int, 16 * 1024**2,
+   "head-side retained span cap in approximate BYTES (spans carry user "
+   "attrs; entry count alone lets one chatty tracer eat the head's "
+   "memory); overflow drops oldest spans and counts them into "
+   "rtpu_trace_spans_dropped_total")
+_d("trace_attr_max_bytes", int, 1024,
+   "per-attribute value size cap at the head's span sink: larger values "
+   "are truncated with a '...[truncated]' marker on ingest")
+_d("flight_recorder_enabled", bool, True,
+   "always-on per-process ring of structured runtime events (RPC "
+   "dispatch, heartbeats, lease churn, store seal/evict, engine ticks); "
+   "dumped via rpc_dump_flight, SIGUSR2, chaos kills, and unhandled "
+   "worker death (util/flight_recorder.py)")
+_d("flight_recorder_size", int, 4096,
+   "flight-recorder ring capacity (events per process)")
+_d("flight_recorder_dump_dir", str, "",
+   "directory for flight-recorder dump files (SIGUSR2 / chaos-kill / "
+   "worker-death); empty = the log dir")
 
 # --- compiled DAGs ---
 _d("dag_channel_capacity", int, 8,

@@ -1,12 +1,14 @@
 """Serve controller: the reconciling control plane for deployments
-(``ray_tpu/serve/_private/controller.py``, without the HTTP proxies and
-autoscaling: ROADMAP.md, queue 1, items 9g and 9f).
+(``ray_tpu/serve/_private/controller.py``).
 
 Parity target: reference python/ray/serve/_private/controller.py
-(ServeController :84) + deployment_state.py (DeploymentState.update :2662):
-a single named actor owns the target state (deployment -> config),
-continuously reconciles running replicas toward it, polls the replicas'
-load snapshots, and answers routing queries. ``shutdown`` returns once its
+(ServeController :84) + deployment_state.py (DeploymentState.update :2662)
++ autoscaling_state.py (:262): a single named actor owns the target state
+(deployment -> config), continuously reconciles running replicas toward
+it, polls the replicas' load snapshots, answers routing queries, resizes
+a deployment with an ``autoscaling_config`` through its autoscaling policy
+(autoscaling_policy.py), and keeps one HTTP proxy a node once
+``start_http_proxies`` asked for them. ``shutdown`` returns once its
 reconcile thread and the replicas it stops are gone.
 """
 
@@ -54,6 +56,14 @@ class ServeController:
         # saw (the != comparator would miss that change forever).
         self._version_clock = 0
         self._shutdown = False
+        # node_id -> (proxy actor, address); reconciled to one per node
+        # when HTTP is enabled (reference: proxy_state.py ProxyStateManager).
+        self._proxies: Dict[str, Any] = {}
+        self._http_cfg: Any = None
+        # Serializes _ensure_proxies (user RPC vs reconcile loop): two
+        # concurrent passes would each spawn a proxy for the same node and
+        # the overwritten handle would leak its actor forever.
+        self._proxy_mutex = threading.Lock()
         self._wake = threading.Event()  # cuts the reconcile sleep short
         self._loop_thread = threading.Thread(
             target=self._reconcile_loop, daemon=True, name="serve-reconcile")
@@ -85,7 +95,8 @@ class ServeController:
                 d = self._deployments[name] = {
                     "cls": cls, "init_args": init_args,
                     "init_kwargs": init_kwargs, "config": dict(config),
-                    "replicas": [], "version": 0, "loads": {},
+                    "replicas": [], "version": 0, "last_scale": 0.0,
+                    "loads": {}, "policy": None,
                 }
             else:
                 d.update(cls=cls, init_args=init_args,
@@ -96,6 +107,7 @@ class ServeController:
                 self._stop_replicas(d["replicas"])
                 d["replicas"] = []
                 d["loads"] = {}
+                d["policy"] = None
                 self._bump_set(name)
         self._reconcile_once(name)
         return True
@@ -123,13 +135,22 @@ class ServeController:
         out), so nothing of serve keeps running after it."""
         with self._lock:
             self._shutdown = True
+            self._http_cfg = None  # reconcile must not respawn proxies
             deps = list(self._deployments.values())
             names = list(self._deployments)
             self._deployments.clear()
             for n in names:
                 self._bump_set(n)
+            proxies = list(self._proxies.values())
+            self._proxies.clear()
         self._wake.set()
         drains = [t for d in deps for t in self._stop_replicas(d["replicas"])]
+        for actor, _addr in proxies:
+            try:
+                self._ray.get(actor.stop.remote(), timeout=5)
+                self._ray.kill(actor)
+            except Exception:
+                pass
         self._loop_thread.join(timeout=30.0)
         for t in drains:
             t.join(timeout=30.0)
@@ -167,6 +188,55 @@ class ServeController:
 
     # ---------------------------------------------------------- reconcile
 
+    def _desired_replicas(self, d: Dict[str, Any]) -> int:
+        from ray_tpu_torch.serve._private.autoscaling_policy import \
+            ServeAutoscalePolicy
+
+        from ray_tpu_torch.core.config import GLOBAL_CONFIG as gcfg
+
+        with self._lock:
+            cfg = dict(d["config"])
+            replicas = list(d["replicas"])
+            loads_map = dict(d["loads"])
+            loads_age = time.monotonic() - d.get("loads_mono",
+                                                 float("-inf"))
+            policy = d["policy"]
+        if loads_age > gcfg.serve_snapshot_ttl_s:
+            # Sweep has not landed recently (every replica poll failing,
+            # e.g. wedged engines): spike-era snapshots frozen in the
+            # cache must not keep driving scale decisions — same TTL the
+            # router applies. The queue_len fallback below still runs.
+            loads_map = {}
+        n = cfg.get("num_replicas", 1)
+        auto = cfg.get("autoscaling_config")
+        if not auto:
+            return n
+        if not replicas:
+            return max(1, auto.get("min_replicas", 1))
+        if policy is None:
+            # Per-deployment policy state (sustain windows, cooldown);
+            # reset on redeploy by deploy() so config changes take.
+            policy = ServeAutoscalePolicy(auto)
+            with self._lock:
+                d["policy"] = policy
+        # The snapshot sweep (this same reconcile tick) already holds
+        # every replica's load — queue depth, engine waiting, decode
+        # utilization. No extra RPC here; replicas the sweep missed
+        # contribute None and the policy treats the tick accordingly.
+        loads = [loads_map.get(r) for r in replicas]
+        if not any(s is not None for s in loads):
+            # Snapshot sweep hasn't covered this set yet (first tick
+            # after deploy): fall back to a direct queue-length poll so
+            # a cold controller still reacts (legacy behavior).
+            try:
+                lens = self._ray.get(
+                    [r.queue_len.remote() for r in replicas], timeout=5)
+                loads = [{"queue_depth": q} for q in lens]
+            except Exception as e:
+                logger.debug("queue_len fallback poll failed: %r", e)
+                return len(replicas)
+        return policy.desired(len(replicas), loads, time.monotonic())
+
     def _reconcile_once(self, name: str) -> None:
         with self._reconcile_mutex:
             self._reconcile_once_locked(name)
@@ -178,8 +248,23 @@ class ServeController:
             d = self._deployments.get(name)
             if d is None:
                 return
+            version = d["version"]
+        # The desired-count computation may RPC the replicas (queue
+        # lengths): it must run OUTSIDE the routing lock or every
+        # get_replicas/status call stalls behind it each reconcile tick.
+        desired = self._desired_replicas(d)
+        with self._lock:
+            if self._deployments.get(name) is not d \
+                    or d["version"] != version:
+                return  # redeployed underneath us; next tick handles it
+            current = len(d["replicas"])
             cfg = d["config"]
-            to_add = cfg.get("num_replicas", 1) - len(d["replicas"])
+            to_add = desired - current
+            # Hysteresis: autoscaling changes at most once per 5s.
+            if cfg.get("autoscaling_config") and to_add != 0:
+                if time.monotonic() - d["last_scale"] < 5.0:
+                    return
+                d["last_scale"] = time.monotonic()
             cls, args, kwargs = d["cls"], d["init_args"], d["init_kwargs"]
             res = dict(cfg.get("ray_actor_options", {}))
         if to_add > 0:
@@ -226,6 +311,10 @@ class ServeController:
                 except Exception:
                     pass
             self._check_replica_health()
+            try:
+                self._ensure_proxies()
+            except Exception:
+                pass
 
     def _poll_loads(self) -> None:
         """One load-snapshot sweep: poll every replica of every
@@ -499,6 +588,81 @@ class ServeController:
                     return (v, replicas, g,
                             ("full", self._loads_for(d, replicas)))
                 self._set_cond.wait(deadline - time.monotonic())
+
+    # -------------------------------------------------------- HTTP proxies
+
+    def start_http_proxies(self, host: str = "127.0.0.1") -> Dict[str, str]:
+        """One proxy actor per alive node (reference: ProxyStateManager,
+        proxy_state.py) — reconciled continuously: new nodes get a proxy,
+        dead proxies are respawned. Returns {node_id: address}."""
+        with self._lock:
+            self._http_cfg = host
+        self._ensure_proxies()
+        with self._lock:
+            return {nid: addr for nid, (_a, addr) in self._proxies.items()}
+
+    def list_proxies(self) -> Dict[str, str]:
+        with self._lock:
+            return {nid: addr for nid, (_a, addr) in self._proxies.items()}
+
+    def _ensure_proxies(self) -> None:
+        with self._proxy_mutex:
+            self._ensure_proxies_locked()
+
+    def _ensure_proxies_locked(self) -> None:
+        with self._lock:
+            host = self._http_cfg
+        if host is None or self._shutdown:
+            return
+        from ray_tpu_torch.core.task_spec import NodeAffinitySchedulingStrategy
+        from ray_tpu_torch.serve._private.proxy import HTTPProxyActor
+        try:
+            nodes = [n for n in self._ray.nodes()
+                     if n.get("alive", True)]
+        except Exception:
+            return
+        alive_ids = {n["node_id"] for n in nodes}
+        with self._lock:
+            have = dict(self._proxies)
+        # Reap proxies on dead nodes / dead proxy actors.
+        for nid, (actor, _addr) in have.items():
+            dead = nid not in alive_ids
+            if not dead:
+                try:
+                    self._ray.get(actor.healthy.remote(), timeout=5)
+                except Exception:
+                    dead = True
+            if dead:
+                with self._lock:
+                    self._proxies.pop(nid, None)
+                try:
+                    self._ray.kill(actor)
+                except Exception:
+                    pass
+        for nid in alive_ids:
+            with self._lock:
+                if nid in self._proxies:
+                    continue
+            try:
+                actor = self._ray.remote(HTTPProxyActor).options(
+                    num_cpus=0, max_concurrency=8,
+                    scheduling_strategy=NodeAffinitySchedulingStrategy(
+                        node_id=nid, soft=True)).remote(host, 0)
+                addr = self._ray.get(actor.address.remote(), timeout=60)
+            except Exception:
+                continue
+            with self._lock:
+                if self._shutdown or self._http_cfg is None:
+                    keep = False
+                else:
+                    keep = True
+                    self._proxies[nid] = (actor, addr)
+            if not keep:
+                try:
+                    self._ray.kill(actor)
+                except Exception:
+                    pass
+                return
 
     def list_deployments(self) -> Dict[str, Dict[str, Any]]:
         with self._lock:

@@ -1,6 +1,6 @@
 """Replica actor: hosts one copy of a deployment's user callable
-(``ray_tpu/serve/_private/replica.py``, without the tracing spans and the
-stream-slot witness).
+(``ray_tpu/serve/_private/replica.py``, without the stream-slot witness:
+ROADMAP.md, queue 1, item 8b).
 
 Parity target: reference python/ray/serve/_private/replica.py (ReplicaActor
 :883, UserCallableWrapper :1125) — constructs the user class once, serves
@@ -69,7 +69,20 @@ class ReplicaActor:
             if len(self._window) > 1000:
                 self._window = self._window[-500:]
         token = _request_context.set(context or {})
+        # Serve-path trace propagation: the handle ships the request's
+        # wire span context in the request context dict; the replica
+        # span wraps the user callable so engine spans (opened on this
+        # thread) parent under it. None when tracing is off.
+        wire = (context or {}).get("trace")
         try:
+            if wire is not None:
+                from ray_tpu_torch.util import tracing as _tracing
+
+                with _tracing.remote_span(f"serve.replica:{method}",
+                                          wire):
+                    result = self._resolve_target(method)(*args, **kwargs)
+                _tracing.flush()
+                return result
             return self._resolve_target(method)(*args, **kwargs)
         finally:
             _request_context.reset(token)
@@ -107,12 +120,24 @@ class ReplicaActor:
                 self._window.append(time.time())
             token = _request_context.set(ctx)
             gen = None
+            # Streaming trace propagation: the replica span covers the
+            # whole generator drain; engine streams started inside it
+            # (generate_stream) capture it as their parent.
+            wire = ctx.get("trace")
             try:
-                gen = target(*args, **kwargs)
-                for item in gen:
-                    if cancelled.is_set():
-                        break  # stop consuming/computing on cancel
-                    buf.put(("item", item))
+                import contextlib as _cl
+
+                with _cl.ExitStack() as stack:
+                    if wire is not None:
+                        from ray_tpu_torch.util import tracing as _tracing
+
+                        stack.enter_context(_tracing.remote_span(
+                            f"serve.replica:{method}", wire))
+                    gen = target(*args, **kwargs)
+                    for item in gen:
+                        if cancelled.is_set():
+                            break  # stop consuming/computing on cancel
+                        buf.put(("item", item))
                 buf.put(("done", None))
             except BaseException as e:  # noqa: BLE001 -> surfaced to caller
                 buf.put(("error", e))
@@ -122,6 +147,10 @@ class ReplicaActor:
                         gen.close()
                     except Exception:
                         pass
+                if wire is not None:
+                    from ray_tpu_torch.util import tracing as _tracing
+
+                    _tracing.flush()
                 _request_context.reset(token)
                 with self._lock:
                     self._ongoing -= 1

@@ -1,13 +1,11 @@
 """Public Serve API: deployments, handles, run/shutdown
-(``ray_tpu/serve/api.py``, without the tracing spans and the TTFT
-breakdown metric).
+(``ray_tpu/serve/api.py``).
 
 Parity target: reference python/ray/serve/api.py (serve.deployment :306,
 serve.run :499) + handle.py (DeploymentHandle). The controller is a named
 actor; handles route over its replica sets with the scored router (pow-2
-without fresh load snapshots). A deployment's ``autoscaling_config`` raises
-``NotImplementedError`` until the autoscaling policy is ported (ROADMAP.md,
-queue 1, item 9f).
+without fresh load snapshots); a deployment with an ``autoscaling_config``
+is resized by the controller's autoscaling policy.
 """
 
 from __future__ import annotations
@@ -171,11 +169,13 @@ class DeploymentResponseGenerator:
         while not self._buf:
             if self._done:
                 raise StopAsyncIteration
+            # The ref is held across the await: dropped at once, the
+            # owner would free the reply before it lands and the future
+            # would never resolve.
+            ref = self._replica.next_chunks.remote(self._sid)
             try:
                 items, done = await asyncio.wait_for(
-                    asyncio.wrap_future(
-                        self._replica.next_chunks.remote(self._sid)
-                        .future()), 120)
+                    asyncio.wrap_future(ref.future()), 120)
             except asyncio.CancelledError:
                 # Client disconnected while we were suspended here (the
                 # dominant state): tell the replica NOW — the caller's
@@ -232,17 +232,48 @@ class DeploymentHandle:
             raise AttributeError(item)
         return self.options(item)
 
-    def _context(self) -> Optional[Dict[str, Any]]:
+    def _context(self, trace_ctx: Optional[Dict[str, str]] = None
+                 ) -> Optional[Dict[str, Any]]:
+        ctx: Optional[Dict[str, Any]] = None
         if self._model_id is not None:
-            return {"multiplexed_model_id": self._model_id}
-        return None
+            ctx = {"multiplexed_model_id": self._model_id}
+        if trace_ctx is not None:
+            ctx = dict(ctx or ())
+            ctx["trace"] = trace_ctx
+        return ctx
 
     def _route(self, args, kwargs):
-        """The router's choice of replica for this request."""
-        return self._router.choose(
+        """Router choice wrapped in the ``serve.route`` span + the
+        ``route`` TTFT-breakdown sample. Returns (replica, wire trace
+        context to ship to the replica — None when tracing is off)."""
+        import time as _time
+
+        from ray_tpu_torch.serve.engine.metrics import \
+            SERVE_TTFT_BREAKDOWN_MS
+        from ray_tpu_torch.util import tracing
+
+        traced = tracing.enabled()
+        decision: Optional[Dict[str, Any]] = {} if traced else None
+        t0 = _time.perf_counter()
+        t0w = _time.time() if traced else 0.0
+        replica = self._router.choose(
             model_id=self._model_id,
             prefix_tokens=self._prefix_hint(args, kwargs),
+            decision=decision,
             session_key=self._session_hint(args, kwargs))
+        SERVE_TTFT_BREAKDOWN_MS.observe(
+            (_time.perf_counter() - t0) * 1e3,
+            labels={"component": "route"})
+        if not traced:
+            return replica, None
+        parent = tracing.current()
+        decision["deployment"] = self._name
+        route_ctx = tracing.emit_span("serve.route", t0w, _time.time(),
+                                      parent=parent, attrs=decision)
+        # With an enclosing request span (the proxy) the replica parents
+        # there; a bare traced handle call roots its tree at the route
+        # span so the request still forms one connected trace.
+        return replica, (parent if parent is not None else route_ctx)
 
     @staticmethod
     def _prefix_hint(args, kwargs) -> Optional[list]:
@@ -272,12 +303,13 @@ class DeploymentHandle:
         return None
 
     def remote(self, *args, **kwargs):
-        replica = self._route(args, kwargs)
+        replica, trace_ctx = self._route(args, kwargs)
         if self._stream:
             try:
                 sid, items, done = ray_tpu_torch.get(
                     replica.handle_request_streaming.remote(
-                        self._method, args, kwargs, self._context()),
+                        self._method, args, kwargs,
+                        self._context(trace_ctx)),
                     timeout=60)
             except BaseException:
                 # The choose() above counted us in-flight; a failed stream
@@ -294,7 +326,7 @@ class DeploymentHandle:
                 self._router.done(replica)
             return gen
         ref = replica.handle_request.remote(self._method, args, kwargs,
-                                            self._context())
+                                            self._context(trace_ctx))
         # One replay budget for a dead-replica result (submission itself
         # never raises for dead actors in this runtime).
         return DeploymentResponse(
@@ -302,9 +334,9 @@ class DeploymentHandle:
             retry=lambda: self._route_once(args, kwargs))
 
     def _route_once(self, args, kwargs) -> DeploymentResponse:
-        replica = self._route(args, kwargs)
+        replica, trace_ctx = self._route(args, kwargs)
         ref = replica.handle_request.remote(self._method, args, kwargs,
-                                            self._context())
+                                            self._context(trace_ctx))
         return DeploymentResponse(ref, self._router, replica)
 
     def __reduce__(self):
@@ -316,10 +348,6 @@ class Deployment:
     """The object @serve.deployment produces; .bind() attaches init args."""
 
     def __init__(self, cls: type, name: str, config: Dict[str, Any]):
-        if config.get("autoscaling_config"):
-            raise NotImplementedError(
-                "autoscaling_config: the serve autoscaling policy is not "
-                "ported yet (ROADMAP.md, queue 1, item 9f)")
         self._cls = cls
         self.name = name
         self._config = config

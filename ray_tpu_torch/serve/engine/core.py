@@ -21,8 +21,13 @@ spill to a page store and later admissions pull them back. ``priority``
 lets a starved higher-priority arrival park a lower-priority active
 request, which resumes later as a continuation. Page moves go through
 ``export_pages`` and ``DecodeLoop.install_page`` plus the chain check.
-``ray_tpu``'s debug hooks (resource witness, tracing, flight recorder,
-jax witness) are not carried over.
+Tracing spans (``engine.queued``, ``engine.prefill``,
+``engine.decode_chunk``, ``engine.kv_spill``, ``engine.kv_fleet_pull``,
+``engine.preempt_park``/``_resume``) are emitted only for a request
+submitted under a trace context; with tracing off the tick reads no extra
+clock and adds no sync. Each decode tick appends one flight-recorder
+event. ``ray_tpu``'s debug witnesses (resources, jax) are not carried over
+(ROADMAP.md, queue 1, item 8b).
 """
 
 from __future__ import annotations
@@ -44,9 +49,12 @@ from ray_tpu_torch.serve.engine import kv_fleet
 from ray_tpu_torch.serve.engine.decode_loop import DecodeLoop
 from ray_tpu_torch.serve.engine.drafter import PromptLookupDrafter, SpecControl
 from ray_tpu_torch.serve.engine.kv_manager import KVCacheManager, chain_hashes
-from ray_tpu_torch.serve.engine.metrics import EngineMetrics
+from ray_tpu_torch.serve.engine.metrics import (SERVE_TTFT_BREAKDOWN_MS,
+                                                EngineMetrics)
 from ray_tpu_torch.serve.engine.scheduler import (EngineRequest, Scheduler,
                                                   bucket_for)
+from ray_tpu_torch.util import flight_recorder as _flight
+from ray_tpu_torch.util import tracing as _tracing
 
 
 class _PrefillJob:
@@ -354,6 +362,12 @@ class InferenceEngine:
                             stream_queue=queue.Queue() if stream else None,
                             arrival_t=time.perf_counter(), handoff=handoff,
                             tenant=tenant, priority=priority)
+        if _tracing.enabled():
+            # Captured on the CALLER's thread (replica request context /
+            # driver span); the engine thread parents its queued/prefill/
+            # decode-chunk spans to it. Stays None when tracing is off,
+            # which gates every engine-side span emit.
+            req.trace_ctx = _tracing.current()
         if not req.prompt_ids:
             raise ValueError("empty prompt")
         if not all(isinstance(t, (int, np.integer))
@@ -521,9 +535,18 @@ class InferenceEngine:
                 victim = self._lowest_active()
                 if victim.priority >= hp:
                     return False
+        traced = victim.trace_ctx is not None
+        t0w = time.time() if traced else 0.0
         self.scheduler.preempt(victim)
         self._parked.append(victim)
         self._preempts += 1
+        if traced:
+            _tracing.emit_span(
+                "engine.preempt_park", t0w, time.time(),
+                parent=victim.trace_ctx,
+                attrs={"priority": victim.priority,
+                       "generated": len(victim.generated),
+                       "remaining": victim.remaining()})
         return True
 
     def _resume_tick(self) -> None:
@@ -553,12 +576,15 @@ class InferenceEngine:
         its result merges into the original future. Admission runs the
         normal path: the parked rows come back as a prefix-cache hit or a
         fleet pull."""
+        traced = orig.trace_ctx is not None
+        t0w = time.time() if traced else 0.0
         cont = EngineRequest(
             list(orig.prompt_ids) + list(orig.generated),
             max_new_tokens=orig.remaining(),
             eos_id=orig.eos_id,
             stream_queue=orig.stream_queue,
             arrival_t=orig.arrival_t,
+            trace_ctx=orig.trace_ctx,
             tenant=orig.tenant, priority=orig.priority)
         cont.spec = self._spec_control()
 
@@ -580,6 +606,13 @@ class InferenceEngine:
         cont.future.add_done_callback(_merge)
         self.scheduler.submit(cont)
         self._resumes += 1
+        if traced:
+            _tracing.emit_span(
+                "engine.preempt_resume", t0w, time.time(),
+                parent=orig.trace_ctx,
+                attrs={"priority": orig.priority,
+                       "resume_prompt": len(cont.prompt_ids),
+                       "remaining": cont.max_new_tokens})
 
     # ---------------------------------------------------- KV page transfer
 
@@ -652,6 +685,8 @@ class InferenceEngine:
             req.future.set_result(result)
         if req.stream_queue is not None and done:
             req.stream_queue.put(("done", None))
+        if req.trace_ctx is not None:
+            _tracing.flush()
 
     def _install_tick(self) -> None:
         """Decode role: install queued KV handoffs into free slots, FIFO. A
@@ -732,12 +767,19 @@ class InferenceEngine:
                 todo.append((i, oid))
         if not todo:
             return
+        req = getattr(self.kv, "current_request", None)
+        traced = req is not None and req.trace_ctx is not None
+        t0w = time.time() if traced else 0.0
         pages_k, pages_v, crcs = self.export_pages(
             slot, [i * P for i, _ in todo], tag="kv_spill")
         self._spill_q.put([
             (oid, tuple(resident[i * P:(i + 1) * P]), tuple(chain[:i + 1]),
              k, v, crc)
             for (i, oid), k, v, crc in zip(todo, pages_k, pages_v, crcs)])
+        if traced:
+            _tracing.emit_span("engine.kv_spill", t0w, time.time(),
+                               parent=req.trace_ctx,
+                               attrs={"blocks": len(todo), "slot": slot})
 
     def _spill_loop(self) -> None:
         """Spill worker: pack + store-put the exported pages. Host work on
@@ -775,6 +817,8 @@ class InferenceEngine:
         d0 = adm.cached_len // P
         if max_d <= d0:
             return
+        traced = req.trace_ctx is not None
+        t0w = time.time() if traced else 0.0
         payloads = []
         for d in range(d0 + 1, max_d + 1):
             oid = kv_fleet.page_object_id(self._fleet_ns, want[d - 1])
@@ -830,6 +874,12 @@ class InferenceEngine:
             self._fleet_stats["kv_fleet_tokens_reused"] += run * P
         for j in range(run):
             self._note_fleet_hash(want[d0 + j])
+        if traced:
+            _tracing.emit_span(
+                "engine.kv_fleet_pull", t0w, time.time(),
+                parent=req.trace_ctx,
+                attrs={"blocks": run, "tokens": run * P,
+                       "slot": adm.slot})
 
     def _note_fleet_hash(self, h: int) -> None:
         """Record a chain hash this engine can serve from the tier (spilled
@@ -932,6 +982,8 @@ class InferenceEngine:
         final = job.idx == len(job.adm.chunks) - 1
         if job.idx == 0:
             job.t_pf0 = time.perf_counter()
+        traced = req.trace_ctx is not None
+        t0w = time.time() if traced else 0.0
         try:
             suffix = req.prompt_ids[job.pos:job.pos + n]
             padded = np.zeros((1, bucket), np.int32)
@@ -953,16 +1005,42 @@ class InferenceEngine:
                 req, resident=req.prompt_ids[:cached])
             self._fail_request(req, e)
             return True
+        if traced:
+            # One span per CHUNK (chunk/chunks attrs), so TTFT
+            # decomposition stays accurate under chunked prefill — the
+            # gaps between chunk spans are the interleaved decode ticks.
+            _tracing.emit_span(
+                "engine.prefill", t0w, time.time(),
+                parent=req.trace_ctx,
+                attrs={"prefill_tokens": n, "cached_tokens": cached,
+                       "bucket": bucket, "slot": slot,
+                       "chunk": job.idx, "chunks": len(job.adm.chunks)})
         job.idx += 1
         job.pos += n
         if not final:
             return False
         req.first_token_t = time.perf_counter()
+        queue_s = max(0.0, job.t_pf0 - req.arrival_t)
+        prefill_s = max(0.0, req.first_token_t - job.t_pf0)
+        SERVE_TTFT_BREAKDOWN_MS.observe(queue_s * 1e3,
+                                        labels={"component": "queue"})
+        SERVE_TTFT_BREAKDOWN_MS.observe(prefill_s * 1e3,
+                                        labels={"component": "prefill"})
         if self._fleet is not None:
-            self._note_prefill_cost(req.first_token_t - job.t_pf0,
+            self._note_prefill_cost(prefill_s,
                                     len(req.prompt_ids) - cached)
+        if traced:
+            # Wall-clock span boundaries reconstructed from the
+            # perf_counter intervals measured above (prefill spans
+            # first-chunk dispatch -> first-token fetch, covering any
+            # interleaved decode ticks).
+            now_w = time.time()
+            _tracing.emit_span(
+                "engine.queued", now_w - prefill_s - queue_s,
+                now_w - prefill_s, parent=req.trace_ctx,
+                attrs={"prompt_len": len(req.prompt_ids)})
         self.metrics.record_admit(req.first_token_t - req.arrival_t,
-                                  len(req.prompt_ids) - cached)
+                                  len(req.prompt_ids) - cached, cached)
         req.generated.append(first)
         if req.stream_queue is not None:
             req.stream_queue.put(("token", first))
@@ -985,6 +1063,11 @@ class InferenceEngine:
                 })
             if req.stream_queue is not None:
                 req.stream_queue.put(("done", None))
+            if req.trace_ctx is not None:
+                # Ship this request's engine spans now: a sub-64-span
+                # buffer would otherwise hold them past the caller's
+                # trace query (one small frame per finished request).
+                _tracing.flush()
         return done
 
     def _roster_arrays(self, active):
@@ -1072,11 +1155,17 @@ class InferenceEngine:
         rebuilt host-side from the roster. Returns the in-flight record
         _retire_chunk consumes, or None on a dispatch failure."""
         active = self.scheduler.active
+        # Chunk-span wall boundaries: computed ONLY when some roster
+        # member is traced — the tracing-off tick reads no extra clock
+        # and builds no span dict.
+        traced_tick = (_tracing.enabled()
+                       and any(r.trace_ctx is not None for r in active))
         if carry is not None:
             tok_d, len_d, rem_d, eos_d, done_d = carry["carry"]
         else:
             tok_d, len_d, rem_d, eos_d, done_d = (
                 self._put(a) for a in self._roster_arrays(active))
+        t0w = time.time() if traced_tick else 0.0
         t0 = time.perf_counter()
         try:
             toks, n_valid, ntok, nlen, nrem, ndone, self.cache = \
@@ -1096,7 +1185,7 @@ class InferenceEngine:
                 # request could otherwise hand to a new one.
                 "reqs": list(active),
                 "live_steps": len(active) * self.loop.chunk,
-                "t0": t0}
+                "t0": t0, "t0w": t0w, "traced": traced_tick}
 
     def _retire_chunk(self, rec: Dict[str, Any]) -> bool:
         """The tick's ONE host fetch: land the chunk's tokens, deliver to
@@ -1114,10 +1203,18 @@ class InferenceEngine:
         # chunk was dispatched a tick ago, overlapping host work).
         elapsed = now - max(rec["t0"], self._last_retire_t)
         self._last_retire_t = now
+        t1w = time.time() if rec["traced"] else 0.0
+        active = self.scheduler.active
         delivered = 0
-        for req in list(self.scheduler.active):
+        n_act = len(active)
+        for req in list(active):
             n = int(n_valid[req.slot])
             delivered += n
+            if req.trace_ctx is not None and n:
+                _tracing.emit_span(
+                    "engine.decode_chunk", rec["t0w"], t1w,
+                    parent=req.trace_ctx,
+                    attrs={"tokens": n, "slot": req.slot})
             for j in range(n):
                 tok = int(chunk_ids[req.slot, j])
                 req.length += 1
@@ -1128,6 +1225,7 @@ class InferenceEngine:
                 if self._maybe_finish(req, tok):
                     break  # device froze the slot here; rest are repeats
         self.metrics.record_chunk(delivered, rec["live_steps"], elapsed)
+        _flight.record("engine_tick", tok=delivered, act=n_act)
         return True
 
     # -------------------------------------------------------- speculation
@@ -1182,6 +1280,9 @@ class InferenceEngine:
         for req in active:
             self.kv.begin_speculation(req.slot,
                                       min(c * w, self.max_len - req.length))
+        traced_tick = (_tracing.enabled()
+                       and any(r.trace_ctx is not None for r in active))
+        t0w = time.time() if traced_tick else 0.0
         t0 = time.perf_counter()
         try:
             emits_d, counts_d, _len, _done, self.cache = \
@@ -1199,6 +1300,7 @@ class InferenceEngine:
         emits = outs[:, :c * w].reshape(self.max_batch, c, w)
         counts = outs[:, c * w:]
         elapsed = time.perf_counter() - t0
+        t1w = time.time() if traced_tick else 0.0
         delivered = accepted_total = 0
         for req in list(active):
             s = req.slot
@@ -1208,7 +1310,15 @@ class InferenceEngine:
             # slot must carry no reservation into the free pool.
             self.kv.commit_speculation(s, n)
             delivered += n
-            accepted_total += int(np.maximum(counts[s] - 1, 0).sum())
+            req_accepted = int(np.maximum(counts[s] - 1, 0).sum())
+            accepted_total += req_accepted
+            if req.trace_ctx is not None and n:
+                _tracing.emit_span(
+                    "engine.decode_chunk", t0w, t1w,
+                    parent=req.trace_ctx,
+                    attrs={"tokens": n, "slot": s, "spec": True,
+                           "spec_accepted": req_accepted,
+                           "drafted": int(ndraft[s])})
             finished = False
             for i in range(c):
                 for j in range(int(counts[s, i])):
@@ -1229,6 +1339,8 @@ class InferenceEngine:
                     req.spec.observe(consumed, acc)
         self.metrics.record_chunk(delivered, len(active) * c * w, elapsed)
         self.metrics.record_spec(int(ndraft.sum()), accepted_total)
+        _flight.record("engine_tick", tok=delivered, act=len(active),
+                       spec=True)
 
     @staticmethod
     def _spec_outcome(counts_row, drafted: int, k: int, w: int):
@@ -1269,6 +1381,9 @@ class InferenceEngine:
         if self.role == "decode":
             self._install_tick()
         self._prefill_tick()
+        self.metrics.record_depths(self.scheduler.queue_depth(),
+                                   len(self.scheduler.active),
+                                   self.kv.hit_rate())
         if not self.scheduler.active:
             if self._prefilling or self._install_waiting:
                 return  # keep chunked prefills and installs advancing

@@ -58,6 +58,16 @@ class DecodeReplicaDied(RuntimeError):
     """A KV handoff's decode edge died mid-flight (channel torn down)."""
 
 
+#: Seconds between router re-seeds while a disaggregated request waits
+#: for a decode replica to come back (every one died at once).
+_EMPTY_SET_WAIT_S = 0.25
+
+
+def _no_replicas(e: BaseException) -> bool:
+    """The router's empty-replica-set error (router.choose)."""
+    return isinstance(e, RuntimeError) and "has no replicas" in str(e)
+
+
 class LLMEngine(InferenceEngine):
     """The slot-based continuous-batching decode engine (the facade name;
     the implementation is ``serve.engine.core.InferenceEngine``), with
@@ -540,6 +550,24 @@ class PrefillLLMServer:
                 break
         return replica
 
+    def _choose_live(self, dead, deadline: float) -> Any:
+        """:meth:`_choose_avoiding`, where an empty decode replica set is a
+        re-route and not a failure while ``deadline`` holds: every decode
+        replica died at once and the controller has pruned them before
+        starting their replacements. Waits, re-seeds the router and
+        chooses again; the wait spends no redirect. Past the deadline the
+        router's error propagates."""
+        import time as _time
+
+        while True:
+            try:
+                return self._choose_avoiding(dead)
+            except RuntimeError as e:
+                if not _no_replicas(e) or _time.monotonic() > deadline:
+                    raise
+            _time.sleep(_EMPTY_SET_WAIT_S)
+            self._router.invalidate()
+
     def _dispatch(self, handoff: Dict[str, Any]) -> Dict[str, Any]:
         import time as _time
         from concurrent.futures import TimeoutError as _FutTimeout
@@ -551,7 +579,13 @@ class PrefillLLMServer:
         last_err: Optional[BaseException] = None
         dead: set = set()
         for _attempt in range(cfg.serve_disagg_max_redirects + 1):
-            replica = self._choose_avoiding(dead)
+            try:
+                replica = self._choose_live(dead, deadline)
+            except RuntimeError as e:
+                if not _no_replicas(e):
+                    raise
+                last_err = e
+                break
             edge = None
             try:
                 try:
@@ -624,7 +658,13 @@ class PrefillLLMServer:
         last_err: Optional[BaseException] = None
         dead: set = set()
         for _attempt in range(cfg.serve_disagg_max_redirects + 1):
-            replica = self._choose_avoiding(dead)
+            try:
+                replica = self._choose_live(dead, deadline)
+            except RuntimeError as e:
+                if not _no_replicas(e):
+                    raise
+                last_err = e
+                break
             try:
                 try:
                     edge = self._edge_for(replica)

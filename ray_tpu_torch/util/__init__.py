@@ -1,7 +1,9 @@
 """Utilities over the actor runtime (copies of ``ray_tpu/util``'s
 ``actor_pool``, ``queue``, ``placement_group``,
-``scheduling_strategies`` and ``log_monitor``), and ``collective``: the
-actor-gang collectives (``ray_tpu/util/collective.py``)."""
+``scheduling_strategies``, ``log_monitor``, ``metrics``,
+``metrics_agent``, ``tracing`` and ``flight_recorder``), and
+``collective``: the actor-gang collectives
+(``ray_tpu/util/collective.py``)."""
 
 from ray_tpu_torch.util import collective
 

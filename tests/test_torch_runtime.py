@@ -562,7 +562,24 @@ def test_distributed_queue(rt):
 _OWN_DEFAULTS = ("log_dir", "object_spilling_dir")
 
 
-@pytest.mark.parametrize("name", sorted(TCFG._flags))
+#: The flags of the serve front door and the observability modules: each
+#: must exist in the port (a case of its own below even if it went missing).
+_FRONT_DOOR_FLAGS = (
+    "serve_slo_ttft_budget_ms", "serve_slo_queue_depth",
+    "serve_slo_queue_timeout_s", "serve_slo_window", "serve_slo_min_samples",
+    "serve_slo_probe_inflight", "serve_autoscale_up_sustain_s",
+    "serve_autoscale_down_sustain_s", "serve_autoscale_down_threshold",
+    "serve_autoscale_cooldown_s", "serve_qos_tokens_per_s",
+    "serve_qos_burst_tokens", "serve_qos_tenant_idle_s",
+    "serve_qos_queue_depth", "metrics_report_period_ms",
+    "metrics_export_port", "tracing_enabled", "trace_ring_size",
+    "trace_ring_max_bytes", "trace_attr_max_bytes",
+    "flight_recorder_enabled", "flight_recorder_size",
+    "flight_recorder_dump_dir")
+
+
+@pytest.mark.parametrize("name", sorted(set(TCFG._flags)
+                                        | set(_FRONT_DOOR_FLAGS)))
 def test_config_default_equals_ray_tpu(name):
     assert TCFG._flags[name].type is JCFG._flags[name].type
     if name in _OWN_DEFAULTS:

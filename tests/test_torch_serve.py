@@ -11,8 +11,8 @@ replicas, handles) on its in-process runtime, against ``ray_tpu``'s.
   residency``: each scenario runs on ``ray_tpu``'s ``Router`` and on the
   port's, fed the same snapshots after the same ``random.seed``; their
   choices, route counters and scores must be equal.
-- The port's own: ``autoscaling_config`` raises, and ``serve.shutdown()``
-  leaves no serve thread running.
+- The port's own: ``autoscaling_config`` is kept as ``ray_tpu`` keeps it,
+  and ``serve.shutdown()`` leaves no serve thread running.
 """
 
 import asyncio
@@ -279,16 +279,24 @@ def test_snapshots_flow_to_router(served):
 
 
 def test_autoscaling_config_raises():
-    from ray_tpu_torch import serve
+    """Since the autoscaling policy is ported, ``autoscaling_config`` no
+    longer raises: the decorator and ``options`` keep it in the
+    deployment's config, as ``ray_tpu``'s do (the controller's policy is
+    held in tests/test_torch_serve_autoscale.py)."""
+    auto = {"min_replicas": 1, "max_replicas": 3}
+    configs = []
+    for pkg in PACKAGES:
+        serve = _serve(pkg)
 
-    class A:
-        pass
+        class A:
+            pass
 
-    with pytest.raises(NotImplementedError, match="9f"):
-        serve.deployment(autoscaling_config={"min_replicas": 1})(A)
-    with pytest.raises(NotImplementedError, match="9f"):
-        serve.deployment(A).options(
-            autoscaling_config={"min_replicas": 1})
+        d = serve.deployment(autoscaling_config=auto)(A)
+        o = serve.deployment(A).options(autoscaling_config=auto)
+        assert d._config["autoscaling_config"] == auto
+        assert o._config["autoscaling_config"] == auto
+        configs.append(d._config)
+    assert configs[0] == configs[1]
 
 
 def _serve_threads(skip=()):
