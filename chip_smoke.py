@@ -2,7 +2,7 @@
 """Run the PyTorch/CUDA port (``ray_tpu_torch``) end to end on one CUDA
 card and check it.
 
-    python3 chip_smoke.py              # phases 1-17, the smoke
+    python3 chip_smoke.py              # phases 1-20, the smoke
     python3 chip_smoke.py --spec-ab    # phases 1-2, then speculation off
                                        # against on (bf16), no result line
     python3 chip_smoke.py --flash [DIR]     # phases 1-2, the flash kernels
@@ -27,6 +27,11 @@ card and check it.
                                             # result line
     python3 chip_smoke.py --data            # phases 1-2 and 17, no result
                                             # line
+    python3 chip_smoke.py --tune            # phases 1-2 and 19, no result
+                                            # line
+    python3 chip_smoke.py --client          # phases 1-2 and 20 (on a
+                                            # cluster of its own), no
+                                            # result line
 
 ``--flash`` runs against the package of the checkout at DIR (default:
 this one): the flash kernels against their plain versions at phase 3's
@@ -254,6 +259,33 @@ script exits non-zero without printing its last line:
     ``.to("cuda")`` and a pre-staged batch (the arms' sums equal).
     ``--data`` runs 17b on params of its own, then 17a (15a's loop run
     first as its pre-staged arm) and 17c on a cluster of their own.
+19. Tune (``ray_tpu_torch.tune``), after phase 16, on
+    ``init(address="local")``: ``Tuner.fit`` over Llama-3.2-1B training
+    steps (bf16, fused ops, full published widths and depth, 15b's state
+    from ``_gen(12)`` and token row, B=1, S=2048), four trials of
+    ``grid_search`` over the learning rate, two at a time, ASHA (max_t 6,
+    grace 2, factor 2), one ``tune.report`` a step: every trial's first
+    loss bit-equal to a direct step taken first, ASHA stopping at least
+    one trial at step 2 or 4, the best result the lowest final loss of
+    the trials that ran 6 steps, every trial's thread gone and the card
+    back within 64 MiB of its allocation before the phase (the trial
+    threads' cuBLAS workspaces dropped), the peak under 80 GB, the
+    training kernels launched and the decode ones not. The trials' ms a
+    step (two share the card) beside the direct step's.
+20. Client mode and jobs, on phase 15's ``init()`` cluster after 11d:
+    (a) this process's gateway (``client/server.py``) and a child driver
+    at ``client://``: one ``{"GPU": 0.5}`` task that draws Llama-3.2-1B
+    from seed 0 on its card and returns the argmax tokens and f32 logit
+    sum of a forward over a seeded 256-token prompt (the flash gate takes
+    S >= 256), held to this process's own forward (argmax equal, sum
+    within 1e-3 relative); then an actor the child owns and leaves alive
+    at its exit, gone within 30 s; (b) ``python -m
+    ray_tpu_torch.scripts.cli submit`` of a job whose driver joins the
+    cluster and runs the same task: ``SUCCEEDED``, its logs' result equal
+    to the driver's forward, and whether its task reused (a)'s GPU
+    worker. Each task reports its worker's launches.
+    Every cluster the script starts prints how many CPU workers forked
+    from the zygote and how many cold-spawned, and why.
 10. The model zoo, after phase 8: (a) Mixtral, 2 layers at
     MIXTRAL_8X7B's widths in f32, B=1, S=256: the loss and every gradient
     through the flash kernels against the plain route, and every token's
@@ -315,9 +347,10 @@ script exits non-zero without printing its last line:
    ``launches_phase14``, the replica process's over phase 18 as
    ``launches_phase18``, phase 15a's trainer worker's over its 5 steps as
    ``launches_phase15``, phase 16a's as ``launches_phase16``, phase 17a's
-   worker's and 17b's processor's summed as ``launches_phase17``, and the
-   flash rows' launches a step of phase 10b as ``launches_phase10``) is
-   printed just before the last line.
+   worker's and 17b's processor's summed as ``launches_phase17``, phase
+   19's ``fit`` as ``launches_phase19``, phase 20's two tasks summed as
+   ``launches_phase20``, and the flash rows' launches a step of phase 10b
+   as ``launches_phase10``) is printed just before the last line.
 
 The last line is ``{"ok": true, "device": {...}}``. Needs one card; exits
 non-zero at once without one.
@@ -2421,6 +2454,7 @@ def phase_cluster(smi, name, phase12=None, only14=False):
         total14, d_pids = phase14(cfg, params, smi, seq, prompts, want, one)
         t14 = time.perf_counter() - t14
         pids += d_pids
+        spawn_line("phase 13-14", rt)
     finally:
         procs = list(rt._procs)
         try:
@@ -4009,6 +4043,7 @@ def on_cluster(label, run):
     procs = list(rt._procs)
     try:
         out = run(storage)
+        spawn_line(label, rt)
     finally:
         try:
             ray_tpu_torch.shutdown()
@@ -4051,6 +4086,7 @@ def phase_trainer(smi, data=False):
             return launches, None
         data_launches = phase_data(smi, llama8b_loop, storage)
         phase11d(smi)
+        MEASURED["phase20"] = phase20(smi, storage)
         return launches, data_launches
 
     return on_cluster("phase 15", run)
@@ -4409,6 +4445,356 @@ def phase_data_alone(smi):
     llama8b_loop = trainer_loops()[0]
     on_cluster("phase 17", lambda storage: phase_data(smi, llama8b_loop,
                                                       storage))
+
+
+# --------------------------------------------------------- phases 19, 20
+
+# Phase 19: ray_tpu's hazard script (four grid trials, ASHA, two at a
+# time) as Llama-3.2-1B training trials on the in-process runtime.
+P19_LRS = [1e-4, 3e-4, 1e-3, 3e-3]
+P19_MAX_T = 6
+# The card memory a stopped trial may leave behind, all trials together.
+P19_LEFT_BYTES = 64 << 20
+
+
+def session_threads():
+    return [t for t in threading.enumerate() if t.name == "train-session"]
+
+
+def phase19(smi):
+    """``Tuner.fit`` over Llama-3.2-1B training steps on
+    ``init(address="local")``: four trials of ``grid_search`` over the
+    learning rate, two at a time, ASHA (max_t 6, grace 2, factor 2), each
+    trial 15b's state (``_gen(12)``) and token row, one ``tune.report`` a
+    step. Checks the first losses against a direct step, ASHA's stops,
+    the best result, the stopped trials' threads and memory, and the
+    launches. Returns the launches over ``fit``."""
+    import ray_tpu_torch
+    from ray_tpu_torch import tune
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.parallel import spmd
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(llama.LLAMA3_1B, fused_ops=True)
+    tokens = torch.from_numpy(np.random.RandomState(9).randint(
+        0, cfg.vocab_size, (TRAIN_B, TRAIN_S))).to("cuda")
+    free_card()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    tx = spmd.default_optimizer(lr=P19_LRS[0], warmup=1)
+    state = spmd.init_train_state(cfg, _gen(12), tx)
+    step = spmd.make_train_step(cfg, tx)
+    state, metrics = step(state, tokens)
+    direct_loss = metrics["loss"].item()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    state, metrics = step(state, tokens)
+    metrics["loss"].item()
+    direct_ms = (time.perf_counter() - t) * 1e3
+    del state, metrics, step
+    free_card()
+
+    def trainable(config):
+        tx = spmd.default_optimizer(lr=config["lr"], warmup=1)
+        state = spmd.init_train_state(cfg, _gen(12), tx)
+        step = spmd.make_train_step(cfg, tx)
+        for _ in range(P19_MAX_T):
+            t = time.perf_counter()
+            state, metrics = step(state, tokens)
+            loss = metrics["loss"].item()
+            tune.report({"loss": loss,
+                         "step_ms": (time.perf_counter() - t) * 1e3})
+
+    zero_counts()
+    ray_tpu_torch.init(address="local")
+    t = time.perf_counter()
+    try:
+        results = tune.Tuner(
+            trainable, param_space={"lr": tune.grid_search(P19_LRS)},
+            tune_config=tune.TuneConfig(
+                metric="loss", mode="min", max_concurrent_trials=2, seed=0,
+                scheduler=tune.ASHAScheduler(
+                    metric="loss", mode="min", max_t=P19_MAX_T,
+                    grace_period=2, reduction_factor=2))).fit()
+        fit_s = time.perf_counter() - t
+    finally:
+        ray_tpu_torch.shutdown()
+    launches = read_counts()
+    deadline = time.time() + 60
+    while session_threads():
+        if time.time() > deadline:
+            raise AssertionError("phase 19: a trial's thread outlived fit()")
+        time.sleep(0.05)
+    free_card()
+    # Each thread that ran a matmul holds a cuBLAS workspace of its own
+    # from the caching allocator (PyTorch keys them by handle and stream,
+    # and keeps them after the thread ends): library caches, not trial
+    # state. Read what is left before and after dropping them.
+    with_ws = torch.cuda.memory_allocated() - base
+    torch._C._cuda_clearCublasWorkspaces()
+    left = torch.cuda.memory_allocated() - base
+    peak = torch.cuda.max_memory_allocated()
+    trial_ms = [h["step_ms"] for r in results for h in r.history[1:]]
+    ran = {r.config["lr"]: len(r.history) for r in results}
+    log(f"  phase 19 trials (lr: steps) {ran}; final losses "
+        f"{ {r.config['lr']: r.metrics['loss'] for r in results} }; first "
+        f"losses { {r.config['lr']: r.history[0]['loss'] for r in results} }"
+        f" against the direct step's {direct_loss}")
+    log(f"  phase 19 ms a step: trials' median {median(trial_ms)} (two "
+        f"trials share the card; first steps left out), direct "
+        f"{direct_ms}; fit {fit_s:.1f} s; peak {peak / 1e9} GB; left "
+        f"after shutdown {left} bytes ({with_ws} with the trial threads' "
+        f"cuBLAS workspaces); launches {launches}; phase "
+        f"{time.perf_counter() - t0:.1f} s; on {smi}")
+    for r in results:
+        if r.error:
+            raise AssertionError(f"phase 19: trial {r.config}: {r.error}")
+        first = r.history[0]["loss"]
+        if first != direct_loss:
+            raise AssertionError(f"phase 19: trial {r.config} first loss "
+                                 f"{first} != the direct step's "
+                                 f"{direct_loss}")
+    stopped = [n for n in ran.values() if n < P19_MAX_T]
+    if not stopped or any(n not in (2, 4) for n in stopped):
+        raise AssertionError(f"phase 19: ASHA's stops {ran} (steps a trial)")
+    full = [r for r in results if len(r.history) == P19_MAX_T]
+    best = results.get_best_result()
+    want = min(full, key=lambda r: r.metrics["loss"])
+    if best.trial_id != want.trial_id:
+        raise AssertionError(f"phase 19: best {best.config} is not the "
+                             f"lowest final loss of the full trials, "
+                             f"{want.config}")
+    if left > P19_LEFT_BYTES:
+        raise AssertionError(f"phase 19: {left} bytes still allocated "
+                             "after fit() and shutdown()")
+    if peak >= 80e9:
+        raise AssertionError(f"phase 19: peak {peak} bytes")
+    require_launches("phase 19", launches,
+                     ("decode_attention", "paged_decode_attention"))
+    log(f"phase 19 tune: passed in {time.perf_counter() - t0:.1f} s; best "
+        f"lr {best.config['lr']}; on {smi}")
+    return launches
+
+
+# Phase 20: a forward of Llama-3.2-1B from seed 0 over a seeded prompt of
+# 256 tokens (the flash gate takes S >= 256, a multiple of 128), run by a
+# client-mode driver and by a submitted job, each as one {"GPU": 0.5}
+# task, held to this driver's own forward. The task's source is shared
+# text, so the client and the job's driver ship it by value.
+P20_PROMPT = 256
+P20_TASK = '''
+import os
+
+
+def p20_forward(prompt):
+    """LLAMA3_1B (fused ops) from seed 0 on this process's card: argmax
+    tokens and the f32 logit sum over ``prompt``, with this process's
+    kernel launches over the call."""
+    import dataclasses
+    import importlib
+
+    import torch
+
+    llama = importlib.import_module("ray_tpu_torch.models.llama")
+    kernels = importlib.import_module("ray_tpu_torch.ops").KERNELS
+    before = {n: f.launches for n, f in kernels.items()}
+    cfg = dataclasses.replace(llama.LLAMA3_1B, fused_ops=True)
+    params = llama.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    with torch.no_grad():
+        logits = llama.forward(params, torch.tensor([prompt], device="cuda"),
+                               cfg)[0].float()
+    out = {"argmax": logits.argmax(-1).tolist(),
+           "sum": logits.sum().item(), "pid": os.getpid(),
+           "visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+           "launches": {n: f.launches - before[n]
+                        for n, f in kernels.items()}}
+    del params, logits
+    torch.cuda.empty_cache()
+    return out
+'''
+P20_CLIENT = P20_TASK + '''
+
+def main():
+    import json
+    import sys
+    import time
+
+    import ray_tpu_torch
+
+    t0 = time.perf_counter()
+    ray_tpu_torch.init(address=sys.argv[1])
+    task = ray_tpu_torch.remote(num_gpus=0.5, num_cpus=0)(p20_forward)
+    out = ray_tpu_torch.get(task.remote(json.loads(sys.argv[2])),
+                            timeout=300)
+
+    class Owned:
+        def pid(self):
+            return os.getpid()
+
+    owned = ray_tpu_torch.remote(num_cpus=0)(Owned).remote()
+    out["actor"] = [owned.actor_id.hex(),
+                    ray_tpu_torch.get(owned.pid.remote(), timeout=120)]
+    out["client_s"] = time.perf_counter() - t0
+    print("P20 " + json.dumps(out), flush=True)
+    # Exit without shutdown(): the gateway's session cleanup must kill
+    # the actor this session owns.
+    os._exit(0)
+
+
+main()
+'''
+P20_JOB = P20_TASK + '''
+
+def main():
+    import json
+    import sys
+
+    import ray_tpu_torch
+
+    ray_tpu_torch.init()  # RTPU_ADDRESS, set by the job's supervisor
+    task = ray_tpu_torch.remote(num_gpus=0.5, num_cpus=0)(p20_forward)
+    out = ray_tpu_torch.get(task.remote(json.loads(sys.argv[1])),
+                            timeout=300)
+    print("P20 " + json.dumps(out), flush=True)
+    ray_tpu_torch.shutdown()
+
+
+main()
+'''
+
+
+def p20_line(text, label):
+    lines = [ln for ln in text.splitlines() if ln.startswith("P20 ")]
+    if len(lines) != 1:
+        raise AssertionError(f"phase 20{label}: {len(lines)} result lines "
+                             f"in:\n{text[-3000:]}")
+    return json.loads(lines[0][4:])
+
+
+def p20_check(label, got, want):
+    if got["argmax"] != want["argmax"]:
+        bad = sum(a != b for a, b in zip(got["argmax"], want["argmax"]))
+        raise AssertionError(f"phase 20{label}: {bad} argmax tokens differ "
+                             "from the driver's forward")
+    rel = abs(got["sum"] - want["sum"]) / abs(want["sum"])
+    if rel > 1e-3:
+        raise AssertionError(f"phase 20{label}: logit sum {got['sum']} vs "
+                             f"{want['sum']} (relative {rel})")
+    if got["visible"] in (None, ""):
+        raise AssertionError(f"phase 20{label}: the GPU task ran in a "
+                             f"process that sees no card ({got})")
+    require_launches(f"phase 20{label}", got["launches"],
+                     ("decode_attention", "paged_decode_attention",
+                      "flash_attention_bwd"))
+    return rel
+
+
+def phase20(smi, storage):
+    """On an ``init()`` cluster: (a) a client-mode driver (a child
+    process) through this process's gateway: one ``{"GPU": 0.5}`` task
+    of ``P20_TASK``, then an actor it owns, left alive at its exit; (b)
+    ``python -m ray_tpu_torch.scripts.cli submit`` of a job whose driver
+    joins the cluster and runs the same task. Returns the two tasks'
+    launches, summed."""
+    import ray_tpu_torch
+    from ray_tpu_torch.client.server import start_gateway
+    from ray_tpu_torch.core.runtime_context import require_runtime
+    from ray_tpu_torch.jobs import JobStatus, JobSubmissionClient
+
+    t0 = time.perf_counter()
+    rt = require_runtime()
+    from ray_tpu_torch.models import llama
+
+    prompt = np.random.RandomState(20).randint(
+        0, llama.LLAMA3_1B.vocab_size, P20_PROMPT).tolist()
+    server = start_gateway(rt)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.dirname(os.path.dirname(ray_tpu_torch.__file__))]
+        + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep)
+           if p]))
+    try:
+        child = subprocess.Popen(
+            [sys.executable, "-c", P20_CLIENT, "client://" + server.address,
+             json.dumps(prompt)], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True, env=env)
+        # The driver's own forward while the client starts.
+        scope = {}
+        exec(P20_TASK, scope)
+        want = scope["p20_forward"](prompt)
+        out, _ = child.communicate(timeout=300)
+        if child.returncode != 0:
+            raise AssertionError(f"phase 20a: the client exited "
+                                 f"{child.returncode}:\n{out[-3000:]}")
+        got_a = p20_line(out, "a")
+        t_a = time.perf_counter() - t0
+        # (b) starts at once: its task finds (a)'s GPU worker idle.
+        job_py = os.path.join(storage, "p20_job.py")
+        with open(job_py, "w") as f:
+            f.write(P20_JOB)
+        t_b = time.perf_counter()
+        submit = subprocess.Popen(
+            [sys.executable, "-m", "ray_tpu_torch.scripts.cli", "submit",
+             "--address", rt.head_addr, "--submission-id", "phase20b",
+             "--timeout", "300", "--", sys.executable, job_py,
+             json.dumps(prompt)], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True, env=env)
+        aid, actor_pid = got_a["actor"]
+        deadline = time.time() + 30
+        while True:
+            live = [a for a in rt.list_actors()
+                    if a.get("actor_id") == aid
+                    and a.get("state") != "DEAD"]
+            if not live and not alive(actor_pid):
+                break
+            if time.time() > deadline:
+                raise AssertionError(f"phase 20a: the client's owned actor "
+                                     f"outlived its session: {live}")
+            time.sleep(0.1)
+        gone_s = time.perf_counter() - t0 - t_a
+        out, _ = submit.communicate(timeout=300)
+        if submit.returncode != 0:
+            raise AssertionError(f"phase 20b: cli submit exited "
+                                 f"{submit.returncode}:\n{out[-3000:]}")
+        t_b = time.perf_counter() - t_b
+    finally:
+        server.stop()
+    client = JobSubmissionClient()
+    status = client.get_job_status("phase20b")
+    logs = client.get_job_logs("phase20b")
+    if status != JobStatus.SUCCEEDED or "job phase20b -> SUCCEEDED" not in out:
+        raise AssertionError(f"phase 20b: job status {status}:\n{out[-3000:]}")
+    got_b = p20_line(logs, "b")
+    if p20_line(out, "b (cli)") != got_b:
+        raise AssertionError("phase 20b: the cli's logs differ from the "
+                             "job's")
+    rel_a = p20_check("a", got_a, want)
+    rel_b = p20_check("b", got_b, want)
+    launches = dict(got_a["launches"])
+    add_counts(launches, got_b["launches"])
+    log(f"  phase 20a client mode: {P20_PROMPT}-token forward of "
+        f"Llama-3.2-1B in GPU worker {got_a['pid']} "
+        f"(CUDA_VISIBLE_DEVICES={got_a['visible']!r}), argmax equal to the "
+        f"driver's, logit sum relative difference {rel_a}; the client's "
+        f"run {got_a['client_s']:.1f} s; its owned actor gone "
+        f"{gone_s:.1f} s after the client's exit")
+    log(f"  phase 20b job through the cli: SUCCEEDED, argmax equal to the "
+        f"driver's, logit sum relative difference {rel_b}; task in GPU "
+        f"worker {got_b['pid']}: "
+        f"{'the same worker as 20a' if got_b['pid'] == got_a['pid'] else 'a new worker, not 20a'}'s; "
+        f"submit to exit {t_b:.1f} s")
+    log(f"phase 20 client mode and jobs: passed in "
+        f"{time.perf_counter() - t0:.1f} s; launches {launches}; on {smi}")
+    return launches
+
+
+def spawn_line(label, rt):
+    """Each node's worker starts of a cluster, by route."""
+    for s in rt.spawn_stats():
+        log(f"  {label} cluster, node {s['node_id'][:8]}: CPU workers "
+            f"{s['forked']} forked from the zygote, {s['cold_cpu']} "
+            f"cold-spawned; GPU workers {s['cold_gpu']} cold-spawned; "
+            f"zygote: {s['zygote_miss'] or 'every CPU worker forked'}")
 
 
 # --------------------------------------------------------------- phase 10
@@ -6155,6 +6541,13 @@ def main() -> int:
         phase_data_alone(smi)
         log(f"total {time.perf_counter() - t_start:.1f} s on {smi}")
         return 0
+    if args in (["--tune"], ["--client"], ["--tune", "--client"]):
+        if "--tune" in args:
+            phase19(smi)
+        if "--client" in args:
+            on_cluster("phase 20", lambda storage: phase20(smi, storage))
+        log(f"total {time.perf_counter() - t_start:.1f} s on {smi}")
+        return 0
     if args == ["--spec-ab"]:
         spec_ab(smi)
         log(f"total {time.perf_counter() - t_start:.1f} s on {smi}")
@@ -6186,9 +6579,11 @@ def main() -> int:
     done("phase 8")
     trainer, data = phase_trainer(smi, data=True)
     add_counts(data, phase12["then"])
-    done("phases 15, 17a, 17c and 11d")
+    done("phases 15, 17a, 17c, 11d and 20")
     parallel = phase_parallel(smi)
     done("phase 16")
+    tuned = phase19(smi)
+    done("phase 19")
     for kernel in TRAIN_ONLY:
         launches[kernel] = train[kernel]
     zoo = phase_zoo(smi)
@@ -6205,6 +6600,8 @@ def main() -> int:
         row["launches_phase15"] = trainer[row["name"]]
         row["launches_phase16"] = parallel[row["name"]]
         row["launches_phase17"] = data[row["name"]]
+        row["launches_phase19"] = tuned[row["name"]]
+        row["launches_phase20"] = MEASURED["phase20"][row["name"]]
     fused_apply_cost(smi)
     log(f"total {time.perf_counter() - t_start:.1f} s on {smi}")
     print(json.dumps({"kernels": rows}), flush=True)

@@ -7,8 +7,9 @@ Parity target: python/ray/_private/worker.py public functions in the reference
 
 ``init()`` starts a single-node cluster (a head, a node manager and worker
 processes over the shm object store), ``init("host:port")`` joins one, and
-``init(local_mode=True)`` keeps everything in this process on threads.
-Client mode (``client://``) raises ``NotImplementedError``.
+``init(local_mode=True)`` keeps everything in this process on threads, and
+``init("client://host:port")`` drives a cluster through a client gateway
+(``client/``) from a process that is not part of it.
 """
 
 from __future__ import annotations
@@ -53,13 +54,12 @@ def init(
       CPUs and CUDA cards.
     - ``address="host:port"``: join an existing cluster's head.
     - ``address="local"`` or ``local_mode=True``: in-process thread runtime.
-    - ``address="client://..."`` raises ``NotImplementedError`` (client
-      mode is not ported, ROADMAP.md, queue 1, item 9a).
+    - ``address="client://host:port"``: a remote driver; everything rides
+      one framed-RPC connection to a gateway
+      (``ray_tpu_torch.client.server.start_gateway``).
+    - ``address=None`` with ``RTPU_ADDRESS`` set (a submitted job's
+      driver): join that cluster.
     """
-    if address is not None and address.startswith("client://"):
-        raise NotImplementedError(
-            f"ray_tpu_torch.init(address={address!r}): client mode is not "
-            "ported (ROADMAP.md, queue 1, item 9a)")
     with _init_lock:
         if is_initialized():
             if ignore_reinit_error:
@@ -77,6 +77,10 @@ def init(
             from ray_tpu_torch.core.local_runtime import LocalRuntime
 
             rt = LocalRuntime(num_cpus=num_cpus)
+        elif address is not None and address.startswith("client://"):
+            from ray_tpu_torch.client.runtime import ClientRuntime
+
+            rt = ClientRuntime(address)
         else:
             from ray_tpu_torch.core.cluster_runtime import ClusterRuntime
 

@@ -17,7 +17,7 @@ pubsub), re-designed as one threaded RPC service over the framed protocol:
 - internal KV + pubsub channels (ACTOR, NODE, LOG) over server->client push
 
 A copy of ``ray_tpu/cluster/head.py`` without ``ray_tpu``'s RPC and
-resource witnesses and its rolling upgrade. The head keeps the cluster's
+resource witnesses. The head keeps the cluster's
 trace ring (spans flushed by every process, bounded by entries and bytes)
 and serves its flight-recorder ring.
 """
@@ -249,6 +249,10 @@ class HeadServer:
         # actor_id -> re-register deadline for actors recovered ALIVE
         # from the durable tables (see _sweep_alive_watch).
         self._alive_watch: Dict[bytes, float] = {}
+        # True while a rolling upgrade drains this head (prepare_upgrade):
+        # health sweeps stop declaring nodes dead — the successor, not
+        # this era, owns liveness decisions from here on.
+        self._draining = False
         # Durable tables (reference: gcs_table_storage.h). None = memory
         # only. Loaded BEFORE serving so a restarted head answers from the
         # recovered state; nodes re-register on their first heartbeat NACK.
@@ -648,6 +652,8 @@ class HeadServer:
         period = cfg.health_check_period_ms / 1000.0
         threshold = cfg.health_check_failure_threshold * period
         while not self._stop.wait(period):
+            if self._draining:
+                continue  # upgrade handover: the successor judges liveness
             now = time.monotonic()
             dead_nodes = []
             with self._lock:
@@ -1958,6 +1964,48 @@ class HeadServer:
         if self._store is not None:
             self._store.set_meta("job_counter", n)
         return n
+
+    # ---------------------------------------------------------- upgrade
+
+    @blocking_rpc
+    def rpc_prepare_upgrade(self, conn):
+        """Rolling-upgrade drain + snapshot flush (step 1 of
+        ``ClusterRuntime.rolling_head_upgrade``): stop this era's health
+        verdicts (the successor owns liveness from here), wait out in-flight actor
+        creations so no creation spec is mid-push when the port changes
+        hands, then checkpoint the sqlite WAL so the successor's first
+        read sees every durable row without replaying the log.
+
+        Idempotent: a re-delivered prepare re-checkpoints and returns the
+        same summary — draining twice is draining."""
+        self._draining = True
+        deadline = time.monotonic() + cfg.head_upgrade_drain_timeout_s
+        while time.monotonic() < deadline:
+            with self._lock:
+                in_flight = [a for a in self._actors.values()
+                             if a.state in (PENDING, RESTARTING)]
+            if not in_flight:
+                break
+            time.sleep(0.1)
+        flushed = False
+        if self._store is not None:
+            self._store.checkpoint()
+            flushed = True
+        with self._lock:
+            summary = {"incarnation": self.incarnation,
+                       "actors": len(self._actors),
+                       "nodes": len(self._nodes),
+                       "pgs": len(self._pgs),
+                       "kv_keys": len(self._kv),
+                       "flushed": flushed}
+        _flight.record("head_drain", **{k: v for k, v in summary.items()
+                                        if k != "incarnation"})
+        return summary
+
+    def rpc_resume_serving(self, conn):
+        """Abort a drain (upgrade rolled back): re-enable health sweeps."""
+        self._draining = False
+        return True
 
     def rpc_ping(self, conn):
         return "pong"

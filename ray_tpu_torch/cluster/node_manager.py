@@ -199,20 +199,69 @@ class Lease:
         self.card_shares: List[Tuple[int, float]] = []
 
 
+class _SimStore:
+    """Store stub for simulated scale-mode nodes: the control-plane
+    surfaces (heartbeats, directory mirror reconciliation, clock-sync
+    eviction polls) call it, the data plane never does — a 100-node
+    in-process cluster must not map 100 shm arenas."""
+
+    def contains(self, oid) -> bool:
+        return False
+
+    def stats(self) -> Tuple[int, int, int, int]:
+        return (0, 0, 0, 0)  # used, capacity, objects, evictions
+
+    def close(self) -> None:
+        pass
+
+
+class _SimProc:
+    """Popen-shaped stub behind a simulated node's lease grants: always
+    "alive", signals are no-ops. Lets the scale bench's task storm run
+    the REAL lease/block accounting (grant, return, census) without
+    spawning a process per simulated lease."""
+
+    pid = -1
+
+    def poll(self) -> Optional[int]:
+        return None
+
+    def terminate(self) -> None:
+        pass
+
+    def kill(self) -> None:
+        pass
+
+    def wait(self, timeout=None) -> int:
+        return 0
+
+
 class NodeManager:
     def __init__(self, head_addr: str, node_id: str,
                  resources: Dict[str, float], labels: Dict[str, str],
-                 object_store_bytes: int, host: str = "127.0.0.1"):
+                 object_store_bytes: int, host: str = "127.0.0.1",
+                 simulated: bool = False):
         self.node_id = node_id
         self.head_addr = head_addr
+        # Simulated scale mode (core.cluster_runtime.SimulatedCluster): a
+        # full control-plane node — registration, heartbeat delta sync,
+        # directory mirror, lease census — with the store stubbed and NO
+        # worker machinery (spawner/reaper/zygote/metrics threads), so
+        # hundreds of NodeManager instances fit in one process to profile
+        # the HEAD's hot paths at production node counts.
+        self.simulated = simulated
         _flight.set_role("node", node_id=node_id)
         self.total = dict(resources)
         self.available = dict(resources)
         self.labels = labels
-        self.store_name = store_segment_name(node_id)
-        self.store = ShmStore.create(
-            self.store_name, object_store_bytes,
-            prefault=cfg.object_store_prefault)
+        if simulated:
+            self.store_name = f"/rtt_sim_{node_id[:12]}"
+            self.store = _SimStore()
+        else:
+            self.store_name = store_segment_name(node_id)
+            self.store = ShmStore.create(
+                self.store_name, object_store_bytes,
+                prefault=cfg.object_store_prefault)
         self._lock = threading.RLock()
         self._idle_cv = threading.Condition(self._lock)
         # Signalled whenever resources are credited back (lease return,
@@ -329,7 +378,7 @@ class NodeManager:
         # the process registry + live node gauges; the port is advertised
         # as a node label for scrape-config discovery.
         self._metrics_exporter = None
-        if cfg.metrics_export_port >= 0:
+        if cfg.metrics_export_port >= 0 and not simulated:
             try:
                 from ray_tpu_torch.util.metrics_agent import start_exporter
 
@@ -382,14 +431,20 @@ class NodeManager:
         # zygote_spawn_timeout_s) cannot wedge them.
         self._zygote_lock = threading.Lock()
         self._zygote_io_lock = threading.Lock()
-        threading.Thread(target=self._spawner_loop, daemon=True,
-                         name=f"node-spawner-{node_id[:8]}").start()
+        # Worker starts by route, and why the last default-env CPU worker
+        # did not fork (None while every one did): rpc_spawn_stats.
+        self._spawn_counts = {"forked": 0, "cold_cpu": 0, "cold_gpu": 0}
+        self._zygote_miss: Optional[str] = None
+        if not simulated:
+            threading.Thread(target=self._spawner_loop, daemon=True,
+                             name=f"node-spawner-{node_id[:8]}").start()
         threading.Thread(target=self._heartbeat_loop, daemon=True,
                          name=f"node-hb-{node_id[:8]}").start()
-        threading.Thread(target=self._reap_loop, daemon=True,
-                         name=f"node-reap-{node_id[:8]}").start()
+        if not simulated:
+            threading.Thread(target=self._reap_loop, daemon=True,
+                             name=f"node-reap-{node_id[:8]}").start()
         if (cfg.memory_monitor_refresh_ms > 0
-                and cfg.memory_usage_threshold < 1.0):
+                and cfg.memory_usage_threshold < 1.0 and not simulated):
             from ray_tpu_torch.cluster.memory_monitor import MemoryMonitor
 
             self.memory_monitor = MemoryMonitor(
@@ -946,7 +1001,43 @@ class NodeManager:
         """Fire-and-forget spawn via the dedicated spawner thread (PDEATHSIG
         must be armed from a long-lived thread). The worker joins the idle
         pool when it registers; callers wait on _idle_cv, never on a
-        specific spawn. ``cards``: a GPU-pool worker's card indices."""
+        specific spawn. ``cards``: a GPU-pool worker's card indices.
+
+        Envs needing MATERIALIZATION (pip/uv venv build, conda env, up to
+        minutes) are prepared on their own thread first — the single
+        spawner thread must never head-of-line block default-env spawns
+        behind an install — then the Popen itself still runs on the
+        spawner."""
+        from ray_tpu_torch.core.runtime_env import needs_materialization
+
+        if needs_materialization(runtime_env):
+            threading.Thread(target=self._materialize_then_spawn,
+                             args=(cards, runtime_env), daemon=True,
+                             name="env-builder").start()
+            return
+        self._spawn_requests.put((cards, runtime_env))
+
+    def _materialize_then_spawn(self, cards, runtime_env) -> None:
+        from ray_tpu_torch.core.runtime_env import (resolve_python_executable,
+                                                    runtime_env_hash)
+
+        try:
+            resolve_python_executable(runtime_env)  # cached after success
+        except Exception as e:  # noqa: BLE001 — surfaced via lease error
+            h = runtime_env_hash(runtime_env)
+            with self._idle_cv:
+                self._env_failures[h] = str(e)
+                self._spawn_done(cards)
+                # Wake same-env waiters now: their retry hits the
+                # fail-fast path instead of waiting out the lease timeout.
+                for entry in list(self._worker_waiters):
+                    if entry[2] == h:
+                        self._worker_waiters.remove(entry)
+                        entry[0].set()
+                self._idle_cv.notify_all()
+            print(f"runtime_env materialization failed: {e}",
+                  file=sys.stderr, flush=True)
+            return
         self._spawn_requests.put((cards, runtime_env))
 
     def _spawn_done(self, cards: Optional[Tuple[int, ...]]) -> None:
@@ -998,16 +1089,17 @@ class NodeManager:
             raise
         # Default-env CPU workers fork from the zygote when available
         # (interpreter+imports paid once per host, not per worker).
-        if (not gpu and not runtime_env and cfg.worker_zygote_enabled
-                and sys.platform.startswith("linux")
-                and _pidfd_supported()
-                and py == sys.executable):
-            forked = self._zygote_spawn(worker_id, env)
+        miss = None
+        if not gpu and not runtime_env:
+            miss = self._zygote_gate(py)
+        if not gpu and not runtime_env and miss is None:
+            forked, miss = self._zygote_spawn(worker_id, env)
             if forked is not None:
                 w = WorkerProc(forked, worker_id,
                                env_hash=runtime_env_hash(runtime_env))
                 with self._lock:
                     self._workers[worker_id] = w
+                    self._spawn_counts["forked"] += 1
                 return w
             # Zygote timeout/failure: the abandoned zygote may STILL fork
             # a worker for the requested id. The cold-spawn fallback must
@@ -1039,7 +1131,27 @@ class NodeManager:
                        env_hash=runtime_env_hash(runtime_env))
         with self._lock:
             self._workers[worker_id] = w
+            self._spawn_counts["cold_gpu" if gpu else "cold_cpu"] += 1
+            new_miss = miss is not None and miss != self._zygote_miss
+            if miss is not None:
+                self._zygote_miss = miss
+        if new_miss:
+            print(f"CPU workers cold-spawn: {miss}", file=sys.stderr,
+                  flush=True)
         return w
+
+    @staticmethod
+    def _zygote_gate(py: str) -> Optional[str]:
+        """Why a default-env CPU worker may not fork here (None: it may)."""
+        if not cfg.worker_zygote_enabled:
+            return "worker_zygote_enabled is off"
+        if not sys.platform.startswith("linux"):
+            return f"platform {sys.platform}"
+        if not _pidfd_supported():
+            return "pidfd_open unavailable"
+        if py != sys.executable:
+            return f"interpreter {py} is not {sys.executable}"
+        return None
 
     # ----------------------------------------------------------- zygote
 
@@ -1058,8 +1170,9 @@ class NodeManager:
         self._zygote_log = None
 
     def _zygote_spawn(self, worker_id: str, env: dict):
-        """Fork one worker off the zygote; returns a _ForkedProc, or None
-        to fall back to a cold Popen (zygote dead/unresponsive).
+        """Fork one worker off the zygote; returns ``(_ForkedProc, None)``,
+        or ``(None, reason)`` to fall back to a cold Popen (zygote
+        dead/unresponsive).
 
         The blocking fork round-trip (a pipe read of up to
         `zygote_spawn_timeout_s`) runs under ``_zygote_io_lock`` only;
@@ -1073,7 +1186,7 @@ class NodeManager:
         with self._zygote_io_lock:
             with self._zygote_lock:
                 if self._stop.is_set():
-                    return None
+                    return None, "node stopping"
                 try:
                     if (self._zygote is None
                             or self._zygote.poll() is not None):
@@ -1103,9 +1216,9 @@ class NodeManager:
                         (_json.dumps({"worker_id": worker_id}) + "\n")
                         .encode())
                     z.stdin.flush()
-                except Exception:
+                except Exception as e:
                     self._discard_zygote_locked()
-                    return None
+                    return None, f"zygote start/write failed: {e!r}"
             # Blocking read OUTSIDE _zygote_lock: a concurrent stop() may
             # close/kill the zygote under us — the select/read then fails
             # fast and lands in the except below.
@@ -1115,19 +1228,23 @@ class NodeManager:
                 try:
                     # First fork waits out the zygote's own import warmup.
                     if not sel.select(timeout=cfg.zygote_spawn_timeout_s):
-                        raise TimeoutError("zygote unresponsive")
+                        raise TimeoutError(
+                            "zygote unresponsive after "
+                            f"{cfg.zygote_spawn_timeout_s} s")
                 finally:
                     sel.close()
                 line = z.stdout.readline()
                 if not line:
                     raise RuntimeError("zygote EOF")
                 resp = _json.loads(line)
-                return _ForkedProc(int(resp["pid"]))
-            except Exception:
+                return _ForkedProc(int(resp["pid"])), None
+            except Exception as e:
+                rc = z.poll()
                 with self._zygote_lock:
                     if self._zygote is z:
                         self._discard_zygote_locked()
-                return None
+                return None, (f"zygote fork failed: {e!r}"
+                              + ("" if rc is None else f" (zygote rc {rc})"))
 
     def _discard_zygote_locked(self) -> None:
         """Drop the current zygote handle (caller holds ``_zygote_lock``).
@@ -1470,8 +1587,16 @@ class NodeManager:
 
         cards = tuple(i for i, _ in shares) if shares else None
         try:
-            w = self._pop_worker(timeout=cfg.lease_timeout_ms / 1000.0,
-                                 cards=cards, runtime_env=runtime_env)
+            if self.simulated:
+                # Scale mode has no worker machinery (no spawner thread —
+                # _pop_worker would park until the lease timeout): mint a
+                # stub so the REAL grant/return/block/census accounting
+                # runs end-to-end at 1000 nodes.
+                w = WorkerProc(_SimProc(), uuid.uuid4().hex, cards=cards)
+                w.address = f"sim:{self.node_id[:8]}:{w.worker_id[:8]}"
+            else:
+                w = self._pop_worker(timeout=cfg.lease_timeout_ms / 1000.0,
+                                     cards=cards, runtime_env=runtime_env)
         except RuntimeEnvSetupError as e:
             lease = Lease("", None, resources, resolved)
             lease.card_shares = shares
@@ -1938,6 +2063,13 @@ class NodeManager:
         from ray_tpu_torch.core.ids import ObjectID
 
         return self.store.contains(ObjectID(oid_bytes))
+
+    def rpc_spawn_stats(self, conn):
+        """Workers started by route (``forked`` off the zygote, ``cold_cpu``,
+        ``cold_gpu``) and why the last default-env CPU worker did not
+        fork (``zygote_miss``, None while every one did)."""
+        with self._lock:
+            return dict(self._spawn_counts, zygote_miss=self._zygote_miss)
 
     def rpc_store_stats(self, conn):
         used, capacity, n_objects, n_evictions = self.store.stats()

@@ -282,6 +282,7 @@ READONLY_RPCS = frozenset({
     "clock_probe", "dump_flight", "pick_node", "pick_nodes",
     "object_locations", "scheduler_stats", "pg_table", "pg_ready",
     "kv_get", "kv_keys", "get_demand", "has_object", "store_stats",
+    "spawn_stats",
     # channel negotiation: endpoint + liveness read (writers poll it
     # during the one-time negotiation and on timeout liveness probes).
     # The streaming Dataset executor's inter-operator edges and the
@@ -305,6 +306,10 @@ IDEMPOTENT_RPCS = frozenset({
     "push_tasks", "push_actor_batch", "pull_object", "pull_direct",
     "push_object", "subscribe", "unsubscribe",
     "kv_put", "kv_del", "drain_node",
+    # rolling-upgrade handover: draining twice is draining (the
+    # checkpoint re-runs, the summary re-reads), and resume just clears
+    # the flag — both safe to retry or re-deliver
+    "prepare_upgrade", "resume_serving",
     # channel negotiation: register overwrites with the same entry
     # (re-delivery is a no-op returning True), unregister of an
     # already-gone channel is True — the state "not registered" holds

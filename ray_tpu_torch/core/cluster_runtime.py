@@ -1,7 +1,6 @@
 """Driver-side cluster runtime: boots head + node processes and connects
-(``ray_tpu/core/cluster_runtime.py``, without ``SimulatedCluster`` and
-the rolling head upgrade; the metrics report loop lives in ``ClusterCore``,
-so workers publish their registries too).
+(``ray_tpu/core/cluster_runtime.py``; the metrics report loop lives in
+``ClusterCore``, so workers publish their registries too).
 
 Parity target: the reference's Node/process-launcher path (reference:
 python/ray/_private/node.py:37 start_head_processes :1407,
@@ -100,6 +99,58 @@ def start_node_process(head_addr: str, resources: Optional[Dict[str, float]],
     return NodeProc(proc, info["ADDRESS"], info["NODE"], info["STORE"])
 
 
+class SimulatedCluster:
+    """Scale-mode harness (the scale tests): ONE in-process HeadServer
+    plus N in-process ``NodeManager(simulated=True)`` instances with
+    stubbed stores. Everything control-plane is real — registration,
+    versioned heartbeat delta sync, holder-set mirrors, the lease
+    census — so head RPC dispatch, heartbeat fan-in, and directory
+    lookups can be profiled at 100+ node counts on one machine."""
+
+    def __init__(self, n_nodes: int, resources: Optional[Dict[str, float]]
+                 = None, zones: int = 4):
+        import uuid as _uuid
+
+        from ray_tpu_torch.cluster.head import HeadServer
+        from ray_tpu_torch.cluster.node_manager import NodeManager
+        from ray_tpu_torch.cluster.protocol import RpcClient
+
+        self.head = HeadServer()
+        self.nodes: List[Any] = []
+        res = dict(resources or {"CPU": 8.0})
+        for i in range(n_nodes):
+            node_id = _uuid.uuid4().hex
+            self.nodes.append(NodeManager(
+                self.head.address, node_id, dict(res),
+                {"zone": f"z{i % max(1, zones)}"}, 0, simulated=True))
+        self.client = RpcClient(self.head.address)
+
+    def wait_registered(self, timeout_s: float = 30.0) -> None:
+        deadline = time.monotonic() + timeout_s
+        want = len(self.nodes)
+        while time.monotonic() < deadline:
+            views = self.client.call("list_nodes", timeout=10)
+            if sum(1 for v in views if v["alive"]) >= want:
+                return
+            time.sleep(0.2)
+        raise TimeoutError(f"only {len(self.client.call('list_nodes'))} "
+                           f"of {want} simulated nodes registered")
+
+    def shutdown(self) -> None:
+        try:
+            self.client.close()
+        except Exception as e:
+            logging.getLogger(__name__).debug(
+                "sim client close failed: %r", e)
+        for n in self.nodes:
+            try:
+                n.shutdown()
+            except Exception as e:
+                logging.getLogger(__name__).debug(
+                    "sim node shutdown failed: %r", e)
+        self.head.shutdown()
+
+
 class ClusterRuntime(ClusterCore):
     """The driver's runtime: owns the head/node subprocesses it started."""
 
@@ -190,11 +241,17 @@ class ClusterRuntime(ClusterCore):
         valid; reconnects happen inside retrying_call."""
         port = self._head_addr_str.rsplit(":", 1)[1]
         while not getattr(self, "_shutdown_flag", False):
+            if getattr(self, "_upgrading", False):
+                # Rolling upgrade owns the head process handover: the
+                # supervisor racing it would double-bind the port.
+                time.sleep(cfg.head_supervisor_poll_s)
+                continue
             proc = self._head_proc
             if proc.poll() is None:
                 time.sleep(cfg.head_supervisor_poll_s)
                 continue
-            if getattr(self, "_shutdown_flag", False):
+            if getattr(self, "_shutdown_flag", False) or getattr(
+                    self, "_upgrading", False):
                 continue
             try:
                 new_proc = _spawn(
@@ -207,6 +264,103 @@ class ClusterRuntime(ClusterCore):
                 self._procs.append(new_proc)
             except Exception:
                 time.sleep(1.0)  # port may linger in TIME_WAIT; retry
+
+    def rolling_head_upgrade(self) -> Dict[str, Any]:
+        """Zero-request-failure head swap: drain + WAL-checkpoint the
+        serving head, SIGTERM it (graceful stop severs parked peer conns
+        and releases the port), bind a NEW head process — a new
+        incarnation — on the SAME port with the SAME durable tables, and
+        let the cluster re-converge: clients ride retrying_call across the
+        gap, nodes re-register on their first heartbeat NACK and republish
+        holder sets, and recovered-ALIVE actors are confirmed as their
+        nodes come back. Returns the step timings."""
+        if not getattr(self, "_owns_cluster", False):
+            raise RuntimeError("rolling_head_upgrade needs the driver "
+                               "that owns the head process")
+        port = self._head_addr_str.rsplit(":", 1)[1]
+        report: Dict[str, Any] = {}
+        t0 = time.monotonic()
+        self._upgrading = True
+        try:
+            summary = self.head.retrying_call(
+                "prepare_upgrade",
+                timeout=cfg.head_upgrade_drain_timeout_s + 10)
+            report["old_incarnation"] = summary.get("incarnation")
+            report["drain_s"] = round(time.monotonic() - t0, 3)
+            old = self._head_proc
+            old.terminate()
+            try:
+                old.wait(timeout=10)
+            except subprocess.TimeoutExpired:
+                old.kill()
+                old.wait(timeout=5)
+            t_swap = time.monotonic()
+            report["handover_at_s"] = round(t_swap - t0, 3)
+            # Port may linger a beat after process exit: retry the bind.
+            deadline = time.monotonic() + cfg.node_boot_timeout_s
+            new_proc = None
+            while new_proc is None:
+                try:
+                    new_proc = _spawn(
+                        [sys.executable, "-m", "ray_tpu_torch.cluster.head_main",
+                         "--port", port, "--persist", self._head_persist],
+                        "head.log")
+                    _read_tagged_line(new_proc, "ADDRESS",
+                                      cfg.node_boot_timeout_s)
+                except Exception:
+                    if new_proc is not None and new_proc.poll() is None:
+                        new_proc.kill()
+                    new_proc = None
+                    if time.monotonic() > deadline:
+                        raise
+                    time.sleep(0.5)
+            self._head_proc = new_proc
+            self._procs.append(new_proc)
+        finally:
+            self._upgrading = False
+        # The swap is done when the successor answers on the old port.
+        stats = self.head.retrying_call("scheduler_stats", timeout=30)
+        report["new_incarnation"] = stats.get("head_incarnation")
+        report["upgrade_s"] = round(time.monotonic() - t0, 3)
+        return report
+
+    # --------------------------------------------------------------- kv
+
+    def kv_put(self, key: str, value: bytes, *, namespace: str = "default",
+               overwrite: bool = True) -> bool:
+        data = value if isinstance(value, bytes) else str(value).encode()
+        return self.head.retrying_call("kv_put", namespace, key.encode(),
+                                       data, overwrite, timeout=10)
+
+    def kv_get(self, key: str, *, namespace: str = "default"):
+        return self.head.retrying_call("kv_get", namespace, key.encode(),
+                                       timeout=10)
+
+    def kv_del(self, key: str, *, namespace: str = "default") -> bool:
+        return self.head.retrying_call("kv_del", namespace, key.encode(),
+                                       timeout=10)
+
+    def kv_keys(self, prefix: str = "", *,
+                namespace: str = "default") -> List[str]:
+        keys = self.head.retrying_call("kv_keys", namespace,
+                                       prefix.encode(), timeout=10)
+        return [k.decode() for k in keys]
+
+    def spawn_stats(self) -> List[Dict[str, Any]]:
+        """Each started node's worker starts by route (forked off the
+        zygote, cold CPU, cold GPU) and the last reason a CPU worker did
+        not fork (``NodeManager.rpc_spawn_stats``)."""
+        from ray_tpu_torch.cluster.protocol import RpcClient
+
+        out = []
+        for node in self._nodes:
+            c = RpcClient(node.address)
+            try:
+                out.append(dict(c.call("spawn_stats", timeout=10),
+                                node_id=node.node_id))
+            finally:
+                c.close()
+        return out
 
     def add_node(self, num_cpus: float = 1.0,
                  resources: Optional[Dict[str, float]] = None,

@@ -111,6 +111,10 @@ _d = GLOBAL_CONFIG.define
 # --- tasks ---
 _d("task_retry_delay_ms", int, 100, "backoff between task retries")
 
+# --- client tier ---
+_d("client_ref_flush_period_s", float, 0.2,
+   "remote-driver clients: hold/release reconciliation sweep period")
+
 # --- serve ---
 _d("serve_reconcile_period_s", float, 1.0,
    "controller reconciliation loop period (target-vs-running diff)")
@@ -386,6 +390,9 @@ _d("head_restart_actor_grace_s", float, 10.0,
    "arrives)")
 _d("head_supervisor_poll_s", float, 0.5,
    "driver-side head supervisor liveness poll period")
+_d("head_upgrade_drain_timeout_s", float, 15.0,
+   "rolling head upgrade: max wait for in-flight creations to settle "
+   "during prepare_upgrade before the snapshot flush proceeds anyway")
 _d("health_check_failure_threshold", int, 5, "missed pings before node is dead")
 _d("health_check_period_ms", int, 1000, "controller -> nodelet ping period")
 _d("lease_backoff_base_s", float, 0.1,

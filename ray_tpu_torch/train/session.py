@@ -10,6 +10,12 @@ depth 1, exactly the reference's backpressure).
 
 `world_size`/`world_rank` are the actor group's coordinates. A loop that
 needs a process group gets one from ``TorchTrainer`` (``train/torch.py``).
+
+Two differences from ``ray_tpu``, both for sessions that share a process
+(the in-process runtime runs each trial of a ``Tuner`` as a thread): the
+module accessors find the session of the calling thread, and ``stop()``
+ends a session, so its loop's next ``report`` raises ``SessionStopped``
+and the loop's thread exits, letting go of what the loop holds.
 """
 
 from __future__ import annotations
@@ -22,6 +28,12 @@ from typing import Any, Dict, Optional
 
 from ray_tpu_torch.train.checkpoint import Checkpoint
 from ray_tpu_torch.train.config import TrainContextConfig
+
+
+class SessionStopped(BaseException):
+    """Raised by ``report`` in a loop whose session was stopped. A
+    ``BaseException``, so an ``except Exception`` in the loop does not
+    keep the loop running."""
 
 
 class _Result:
@@ -77,6 +89,7 @@ class TrainSession:
         # Depth-1 handoff: report() blocks until the driver consumed it.
         self._results: "queue.Queue[_Result]" = queue.Queue(maxsize=1)
         self._finished = threading.Event()
+        self._stopped = threading.Event()
         self._thread: Optional[threading.Thread] = None
 
     # ---------------------------------------------------------- lifecycle
@@ -85,6 +98,7 @@ class TrainSession:
         def runner():
             global _session
             _session = self
+            _local.session = self
             try:
                 takes_config = True
                 try:
@@ -98,9 +112,11 @@ class TrainSession:
                     self._train_fn(self._config)
                 else:
                     self._train_fn()
-                self._results.put(_Result(done=True))
+                self._put(_Result(done=True))
+            except SessionStopped:
+                pass  # the driver stopped this session: nobody polls
             except BaseException as e:  # surfaced to the driver, not lost
-                self._results.put(_Result(done=True, error=(
+                self._put(_Result(done=True, error=(
                     e, traceback.format_exc())))
             finally:
                 self._finished.set()
@@ -108,6 +124,22 @@ class TrainSession:
         self._thread = threading.Thread(target=runner, daemon=True,
                                         name="train-session")
         self._thread.start()
+
+    def stop(self) -> None:
+        """End the session: the loop's next (or pending) ``report`` raises
+        ``SessionStopped`` in the loop's thread."""
+        self._stopped.set()
+
+    def _put(self, item: _Result) -> bool:
+        # Depth-1 handoff that gives up once the session is stopped (a
+        # stopped session's queue is never drained again).
+        while not self._stopped.is_set():
+            try:
+                self._results.put(item, timeout=0.05)
+                return True
+            except queue.Full:
+                pass
+        return False
 
     def poll(self, timeout: float) -> Optional[_Result]:
         """Driver-side: next result, or None if the loop hasn't reported."""
@@ -120,9 +152,10 @@ class TrainSession:
 
     def report(self, metrics: Dict[str, Any],
                checkpoint: Optional[Checkpoint] = None) -> None:
-        self._results.put(_Result(
-            metrics=dict(metrics),
-            checkpoint_path=checkpoint.path if checkpoint else None))
+        if not self._put(_Result(
+                metrics=dict(metrics),
+                checkpoint_path=checkpoint.path if checkpoint else None)):
+            raise SessionStopped("the session was stopped")
 
     def get_checkpoint(self) -> Optional[Checkpoint]:
         return self._start_checkpoint
@@ -167,15 +200,19 @@ class TrainSession:
 
 
 # Module-level accessors (the public API surface inside a train loop).
+# The calling thread's session first; the last one started otherwise
+# (threads that a loop starts itself).
 _session: Optional[TrainSession] = None
+_local = threading.local()
 
 
 def _require_session() -> TrainSession:
-    if _session is None:
+    session = getattr(_local, "session", None) or _session
+    if session is None:
         raise RuntimeError(
             "ray_tpu_torch.train.report()/get_context() may only be called inside "
             "a train_loop_per_worker launched by a Trainer")
-    return _session
+    return session
 
 
 def report(metrics: Dict[str, Any],

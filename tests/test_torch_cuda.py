@@ -1519,3 +1519,106 @@ def test_ingest_survives_a_consumer_that_lags_behind_the_loader(
     want = cols["x"].astype("float64").sum(axis=1)
     assert got.shape == want.shape
     assert (abs(got - want) <= 1e-9 * (1 + abs(want))).all()
+
+
+# ------------------------------------------------- tune and client mode
+
+
+def test_tuner_trial_on_the_card_frees_its_memory_once_stopped(card):
+    """Four tiny-Llama trials on the in-process runtime, ASHA stopping
+    some: after ``fit`` and ``shutdown`` every trial's thread is gone and
+    the card holds what it held before (the trial threads' cuBLAS
+    workspaces dropped)."""
+    import threading
+    import time
+
+    import ray_tpu_torch
+    from ray_tpu_torch import tune
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.parallel import spmd
+
+    cfg = llama.tiny_config(fused_ops=True)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 64), device=card,
+                           generator=torch.Generator(card).manual_seed(0))
+
+    def trainable(config):
+        tx = spmd.default_optimizer(lr=config["lr"], warmup=1)
+        state = spmd.init_train_state(
+            cfg, torch.Generator(device="cuda").manual_seed(3), tx)
+        step = spmd.make_train_step(cfg, tx)
+        for _ in range(6):
+            state, metrics = step(state, tokens)
+            tune.report({"loss": metrics["loss"].item()})
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    ray_tpu_torch.init(address="local")
+    try:
+        grid = tune.Tuner(
+            trainable,
+            param_space={"lr": tune.grid_search([1e-4, 1e-3, 1e-2, 3e-2])},
+            tune_config=tune.TuneConfig(
+                metric="loss", mode="min", max_concurrent_trials=2,
+                scheduler=tune.ASHAScheduler(
+                    metric="loss", mode="min", max_t=6, grace_period=2,
+                    reduction_factor=2))).fit()
+    finally:
+        ray_tpu_torch.shutdown()
+    assert not grid.errors
+    assert any(len(r.history) < 6 for r in grid)
+    deadline = time.monotonic() + 30
+    while any(t.name == "train-session" for t in threading.enumerate()):
+        assert time.monotonic() < deadline
+        time.sleep(0.05)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch._C._cuda_clearCublasWorkspaces()
+    assert torch.cuda.memory_allocated() - base <= 64 << 20
+
+
+def test_cluster_client_mode_gpu_task_on_the_card(card_cluster, tmp_path):
+    """A client-mode driver (a child process) runs a ``{"GPU": 0.5}`` task
+    through this process's gateway: it lands in a GPU worker that sees
+    the card and returns a tiny Llama forward equal to this process's."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    from ray_tpu_torch.client.server import start_gateway
+
+    task = (
+        "def forward():\n"
+        "    import importlib, os, torch\n"
+        "    llama = importlib.import_module('ray_tpu_torch.models.llama')\n"
+        "    cfg = llama.tiny_config(fused_ops=True)\n"
+        "    p = llama.init_params(cfg, torch.Generator(device='cuda')"
+        ".manual_seed(0), 'cuda')\n"
+        "    tok = torch.arange(64, device='cuda')[None] % cfg.vocab_size\n"
+        "    with torch.no_grad():\n"
+        "        out = llama.forward(p, tok, cfg)[0].float()\n"
+        "    return {'argmax': out.argmax(-1).tolist(),\n"
+        "            'visible': os.environ.get('CUDA_VISIBLE_DEVICES')}\n")
+    client = task + (
+        "import json, sys, ray_tpu_torch\n"
+        "ray_tpu_torch.init(address=sys.argv[1])\n"
+        "f = ray_tpu_torch.remote(num_gpus=0.5, num_cpus=0)(forward)\n"
+        "print('OUT', json.dumps(ray_tpu_torch.get(f.remote(), "
+        "timeout=300)))\n"
+        "ray_tpu_torch.shutdown()\n")
+    server = start_gateway(card_cluster)
+    try:
+        root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        proc = subprocess.run(
+            [sys.executable, "-c", client, "client://" + server.address],
+            capture_output=True, text=True, timeout=300,
+            env=dict(os.environ, PYTHONPATH=root))
+    finally:
+        server.stop()
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    got = json.loads(proc.stdout.split("OUT", 1)[1])
+    scope = {}
+    exec(task, scope)
+    want = scope["forward"]()
+    assert got["argmax"] == want["argmax"]
+    assert got["visible"] not in (None, "")

@@ -633,19 +633,21 @@ def _alive(pid):
 
 @pytest.mark.parametrize("kw", [{}, {"address": None}, {"address": "auto"},
                                 {"address": "127.0.0.1:closed"},
-                                {"address": "client://127.0.0.1:10001"}])
+                                {"address": "client://127.0.0.1:closed"}])
 def test_init_at_a_cluster_address_raises(kw):
     """``init`` at each of ``ray_tpu``'s addresses does what ``ray_tpu``'s
     does (``ray_tpu/api.py:60-85``): no address starts a cluster (a head, a
     node manager, workers), and its shutdown leaves no process and no shm
     segment; ``"auto"`` and an unreachable ``host:port`` raise
     ``RuntimeError`` when the joining node cannot reach a head, within a
-    bounded wait; ``client://`` raises ``NotImplementedError`` (client mode
-    is not ported). The name is the one this test had while every address
-    raised."""
+    bounded wait; ``client://`` at a port where no gateway listens raises
+    ``ConnectionRefusedError`` at once, as ``ray_tpu``'s does. The name is
+    the one this test had while every address raised."""
     kw = dict(kw)
     if kw.get("address") == "127.0.0.1:closed":
         kw["address"] = f"127.0.0.1:{_closed_port()}"
+    if kw.get("address") == "client://127.0.0.1:closed":
+        kw["address"] = f"client://127.0.0.1:{_closed_port()}"
     address = kw.get("address")
     if address is None:
         rt = ray_tpu_torch.init(num_cpus=1, object_store_memory=32 << 20,
@@ -673,8 +675,10 @@ def test_init_at_a_cluster_address_raises(kw):
             assert not pathlib.Path("/dev/shm", name.lstrip("/")).exists()
         return
     if address.startswith("client://"):
-        with pytest.raises(NotImplementedError, match="client mode"):
+        t0 = time.monotonic()
+        with pytest.raises(ConnectionRefusedError):
             ray_tpu_torch.init(**kw)
+        assert time.monotonic() - t0 < 30
     else:
         t0 = time.monotonic()
         with pytest.raises(RuntimeError, match="before printing ADDRESS"):
