@@ -2,7 +2,7 @@
 """Run the PyTorch/CUDA port (``ray_tpu_torch``) end to end on one CUDA
 card and check it.
 
-    python3 chip_smoke.py              # phases 1-20, the smoke
+    python3 chip_smoke.py              # phases 1-21, the smoke
     python3 chip_smoke.py --spec-ab    # phases 1-2, then speculation off
                                        # against on (bf16), no result line
     python3 chip_smoke.py --flash [DIR]     # phases 1-2, the flash kernels
@@ -29,8 +29,8 @@ card and check it.
                                             # line
     python3 chip_smoke.py --tune            # phases 1-2 and 19, no result
                                             # line
-    python3 chip_smoke.py --client          # phases 1-2 and 20 (on a
-                                            # cluster of its own), no
+    python3 chip_smoke.py --client          # phases 1-2, 20 and 21 (on
+                                            # a cluster of their own), no
                                             # result line
 
 ``--flash`` runs against the package of the checkout at DIR (default:
@@ -284,6 +284,28 @@ script exits non-zero without printing its last line:
     cluster and runs the same task: ``SUCCEEDED``, its logs' result equal
     to the driver's forward, and whether its task reused (a)'s GPU
     worker. Each task reports its worker's launches.
+21. Workflows, state and the dashboard, right after phase 20 on its
+    cluster and its warm ``{"GPU": 0.5}`` worker (no new cluster, node or
+    GPU worker): (a) a durable ``ray_tpu_torch.workflow`` of three steps
+    under a scratch storage root: ``p21_prompt`` (CPU) makes phase 20's
+    prompt, ``p21_check`` (CPU) checks it and raises
+    ``ConnectionResetError`` on its first attempt under
+    ``retry_exceptions=(ConnectionError,)``, ``p21_forward`` (``{"GPU":
+    0.5}``) runs phase 20's Llama-3.2-1B forward (full published widths
+    and depth, ``fused_ops=True``) and also returns the last position's
+    logits as a bf16 tensor on the card (a CPU step cannot take a CUDA
+    tensor, so the check comes first). The argmax tokens and f32 logit
+    sum are bit-equal to phase 20a's; the forward's launches (RMSNorm,
+    RMSNorm+residual, RoPE, SwiGLU, flash forward) equal 20a's exactly
+    and its side-effect marker counts 1; the check ran twice;
+    ``workflow.resume`` of the finished id returns the same result and
+    launches nothing; the bf16 tensor loaded back from storage is
+    bit-equal and on the card. (b) ``util.state.list_nodes()`` shows the
+    card's node with ``GPU`` and the model label the GPU accelerator
+    manager read without a CUDA context (the short form of nvidia-smi's
+    name); ``list_tasks()`` and the timeline hold the three steps; the
+    dashboard, on an ephemeral port, answers ``/api`` with the label.
+    (c) The phase prints its seconds and fails past 15 s.
     Every cluster the script starts prints how many CPU workers forked
     from the zygote and how many cold-spawned, and why.
 10. The model zoo, after phase 8: (a) Mixtral, 2 layers at
@@ -349,8 +371,9 @@ script exits non-zero without printing its last line:
    ``launches_phase15``, phase 16a's as ``launches_phase16``, phase 17a's
    worker's and 17b's processor's summed as ``launches_phase17``, phase
    19's ``fit`` as ``launches_phase19``, phase 20's two tasks summed as
-   ``launches_phase20``, and the flash rows' launches a step of phase 10b
-   as ``launches_phase10``) is printed just before the last line.
+   ``launches_phase20``, phase 21's forward step as ``launches_phase21``,
+   and the flash rows' launches a step of phase 10b as
+   ``launches_phase10``) is printed just before the last line.
 
 The last line is ``{"ok": true, "device": {...}}``. Needs one card; exits
 non-zero at once without one.
@@ -4087,6 +4110,7 @@ def phase_trainer(smi, data=False):
         data_launches = phase_data(smi, llama8b_loop, storage)
         phase11d(smi)
         MEASURED["phase20"] = phase20(smi, storage)
+        MEASURED["phase21"] = phase21(smi, storage)
         return launches, data_launches
 
     return on_cluster("phase 15", run)
@@ -4586,10 +4610,11 @@ P20_TASK = '''
 import os
 
 
-def p20_forward(prompt):
+def p20_forward(prompt, last=False):
     """LLAMA3_1B (fused ops) from seed 0 on this process's card: argmax
     tokens and the f32 logit sum over ``prompt``, with this process's
-    kernel launches over the call."""
+    kernel launches over the call; with ``last``, also the last
+    position's logits as a bf16 tensor on the card."""
     import dataclasses
     import importlib
 
@@ -4602,14 +4627,17 @@ def p20_forward(prompt):
     params = llama.init_params(
         cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
     with torch.no_grad():
-        logits = llama.forward(params, torch.tensor([prompt], device="cuda"),
-                               cfg)[0].float()
+        raw = llama.forward(params, torch.tensor([prompt], device="cuda"),
+                            cfg)[0]
+        logits = raw.float()
     out = {"argmax": logits.argmax(-1).tolist(),
            "sum": logits.sum().item(), "pid": os.getpid(),
            "visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
            "launches": {n: f.launches - before[n]
                         for n, f in kernels.items()}}
-    del params, logits
+    if last:
+        out["last"] = raw[-1].to(torch.bfloat16).clone()
+    del params, logits, raw
     torch.cuda.empty_cache()
     return out
 '''
@@ -4770,6 +4798,7 @@ def phase20(smi, storage):
                              "job's")
     rel_a = p20_check("a", got_a, want)
     rel_b = p20_check("b", got_b, want)
+    MEASURED["phase20_a"] = got_a  # phase 21's reference
     launches = dict(got_a["launches"])
     add_counts(launches, got_b["launches"])
     log(f"  phase 20a client mode: {P20_PROMPT}-token forward of "
@@ -4786,6 +4815,199 @@ def phase20(smi, storage):
     log(f"phase 20 client mode and jobs: passed in "
         f"{time.perf_counter() - t0:.1f} s; launches {launches}; on {smi}")
     return launches
+
+
+# --------------------------------------------------------------- phase 21
+
+# Phase 21's steps: shared text run by value in the cluster's workers, on
+# top of phase 20's forward. A CPU worker cannot take a CUDA tensor (it
+# raises NoCardError), so the CPU check runs before the forward.
+P21_STEPS = P20_TASK + '''
+
+def p21_prompt(seed, n, vocab):
+    """Phase 20's seeded prompt."""
+    import numpy as np
+
+    return np.random.RandomState(seed).randint(0, vocab, n).tolist()
+
+
+def p21_check(prompt, n, vocab, attempts):
+    """Checks the prompt and passes it on; its first attempt fails as a
+    dropped connection does."""
+    with open(attempts, "a") as f:
+        f.write("ran\\n")
+    if len(prompt) != n or not all(0 <= t < vocab for t in prompt):
+        raise ValueError(f"phase 21: a bad prompt of {len(prompt)} tokens")
+    with open(attempts) as f:
+        if f.read().count("ran") < 2:
+            raise ConnectionResetError("phase 21: the first attempt's "
+                                       "connection was reset")
+    return prompt
+
+
+def p21_forward(prompt, marker):
+    """Phase 20's forward, with the last position's bf16 logits; appends
+    to ``marker`` each time it runs."""
+    with open(marker, "a") as f:
+        f.write("ran\\n")
+    return p20_forward(prompt, last=True)
+'''
+P21_BUDGET_S = 15.0
+
+
+def phase21(smi, storage):
+    """On phase 20's cluster and its warm ``{"GPU": 0.5}`` worker: (a) a
+    durable workflow ``p21_prompt`` (CPU) -> ``p21_check`` (CPU, its
+    first attempt raises ``ConnectionResetError`` under
+    ``retry_exceptions=(ConnectionError,)``) -> ``p21_forward`` (the
+    forward of phase 20 with the last position's bf16 logits on the
+    card, in a GPU worker phase 20 started; a driver that joined the
+    cluster returns its leases when it shuts down, so 20b's job left the
+    worker idle): argmax and f32 logit sum bit-equal to phase 20a's, the
+    forward's launches equal to 20a's exactly and its marker written
+    once, the check run twice; ``resume`` of the finished id returns the
+    same and launches nothing; the stored bf16 tensor loads back onto
+    the card bit-equal. (b) The state API lists the card's node with
+    ``GPU`` and the model label (the short form of nvidia-smi's name),
+    the three steps' tasks and timeline events; the dashboard's JSON
+    carries the label. (c) At most ``P21_BUDGET_S``. Returns the
+    forward's launches."""
+    import urllib.request
+
+    import ray_tpu_torch
+    from ray_tpu_torch import workflow
+    from ray_tpu_torch.core.accelerators import gpu_name_to_accelerator_type
+    from ray_tpu_torch.core.resources import LABEL_ACCELERATOR_TYPE
+    from ray_tpu_torch.core.runtime_context import require_runtime
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.ops import KERNELS
+    from ray_tpu_torch.util import dashboard, state, timeline
+
+    t0 = time.perf_counter()
+    p20 = MEASURED["phase20_a"]
+    rt = require_runtime()
+    gpu_workers = sum(s["cold_gpu"] for s in rt.spawn_stats())
+    scope = {"__name__": "__main__"}
+    exec(P21_STEPS, scope)
+    vocab = llama.LLAMA3_1B.vocab_size
+    attempts = os.path.join(storage, "p21_check.txt")
+    marker = os.path.join(storage, "p21_forward.txt")
+    var = "RTPU_TORCH_WORKFLOW_STORAGE"
+    old = os.environ.get(var)
+    os.environ[var] = os.path.join(storage, "p21_workflows")
+    try:
+        prompt = workflow.step(name="p21_prompt")(
+            scope["p21_prompt"]).bind(20, P20_PROMPT, vocab)
+        checked = workflow.step(
+            name="p21_check", max_retries=2,
+            retry_exceptions=(ConnectionError,))(scope["p21_check"]).bind(
+                prompt, P20_PROMPT, vocab, attempts)
+        forward = workflow.step(name="p21_forward", max_retries=0)(
+            ray_tpu_torch.remote(num_gpus=0.5, num_cpus=0)(
+                scope["p21_forward"])).bind(checked, marker)
+        t = time.perf_counter()
+        out = workflow.run(forward, workflow_id="phase21")
+        run_s = time.perf_counter() - t
+        before = {n: f.launches for n, f in KERNELS.items()}
+        t = time.perf_counter()
+        again = workflow.resume("phase21", forward)
+        resume_s = time.perf_counter() - t
+        resumed = {n: f.launches - before[n] for n, f in KERNELS.items()}
+        done, stored = workflow._load_result("phase21", forward.step_id())
+        status = workflow.get_status("phase21")
+    finally:
+        if old is None:
+            os.environ.pop(var, None)
+        else:
+            os.environ[var] = old
+    if out["argmax"] != p20["argmax"] or out["sum"] != p20["sum"]:
+        bad = sum(a != b for a, b in zip(out["argmax"], p20["argmax"]))
+        raise AssertionError(
+            f"phase 21a: {bad} argmax tokens differ, logit sum "
+            f"{out['sum']!r} vs phase 20a's {p20['sum']!r}")
+    if out["launches"] != p20["launches"]:
+        raise AssertionError(f"phase 21a: the forward's launches "
+                             f"{out['launches']} differ from one forward's "
+                             f"{p20['launches']}")
+    require_launches("phase 21a", out["launches"],
+                     ("decode_attention", "paged_decode_attention",
+                      "flash_attention_bwd"))
+    with open(marker) as f:
+        forward_runs = f.read().count("ran")
+    with open(attempts) as f:
+        check_runs = f.read().count("ran")
+    if forward_runs != 1 or check_runs != 2:
+        raise AssertionError(f"phase 21a: forward ran {forward_runs} times "
+                             f"(want 1), check {check_runs} (want 2)")
+    if any(resumed.values()):
+        raise AssertionError(f"phase 21a: resume launched {resumed}")
+    spawned = sum(s["cold_gpu"] for s in rt.spawn_stats()) - gpu_workers
+    if spawned:
+        raise AssertionError(f"phase 21a: {spawned} GPU worker(s) started; "
+                             "the forward must reuse phase 20's")
+    if status["status"] != "SUCCEEDED" or status["steps_completed"] != 3:
+        raise AssertionError(f"phase 21a: status {status}")
+    bits = out["last"].view(torch.int16)
+    for label, got in (("resume", again), ("storage", stored)):
+        tensor = got["last"]
+        if not (tensor.is_cuda and tensor.dtype == torch.bfloat16
+                and torch.equal(tensor.view(torch.int16), bits)):
+            raise AssertionError(f"phase 21a: the {label} tensor is not the "
+                                 f"run's bf16 logits on the card "
+                                 f"({tensor.device}, {tensor.dtype})")
+        if {k: v for k, v in got.items() if k != "last"} != \
+                {k: v for k, v in out.items() if k != "last"}:
+            raise AssertionError(f"phase 21a: the {label} result differs")
+    if not (done and out["last"].is_cuda):
+        raise AssertionError("phase 21a: no stored forward result")
+
+    # (b) state, timeline, dashboard
+    name = torch.cuda.get_device_name(0)
+    model = gpu_name_to_accelerator_type(name)
+    cards = [n for n in state.list_nodes()
+             if n["alive"] and n["resources"].get("GPU")]
+    labels = [n["labels"].get(LABEL_ACCELERATOR_TYPE) for n in cards]
+    if labels != [model] or model not in smi:
+        raise AssertionError(f"phase 21b: card nodes labelled {labels}, "
+                             f"want [{model!r}] from {smi!r}")
+    steps = ("p21_prompt", "p21_check", "p21_forward")
+    tasks = [t["name"] for t in state.list_tasks(limit=1000)]
+    events = [e["name"] for e in timeline.dump_timeline()
+              if e.get("ph") == "X"]
+    for step in steps:
+        if not any(step in n for n in tasks):
+            raise AssertionError(f"phase 21b: list_tasks has no {step}")
+        if not any(step in n for n in events):
+            raise AssertionError(f"phase 21b: the timeline has no {step}")
+    checks_seen = sum("p21_check" in n for n in events)
+    port = dashboard.start(port=0)
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/api",
+                                    timeout=30) as resp:
+            api = json.loads(resp.read())
+    finally:
+        dashboard.stop(port)
+    shown = [n.get("accelerator") for n in api["nodes"]
+             if n["resources"].get("GPU")]
+    if shown != [model]:
+        raise AssertionError(f"phase 21b: the dashboard shows {shown}")
+    took = time.perf_counter() - t0
+    log(f"  phase 21a workflow: prompt -> check (2 attempts, the first "
+        f"ConnectionResetError) -> forward in GPU worker {out['pid']} "
+        f"(phase 20a's: {out['pid'] == p20['pid']}): argmax and logit sum "
+        f"bit-equal to phase 20a's, launches equal to one forward's, run "
+        f"{run_s:.2f} s; resume {resume_s:.3f} s, 0 launches; the stored "
+        f"bf16 logits [{out['last'].numel()}] back on {stored['last'].device}"
+        f" bit-equal")
+    log(f"  phase 21b state: node label {model!r} (nvidia-smi: {name!r}), "
+        f"{len(tasks)} tasks listed, {checks_seen} p21_check timeline "
+        f"events; dashboard on port {port} shows {shown}")
+    log(f"phase 21 workflows, state and dashboard: passed in {took:.1f} s "
+        f"(budget {P21_BUDGET_S} s); launches {out['launches']}; on {smi}")
+    if took > P21_BUDGET_S:
+        raise AssertionError(f"phase 21: {took:.1f} s, over its "
+                             f"{P21_BUDGET_S} s budget")
+    return out["launches"]
 
 
 def spawn_line(label, rt):
@@ -6545,7 +6767,8 @@ def main() -> int:
         if "--tune" in args:
             phase19(smi)
         if "--client" in args:
-            on_cluster("phase 20", lambda storage: phase20(smi, storage))
+            on_cluster("phase 20", lambda storage: (
+                phase20(smi, storage), phase21(smi, storage)))
         log(f"total {time.perf_counter() - t_start:.1f} s on {smi}")
         return 0
     if args == ["--spec-ab"]:
@@ -6579,7 +6802,7 @@ def main() -> int:
     done("phase 8")
     trainer, data = phase_trainer(smi, data=True)
     add_counts(data, phase12["then"])
-    done("phases 15, 17a, 17c, 11d and 20")
+    done("phases 15, 17a, 17c, 11d, 20 and 21")
     parallel = phase_parallel(smi)
     done("phase 16")
     tuned = phase19(smi)
@@ -6602,6 +6825,7 @@ def main() -> int:
         row["launches_phase17"] = data[row["name"]]
         row["launches_phase19"] = tuned[row["name"]]
         row["launches_phase20"] = MEASURED["phase20"][row["name"]]
+        row["launches_phase21"] = MEASURED["phase21"][row["name"]]
     fused_apply_cost(smi)
     log(f"total {time.perf_counter() - t_start:.1f} s on {smi}")
     print(json.dumps({"kernels": rows}), flush=True)

@@ -44,7 +44,13 @@ pinned memory and a copy stream, ``build_llm_processor``); and ``tune``
 (searchers, schedulers, ``Tuner`` on either runtime), client mode
 (``init("client://...")`` through ``client.server``'s gateway), ``jobs``
 and the CLI (``scripts/cli.py``), the pip, uv and conda runtime envs,
-the head's rolling upgrade and ``SimulatedCluster``. A worker
+the head's rolling upgrade and ``SimulatedCluster``; and the
+libraries beside the runtime: ``workflow`` (durable step DAGs),
+``autoscaler`` (a GCE GPU provider), ``experimental.broadcast``,
+``util.state``/``pubsub``/``timeline``/``dashboard``, the Pool, joblib
+and dask shims, and ``core.accelerators`` (the GPU accelerator manager:
+a node's cards and their model as its label, read without a CUDA
+context). A worker
 leased with ``GPU`` sees its lease's cards alone (``CUDA_VISIBLE_DEVICES``,
 set by the node manager), so its own card is ``cuda:0``; a CPU worker
 sees none. ``ROADMAP.md`` lists what is left.
@@ -90,7 +96,7 @@ from ray_tpu_torch.actor import ActorClass, ActorHandle  # noqa: E402
 from ray_tpu_torch.api import (available_resources, cancel,  # noqa: E402
                                cluster_resources, get, get_actor, init,
                                is_initialized, kill, method, nodes, put,
-                               remote, shutdown, wait)
+                               remote, shutdown, timeline, wait)
 from ray_tpu_torch.core.object_ref import ObjectRef  # noqa: E402
 from ray_tpu_torch.core.runtime_context import \
     get_runtime_context  # noqa: E402
@@ -111,6 +117,7 @@ __all__ = [
     "nodes",
     "cluster_resources",
     "available_resources",
+    "timeline",
     "ObjectRef",
     "ActorClass",
     "ActorHandle",

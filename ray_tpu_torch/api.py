@@ -99,6 +99,12 @@ def init(
 def shutdown() -> None:
     rt = get_runtime()
     if rt is not None:
+        try:
+            from ray_tpu_torch.util import pubsub
+
+            pubsub.close()  # stop the rejoin loop before the head dies
+        except Exception:
+            pass
         rt.shutdown()
         runtime_context.set_runtime(None)
         GLOBAL_CONFIG.clear_exported_env()
@@ -202,3 +208,11 @@ def cluster_resources() -> Dict[str, float]:
 
 def available_resources() -> Dict[str, float]:
     return require_runtime().available_resources()
+
+
+def timeline(filename: Optional[str] = None):
+    """This process's task events as chrome-trace events, or written to
+    ``filename`` (reference: ``ray timeline``)."""
+    from ray_tpu_torch.util.timeline import dump_timeline
+
+    return dump_timeline(filename)

@@ -1280,7 +1280,6 @@ class HeadServer:
             node_id, node_addr, _ = picked
             import uuid as _uuid
 
-            node = self._pool.get(node_addr)
             # PG-placed actors must debit their BUNDLE's reservation, not
             # the node's main pool — otherwise every such actor costs its
             # resources twice (once at PG reserve, once at lease) and
@@ -1292,6 +1291,10 @@ class HeadServer:
             # a permanent resource leak (nobody knows the lease id). The
             # req_id makes retries return the SAME grant.
             try:
+                # The dial is inside the try: a node that died but is not
+                # yet marked dead (a joined driver's node, just gone)
+                # refuses it, and is skipped like a node that denies.
+                node = self._pool.get(node_addr)
                 # Era-tagged lessee: if this head dies between the grant
                 # and create_actor, nobody would ever return the lease —
                 # the node reconciles "head:<old-era>" leases away when

@@ -1061,6 +1061,7 @@ class NodeManager:
         log_dir = cfg.log_dir
         os.makedirs(log_dir, exist_ok=True)
         log_path = os.path.join(log_dir, f"worker-{worker_id[:8]}.log")
+        from ray_tpu_torch.core.accelerators import GPUAcceleratorManager
         from ray_tpu_torch.core.process_util import spawn_env
 
         env = spawn_env()  # worker arms PDEATHSIG itself (no preexec_fn:
@@ -1071,13 +1072,13 @@ class NodeManager:
         if gpu:
             # GPU pool worker: its lease's cards and no others, set
             # before the interpreter starts, so before any CUDA call.
-            env["CUDA_VISIBLE_DEVICES"] = ",".join(
-                self._card_ids[i] for i in cards)
+            GPUAcceleratorManager.set_visible_accelerators(
+                [self._card_ids[i] for i in cards], env)
         else:
             # CPU pool worker: no card is visible, so a task there that
             # asks for one (resolve_device(None)) raises instead of
             # quietly sharing a GPU worker's card.
-            env["CUDA_VISIBLE_DEVICES"] = ""
+            GPUAcceleratorManager.set_visible_accelerators([], env)
             env["RTPU_GPUS"] = "0"
         # pip/py_executable envs swap the worker interpreter (the venv is
         # built-or-cached here, node-side — the runtime-env agent role).

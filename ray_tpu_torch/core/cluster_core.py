@@ -47,6 +47,7 @@ from ray_tpu_torch.exceptions import (ActorDiedError, GetTimeoutError, TaskError
                                 WorkerCrashedError)
 from ray_tpu_torch.core.lineage import LineageRecord as _LineageRecord
 from ray_tpu_torch.util import metrics as _metrics
+from ray_tpu_torch.util import timeline as _timeline
 
 logger = logging.getLogger(__name__)
 
@@ -1266,6 +1267,9 @@ class ClusterCore:
                   else "ok")
         if span is not None:
             t0, t1, name = span
+            _timeline.record_event(name, "task", t0, t1,
+                                   args={"task_id": task_id_bytes.hex()[:12],
+                                         "status": status})
             _metrics.TASKS_FINISHED.inc()
             _metrics.TASK_EXEC_SECONDS.observe(max(0.0, t1 - t0))
             event = {
@@ -2581,6 +2585,29 @@ class ClusterCore:
                 except Exception:
                     pass
 
+    def _return_all_leases(self, deadline: float) -> None:
+        """Hand every lease this owner holds back to its node: a node
+        keeps a lease, and the worker and resources under it, until its
+        lessee returns it, so a driver that joined a cluster and exits
+        must not leave its leases behind (the next owner's task would
+        find the worker taken). An idle lease's worker goes back to its
+        pool; one with tasks in flight is terminated by its node."""
+        with self._lease_lock:
+            held = [l for kq in self._key_queues.values() for l in kq.leases]
+            for kq in self._key_queues.values():
+                kq.leases[:] = []
+        for l in held:
+            left = deadline - time.monotonic()
+            if left <= 0:
+                break
+            try:
+                self._pool.get(l.node_addr).call(
+                    "return_lease", l.lease_id,
+                    not l.broken and l.inflight <= 0,
+                    timeout=min(2.0, left))
+            except Exception:  # a dead node took its leases with it
+                pass
+
     def _report_backlog(self) -> None:
         entries = []
         with self._lease_lock:
@@ -3213,6 +3240,11 @@ class ClusterCore:
                                         timeout=min(2.0, left))
             except Exception:  # best-effort: TTL expiry is the backstop at head and node
                 pass
+        if not getattr(self, "_owns_cluster", True):
+            # A driver that joined a cluster (``ClusterRuntime``) returns
+            # its leases: the cluster outlives it. One that started the
+            # cluster ends it instead.
+            self._return_all_leases(deadline=time.monotonic() + 5.0)
         self._server.stop()
         self._pool.close_all()
         # _shutdown_flag is set above: the reaper's next 50ms lap exits.

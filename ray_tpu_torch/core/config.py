@@ -518,6 +518,8 @@ _d("rpc_control_timeout_s", float, 5.0,
    "standard control-RPC deadline (lease return, bundle release, "
    "object-location queries, drains)")
 _d("rpc_listen_backlog", int, 128, "server socket accept backlog")
+_d("pubsub_retry_delay_s", float, 0.5,
+   "subscriber reconnect backoff after a dropped long-poll")
 _d("rpc_recv_chunk_bytes", int, 1 << 20,
    "max bytes per socket recv() in the frame reader")
 _d("rpc_retry_delay_ms", int, 100, "base retry backoff")

@@ -5,8 +5,8 @@ Equivalent of the reference's scheduling resource model (reference:
 src/ray/common/scheduling/resource_set.h, fixed_point.h,
 resource_instance_set.h): resources are string->fixed-point maps, and CUDA
 cards count under ``GPU`` like CPUs under ``CPU``. ``ray_tpu``'s TPU chip
-detection becomes a count of the cards; the accelerator manager's topology
-waits for ROADMAP.md, queue 1, item 9e.
+detection becomes the GPU accelerator manager's (``core/accelerators.py``):
+the count of the cards, and their model as the node's accelerator label.
 """
 
 from __future__ import annotations
@@ -161,22 +161,15 @@ def detect_node_resources(num_cpus: Optional[float] = None,
 
 
 def _detect_gpu():
-    """Counts this host's CUDA cards. The env override ``RTPU_GPUS`` comes
-    first (tests, explicit isolation), as ``RTPU_TPU_CHIPS`` does for
-    ``ray_tpu``'s chips; then ``torch.cuda.device_count()``, which opens no
-    CUDA context."""
-    import os
+    """This host's CUDA cards and their model, through the GPU accelerator
+    manager: the count from ``RTPU_GPUS`` or ``torch.cuda.device_count()``,
+    the model ("H100") from ``RTPU_GPU_ACCELERATOR_TYPE``, NVML or
+    ``nvidia-smi``; neither opens a CUDA context. A card whose name cannot
+    be read is labelled ``GPU``."""
+    from ray_tpu_torch.core.accelerators import GPUAcceleratorManager
 
-    env = os.environ.get("RTPU_GPUS")
-    if env is not None:
-        try:
-            n = float(env)
-        except ValueError:
-            n = 0.0
-        return n, ({LABEL_ACCELERATOR_TYPE: "GPU"} if n else {})
-    import torch
-
-    n = torch.cuda.device_count()
-    if n:
-        return float(n), {LABEL_ACCELERATOR_TYPE: "GPU"}
-    return 0.0, {}
+    n = GPUAcceleratorManager.get_current_node_num_accelerators()
+    if not n:
+        return 0.0, {}
+    model = GPUAcceleratorManager.get_current_node_accelerator_type()
+    return float(n), {LABEL_ACCELERATOR_TYPE: model or "GPU"}

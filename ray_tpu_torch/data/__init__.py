@@ -1,6 +1,6 @@
 """ray_tpu_torch.data: streaming, block-distributed datasets (the port of
-``ray_tpu.data``: the same names, signatures and defaults, without the
-tracing spans and ``res_debug`` registrations).
+``ray_tpu.data``: the same names, signatures, defaults and tracing
+spans, without the ``res_debug`` registrations).
 
 Parity target: the reference Ray Data surface (python/ray/data/__init__ —
 Dataset, read_*/from_* constructors). Blocks are column dicts of numpy

@@ -1,6 +1,6 @@
 """All-to-all block exchange: the engine under shuffle/sort/groupby/repartition
-(``ray_tpu/data/_exchange.py`` without the tracing spans and the
-``res_debug`` registrations).
+(``ray_tpu/data/_exchange.py`` without the ``res_debug``
+registrations).
 
 Parity target: the reference's exchange planner
 (reference: python/ray/data/_internal/planner/exchange/
@@ -239,13 +239,17 @@ class _ExchangeMapper:
         self._queues = out_queues  # reducer r reads queue r
         self._assign = payload["assignment_fn"]
         self._n = payload["num_outputs"]
+        self._trace_ctx = payload.get("trace_ctx")
         return True
 
     def run(self, assigned) -> int:
         """assigned: [(block_index, ref)] — refs resolved here (nested
         refs stay refs across the actor call; the borrow registration
         keeps them alive in flight)."""
+        from ray_tpu_torch.util import tracing
+
         sent = 0
+        t0 = time.time()
         try:
             for block_index, ref in assigned:
                 block = ray_tpu_torch.get(ref)
@@ -263,6 +267,12 @@ class _ExchangeMapper:
                     q.put_stop()
                 except Exception:  # rtpu-lint: disable=swallowed-exception — best-effort EOS on an already-failed stream
                     pass
+            if tracing.enabled():
+                tracing.emit_span("data.op.exchange", t0, time.time(),
+                                  parent=self._trace_ctx,
+                                  attrs={"phase": "exec",
+                                         "role": "map", "pieces": sent})
+                tracing.flush()
         return sent
 
 
@@ -286,13 +296,16 @@ class _ExchangeReducer:
     def attach(self, in_queues, payload) -> bool:
         self._queues = list(in_queues)
         self._finalize = payload["finalize_fn"]
+        self._trace_ctx = payload.get("trace_ctx")
         for q in self._queues:
             q.prepare_read()
         return True
 
     def run(self) -> int:
         from ray_tpu_torch.data._queues import QueueStopped
+        from ray_tpu_torch.util import tracing
 
+        t0 = time.time()
         live = list(self._queues)
         got = 0
         deadline = time.monotonic() + 600.0
@@ -316,6 +329,12 @@ class _ExchangeReducer:
                 raise TimeoutError(
                     f"exchange reducer: no frames for 600s "
                     f"({len(live)} mapper streams still open)")
+        if tracing.enabled():
+            tracing.emit_span("data.op.exchange", t0, time.time(),
+                              parent=self._trace_ctx,
+                              attrs={"phase": "exec", "role": "reduce",
+                                     "pieces": got})
+            tracing.flush()
         return got
 
     def finish(self, j: int):
@@ -334,11 +353,13 @@ def _channel_exchange(bundles, assignment_fn, num_outputs: int,
     from ray_tpu_torch.core.runtime_context import require_runtime
     from ray_tpu_torch.dag.channel import open_edge
     from ray_tpu_torch.data._queues import ChannelQueue
+    from ray_tpu_torch.util import tracing
 
     rt = require_runtime()
     node_addr = {n["node_id"]: n["address"] for n in rt.nodes()}
     n_map = max(1, min(_cfg.data_exchange_mappers, len(bundles)))
     n_red = max(1, min(_cfg.data_exchange_reducers, num_outputs))
+    trace_ctx = tracing.current() if tracing.enabled() else None
 
     import uuid as _uuid
 
@@ -369,11 +390,12 @@ def _channel_exchange(bundles, assignment_fn, num_outputs: int,
         # Reducers attach first (reader rendezvous before any writer).
         ray_tpu_torch.get([reducers[r].attach.remote(
             [mesh[m][r] for m in range(n_map)],
-            {"finalize_fn": finalize_fn})
+            {"finalize_fn": finalize_fn, "trace_ctx": trace_ctx})
             for r in range(n_red)], timeout=60.0)
         ray_tpu_torch.get([mappers[m].attach.remote(
             mesh[m], {"assignment_fn": assignment_fn,
-                      "num_outputs": num_outputs})
+                      "num_outputs": num_outputs,
+                      "trace_ctx": trace_ctx})
             for m in range(n_map)], timeout=60.0)
         red_runs = [r.run.remote() for r in reducers]
         map_runs = [mappers[m].run.remote(

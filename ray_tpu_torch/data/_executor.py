@@ -1,8 +1,7 @@
 """Streaming executor: map stages as long-lived operator actors over
 bounded channel queues.
 
-``ray_tpu/data/_executor.py`` without the tracing spans and the
-``res_debug`` registrations. Parity target: the reference's
+``ray_tpu/data/_executor.py`` without the ``res_debug`` registrations. Parity target: the reference's
 streaming_executor.py + physical operators, re-platformed onto the
 ``dag`` channel data plane. The pull executor in ``_streaming.py``
 launches one task per block per operator — an RPC round trip per hop.
@@ -52,6 +51,7 @@ from ray_tpu_torch.data._streaming import (ActorPoolMapOperator, ExecContext,
                                            MapStage, Operator, RefBundle,
                                            TaskPoolMapOperator, _apply_stages)
 from ray_tpu_torch.data.block import BlockMetadata
+from ray_tpu_torch.util import tracing
 
 FRAME_BLK = 0
 FRAME_ERR = 1
@@ -95,6 +95,7 @@ class _OperatorActor:
         self._out: Optional[ChannelQueue] = None
         self._stages: List[MapStage] = []
         self._name = "op"
+        self._trace_ctx = None
         # Emitted refs stay referenced until the lane dies: put objects
         # must outlive the stream for late consumers (materialize()).
         self._emitted: List[Any] = []
@@ -106,6 +107,7 @@ class _OperatorActor:
                payload: Dict[str, Any]) -> bool:
         self._in, self._out = in_q, out_q
         self._name = payload.get("name", "op")
+        self._trace_ctx = payload.get("trace_ctx")
         if "fn_cls" in payload:
             fn = payload["fn_cls"](**payload["ctor_kwargs"])
             self._stages = [MapStage(fn, payload["fn_kwargs"],
@@ -120,10 +122,12 @@ class _OperatorActor:
         n = 0
         try:
             while True:
+                t0 = time.time()
                 try:
                     frame = self._in.get(timeout=_EDGE_TIMEOUT_S)
                 except QueueStopped:
                     break
+                t1 = time.time()
                 _kind, index, ref, _meta = frame
                 block = ray_tpu_torch.get(ref)
                 out = _apply_stages(block, self._stages, index)
@@ -138,7 +142,18 @@ class _OperatorActor:
                 self._emitted.append(out_ref)
                 self._out.put((FRAME_BLK, index, out_ref, meta),
                               timeout=_EDGE_TIMEOUT_S)
+                t2 = time.time()
                 n += 1
+                if tracing.enabled():
+                    tracing.emit_span(f"data.op.{self._name}", t0, t1,
+                                      parent=self._trace_ctx,
+                                      attrs={"phase": "queue_wait",
+                                             "index": index})
+                    tracing.emit_span(f"data.op.{self._name}", t1, t2,
+                                      parent=self._trace_ctx,
+                                      attrs={"phase": "exec",
+                                             "index": index,
+                                             "rows": meta.num_rows})
         except BaseException as e:  # noqa: BLE001 -> forwarded to driver
             try:
                 self._out.put((FRAME_ERR, -1, None, e),
@@ -148,6 +163,8 @@ class _OperatorActor:
             raise
         else:
             self._out.put_stop()
+        finally:
+            tracing.flush()
         return n
 
 
@@ -184,6 +201,7 @@ class ChannelMapStage(Operator):
         self.lanes = max(1, int(lanes))
         self.num_cpus = num_cpus
         self.resources = resources
+        self._trace_ctx = None
 
     # ------------------------------------------------------- lane wiring
 
@@ -211,7 +229,8 @@ class ChannelMapStage(Operator):
         # Reader ends register BEFORE any writer resolves them (the peer
         # transport's rendezvous contract; harmless for rings).
         out_q.prepare_read()
-        payload = dict(self.payload, name=self.name)
+        payload = dict(self.payload, name=self.name,
+                       trace_ctx=self._trace_ctx)
         ray_tpu_torch.get(actor.attach.remote(in_q, out_q, payload),
                     timeout=60.0)
         return _Lane(actor, in_q, out_q, actor.run.remote())
@@ -253,6 +272,11 @@ class ChannelMapStage(Operator):
         rt = require_runtime()
         node_addr = {n["node_id"]: n["address"] for n in rt.nodes()}
         budget = ctx.budget if ctx else None
+        if tracing.enabled():
+            self._trace_ctx = ((ctx.trace_ctx if ctx is not None else None)
+                               or tracing.current())
+        else:
+            self._trace_ctx = None
         self._stopped = False
 
         lanes: List[_Lane] = [self._spawn_lane(rt, node_addr)
@@ -344,8 +368,15 @@ class ChannelMapStage(Operator):
                     holding += est
                 ests[next_in] = est
                 lane = lanes[next_in % len(lanes)]
+                t0 = time.time()
                 lane.in_q.put((FRAME_BLK, next_in, ref, meta),
                               timeout=_EDGE_TIMEOUT_S)
+                if self._trace_ctx is not None:
+                    tracing.emit_span(f"data.op.{self.name}", t0,
+                                      time.time(),
+                                      parent=self._trace_ctx,
+                                      attrs={"phase": "submit",
+                                             "index": next_in})
                 lane.pending.append((next_in, ref, meta))
                 next_in += 1
                 in_flight += 1

@@ -38,17 +38,23 @@ Early close (``break`` out of the train loop) shuts the queue down, which
 frees the batches in it and unblocks and ends the loader thread; the
 loader closes the host generator from its own thread on its way out, so
 the streaming executor's finalizers run too.
+
+With tracing on, the loader emits one ``data.op.ingest`` span (phase
+``exec``: batches, and the seconds it waited on a full queue) and the
+consumer one a batch (phase ``queue_wait``), both under ``trace_ctx``.
 """
 
 from __future__ import annotations
 
 import contextlib
 import threading
-from typing import Any, Dict, Iterator
+import time
+from typing import Any, Dict, Iterator, Optional
 
 import numpy as np
 
 from ray_tpu_torch.data._queues import LocalQueue, QueueStopped
+from ray_tpu_torch.util import tracing
 
 __all__ = ["device_batches"]
 
@@ -62,6 +68,7 @@ def _numeric(v) -> bool:
 def device_batches(host_batches: Iterator[Dict[str, Any]],
                    device_put: Any,
                    depth: int,
+                   trace_ctx: Optional[Dict[str, str]] = None,
                    ) -> Iterator[Dict[str, Any]]:
     """Yield ``host_batches`` with their numeric columns as tensors on the
     device ``device_put``, ``depth``-deep double-buffered: a loader thread
@@ -105,6 +112,9 @@ def device_batches(host_batches: Iterator[Dict[str, Any]],
     stop = threading.Event()
 
     def load():
+        t_wait = 0.0
+        n = 0
+        t0 = time.time()
         try:
             # The loader thread has no current device until it sets one.
             with (torch.cuda.device(device) if stream is not None
@@ -112,7 +122,11 @@ def device_batches(host_batches: Iterator[Dict[str, Any]],
                 for hb in host_batches:
                     if stop.is_set():
                         break
-                    q.put((_BATCH, to_device(hb)))
+                    item = to_device(hb)
+                    t1 = time.time()
+                    q.put((_BATCH, item))
+                    t_wait += time.time() - t1
+                    n += 1
         except Exception as e:  # surfaced on the consumer thread
             try:
                 q.put((_ERR, e), timeout=60.0)
@@ -128,16 +142,26 @@ def device_batches(host_batches: Iterator[Dict[str, Any]],
                     close()
                 except Exception:  # rtpu-lint: disable=swallowed-exception — best-effort generator close in teardown
                     pass
+            if tracing.enabled():
+                tracing.emit_span("data.op.ingest", t0, time.time(),
+                                  parent=trace_ctx,
+                                  attrs={"phase": "exec", "batches": n,
+                                         "queue_full_s": round(t_wait, 4)})
 
     loader = threading.Thread(target=load, name="rtt-data-ingest",
                               daemon=True)
     loader.start()
     try:
         while True:
+            t0 = time.time()
             try:
                 kind, item = q.get(timeout=600.0)
             except QueueStopped:
                 return
+            if tracing.enabled():
+                tracing.emit_span("data.op.ingest", t0, time.time(),
+                                  parent=trace_ctx,
+                                  attrs={"phase": "queue_wait"})
             if kind == _ERR:
                 raise item
             batch, copied = item

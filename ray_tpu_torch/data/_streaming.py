@@ -1,5 +1,5 @@
 """Streaming execution: pipelined operators over block refs
-(``ray_tpu/data/_streaming.py`` without the tracing context).
+(``ray_tpu/data/_streaming.py``).
 
 Parity target: reference python/ray/data/_internal/execution/
 streaming_executor.py (:48, scheduling step :281) + operators/
@@ -118,6 +118,10 @@ class ExecContext:
         #: stage close (execute_plan runs these on exhaustion, error, or
         #: consumer abandonment).
         self._finalizers: List[Callable[[], None]] = []
+        #: Wire context of the consumer's root span (e.g. one
+        #: ``iter_batches`` call) — operator spans parent to it so the
+        #: whole pipeline renders as ONE timeline.
+        self.trace_ctx: Optional[Dict[str, str]] = None
 
     def add_finalizer(self, fn: Callable[[], None]) -> None:
         self._finalizers.append(fn)
@@ -488,7 +492,19 @@ class DriverOperator(Operator):
 
     def execute(self, upstream: Iterator[RefBundle],
                 ctx: Optional[ExecContext] = None) -> Iterator[RefBundle]:
-        return self._gen(upstream)
+        tctx = ctx.trace_ctx if ctx is not None else None
+        if tctx is None:
+            return self._gen(upstream)
+        from ray_tpu_torch.util import tracing
+
+        def traced() -> Iterator[RefBundle]:
+            # Driver-side work (e.g. an exchange) runs while this
+            # generator is being advanced: attach the consumer's root
+            # context so its spans join the pipeline's timeline.
+            with tracing.attach(tctx):
+                yield from self._gen(upstream)
+
+        return traced()
 
 
 class LimitOperator(Operator):
@@ -560,6 +576,7 @@ def optimize_plan(ops: List[Operator]) -> List[Operator]:
 def execute_plan(input_op: InputOperator,
                  operators: List[Operator],
                  memory_budget_bytes: Optional[int] = None,
+                 trace_ctx: Optional[Dict[str, str]] = None,
                  ) -> Iterator[RefBundle]:
     """Run the optimized plan. Two physical executors share this seam:
 
@@ -575,6 +592,7 @@ def execute_plan(input_op: InputOperator,
     executor dispatches and gathers blocks in global index order.
     """
     ctx = ExecContext(memory_budget_bytes)
+    ctx.trace_ctx = trace_ctx
     ops = optimize_plan(operators)
     from ray_tpu_torch.data._executor import adapt_plan, streaming_available
 

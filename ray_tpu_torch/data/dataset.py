@@ -1,6 +1,5 @@
 """Dataset: lazy, streaming, block-distributed data pipelines
-(``ray_tpu/data/dataset.py`` without the tracing span of
-``iter_batches``; ``device_put`` takes a torch device).
+(``ray_tpu/data/dataset.py``; ``device_put`` takes a torch device).
 
 Parity target: reference python/ray/data/dataset.py (Dataset :153,
 map_batches :408, streaming_split :1569, iter_batches :4127, materialize
@@ -255,11 +254,12 @@ class Dataset:
 
     # ------------------------------------------------------------ execution
 
-    def _stream(self) -> Iterator[RefBundle]:
+    def _stream(self, trace_ctx: Optional[Dict[str, str]] = None
+                ) -> Iterator[RefBundle]:
         return execute_plan(
             InputOperator(self._read_tasks,
                           parallelism=self._read_parallelism),
-            self._ops)
+            self._ops, trace_ctx=trace_ctx)
 
     def iter_block_refs(self) -> Iterator[RefBundle]:
         return self._stream()
@@ -278,11 +278,16 @@ class Dataset:
         stream ahead of the consumer, so host block loading overlaps
         device steps (see ``_ingest.py``).
         """
+        from ray_tpu_torch.util import tracing
+
+        root = tracing.start_span("data.iter_batches") if (
+            tracing.enabled()) else None
+        trace_ctx = tracing.ctx_of(root)
 
         def host_batches() -> Iterator[Block]:
             buf: List[Block] = []
             buffered = 0
-            for ref, _meta in self._stream():
+            for ref, _meta in self._stream(trace_ctx=trace_ctx):
                 block = ray_tpu_torch.get(ref)
                 n = BlockAccessor(block).num_rows()
                 if n == 0:
@@ -305,14 +310,18 @@ class Dataset:
                 if BlockAccessor(tail).num_rows() and not drop_last:
                     yield tail
 
-        if device_put is None:
-            yield from host_batches()
-        else:
-            from ray_tpu_torch.data._ingest import device_batches
+        try:
+            if device_put is None:
+                yield from host_batches()
+            else:
+                from ray_tpu_torch.data._ingest import device_batches
 
-            yield from device_batches(
-                host_batches(), device_put,
-                prefetch_depth or cfg.device_prefetch_depth)
+                yield from device_batches(
+                    host_batches(), device_put,
+                    prefetch_depth or cfg.device_prefetch_depth,
+                    trace_ctx=trace_ctx)
+        finally:
+            tracing.end_span(root)
 
     def iter_rows(self) -> Iterator[Dict[str, Any]]:
         yield from _rows_of(self._stream())
@@ -556,7 +565,10 @@ class MaterializedDataset(Dataset):
         self._bundles = bundles
         super().__init__(read_tasks=[], ops=[])
 
-    def _stream(self) -> Iterator[RefBundle]:
+    def _stream(self, trace_ctx: Optional[Dict[str, str]] = None
+                ) -> Iterator[RefBundle]:
+        # ``trace_ctx`` as ``Dataset._stream``'s: ``ray_tpu``'s override
+        # lacks it, so its materialized ``iter_batches`` raises TypeError.
         return iter(self._bundles)
 
     def num_blocks(self) -> int:

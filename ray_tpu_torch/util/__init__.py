@@ -1,7 +1,9 @@
 """Utilities over the actor runtime (copies of ``ray_tpu/util``'s
 ``actor_pool``, ``queue``, ``placement_group``,
 ``scheduling_strategies``, ``log_monitor``, ``metrics``,
-``metrics_agent``, ``tracing`` and ``flight_recorder``), and
+``metrics_agent``, ``tracing``, ``flight_recorder``, ``timeline``,
+``state``, ``pubsub``, ``dashboard``, ``multiprocessing``,
+``joblib_backend``, ``dask_backend`` and ``microbenchmark``), and
 ``collective``: the actor-gang collectives
 (``ray_tpu/util/collective.py``)."""
 

@@ -1622,3 +1622,77 @@ def test_cluster_client_mode_gpu_task_on_the_card(card_cluster, tmp_path):
     want = scope["forward"]()
     assert got["argmax"] == want["argmax"]
     assert got["visible"] not in (None, "")
+
+
+# ------------------------------------- the GPU manager and workflow storage
+
+
+def test_gpu_manager_reads_the_model_without_a_cuda_context(card):
+    """In a fresh process, the GPU accelerator manager counts the cards
+    and reads their model (NVML or nvidia-smi) while
+    ``torch.cuda.is_initialized()`` stays False: a node manager holds no
+    context. The model is the short form of the card's name."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    code = (
+        "import json, torch\n"
+        "from ray_tpu_torch.core.accelerators import GPUAcceleratorManager"
+        " as m\n"
+        "from ray_tpu_torch.core.resources import _detect_gpu\n"
+        "n, labels = _detect_gpu()\n"
+        "print(json.dumps([n, m.get_current_node_accelerator_name(),\n"
+        "                  m.get_current_node_accelerator_type(), labels,\n"
+        "                  torch.cuda.is_initialized()]))\n")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("RTPU_GPUS", "RTPU_GPU_ACCELERATOR_TYPE")}
+    env["PYTHONPATH"] = root
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    n, name, model, labels, initialised = json.loads(
+        proc.stdout.strip().splitlines()[-1])
+    assert initialised is False
+    assert n == torch.cuda.device_count()
+    assert name == torch.cuda.get_device_name(0)
+    assert model and model in name
+    assert labels == {"ray_tpu.io/accelerator-type": model}
+
+
+def test_workflow_bf16_cuda_tensor_resumes_onto_the_card(card_cluster,
+                                                         tmp_path,
+                                                         monkeypatch):
+    """A ``{"GPU": 0.5}`` step returns a bf16 CUDA tensor: the workflow's
+    storage holds it staged through the host, and ``resume`` of the
+    finished id loads it back onto this process's card bit-equal, the
+    step not run again."""
+    from ray_tpu_torch import workflow
+
+    monkeypatch.setenv("RTPU_TORCH_WORKFLOW_STORAGE", str(tmp_path))
+    marker = tmp_path / "ran.txt"
+
+    def make(seed):
+        import torch as t
+
+        with open(marker, "a") as f:
+            f.write("ran\n")
+        g = t.Generator(device="cuda").manual_seed(seed)
+        return t.randn(64, 33, generator=g, device="cuda").to(t.bfloat16)
+
+    import ray_tpu_torch
+
+    step = workflow.step(name="make")(
+        ray_tpu_torch.remote(num_gpus=0.5, num_cpus=0)(make))
+    dag = step.bind(7)
+    first = workflow.run(dag, workflow_id="wf-card")
+    again = workflow.resume("wf-card", dag)
+    done, stored = workflow._load_result("wf-card", dag.step_id())
+    g = torch.Generator(device="cuda").manual_seed(7)
+    want = torch.randn(64, 33, generator=g, device="cuda").to(torch.bfloat16)
+    for got in (first, again, stored):
+        assert got.is_cuda and got.dtype == torch.bfloat16
+        assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+    assert done and marker.read_text().count("ran") == 1
