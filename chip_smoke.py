@@ -2,7 +2,7 @@
 """Run the PyTorch/CUDA port (``ray_tpu_torch``) end to end on one CUDA
 card and check it.
 
-    python3 chip_smoke.py              # phases 1-21, the smoke
+    python3 chip_smoke.py              # phases 1-22, the smoke
     python3 chip_smoke.py --spec-ab    # phases 1-2, then speculation off
                                        # against on (bf16), no result line
     python3 chip_smoke.py --flash [DIR]     # phases 1-2, the flash kernels
@@ -29,6 +29,8 @@ card and check it.
                                             # line
     python3 chip_smoke.py --tune            # phases 1-2 and 19, no result
                                             # line
+    python3 chip_smoke.py --witness         # phases 1-2 and 22, no
+                                            # result line
     python3 chip_smoke.py --client          # phases 1-2, 20 and 21 (on
                                             # a cluster of their own), no
                                             # result line
@@ -307,7 +309,29 @@ script exits non-zero without printing its last line:
     dashboard, on an ephemeral port, answers ``/api`` with the label.
     (c) The phase prints its seconds and fails past 15 s.
     Every cluster the script starts prints how many CPU workers forked
-    from the zygote and how many cold-spawned, and why.
+    from the zygote and how many cold-spawned, and why. The clusters of
+    phases 13-14 and 15 first start the worker processes their phases
+    lease one after another together (``warm_workers``: GPU workers that
+    import the port, open a CUDA context and serve two tokens of a
+    one-layer model through the kernels, then zero the launch counters;
+    CPU workers that import it), so each later lease finds an idle one.
+22. The witnesses on the engine, inside phase 9 on its 8-layer tree
+    before the tree is freed (no new draw, no new process): for spec off
+    and ``spec_draft_len=SPEC_DRAFT_LEN``, an engine with every flag off
+    and one with ``RTPU_DEBUG_RES=1``, ``RTPU_DEBUG_CUDA=1`` and
+    ``RTPU_DEBUG_CUDA_SYNC=error`` serve 8 of phase 5's prompts one at a
+    time. The witnessed engine's ticks run under
+    ``torch.cuda.set_sync_debug_mode("error")`` with only the counted
+    fetch let through: no sync may raise, the counted decode syncs equal
+    the fetched chunks and the prefill syncs the admissions, the
+    programs stay within ``ray_tpu``'s budgets (one decode chunk, one
+    verify with spec, at most one prefill a bucket), every resource of
+    the resource witness is balanced at ``close``, and the tokens equal
+    the flags-off engine's. The flags are restored in a ``finally``;
+    the phase prints its seconds and launches (rows 1, 3-6) and fails
+    past 30 s.
+Before its last two lines the script prints ``phase seconds {...}``:
+every phase group's seconds and the total.
 10. The model zoo, after phase 8: (a) Mixtral, 2 layers at
     MIXTRAL_8X7B's widths in f32, B=1, S=256: the loss and every gradient
     through the flash kernels against the plain route, and every token's
@@ -1706,6 +1730,131 @@ def phase9c(smi):
     return counts
 
 
+# Phase 22: the witnesses' flags, restored after the phase.
+P22_FLAGS = {"RTPU_DEBUG_RES": "1", "RTPU_DEBUG_CUDA": "1",
+             "RTPU_DEBUG_CUDA_SYNC": "error"}
+P22_PROMPTS, P22_NEW, P22_BUDGET_S = 8, 16, 30.0
+# Kernel rows the witnessed engines must launch (rows 1 and 3-6).
+P22_ROWS = ("decode_attention", "rms_norm", "rms_norm_residual", "qk_rope",
+            "swiglu")
+
+
+def phase22(cfg, params, smi):
+    """Phase 22: the port's witnesses on the engine's hot path, on phase
+    9's tree. For spec off and ``spec_draft_len=SPEC_DRAFT_LEN``: an engine
+    with every flag off, then one with ``RTPU_DEBUG_RES``,
+    ``RTPU_DEBUG_CUDA`` and ``RTPU_DEBUG_CUDA_SYNC=error`` (every tick
+    under ``torch.cuda.set_sync_debug_mode("error")``, which only the
+    counted fetch passes), each serving 8 of phase 5's prompts one at a
+    time. Holds: one counted sync per fetched decode chunk and per
+    admission, signatures within ``ray_tpu``'s budgets, no sync raised in a
+    tick (a raise fails the tick's requests), every resource balanced at
+    close, tokens identical to the flags-off engine's. The mode is
+    process-wide: nothing else uses the card meanwhile. Returns the
+    witnessed engines' kernel launches."""
+    from ray_tpu_torch.devtools import cuda_debug, res_debug
+
+    t0 = time.perf_counter()
+    prompts = phase5_prompts(cfg.vocab_size)[0][:P22_PROMPTS]
+    saved = {k: os.environ.get(k) for k in P22_FLAGS}
+    launches, parts = {}, []
+    try:
+        for label, knobs in (("spec off", {}),
+                             ("spec on", {"spec_draft_len": SPEC_DRAFT_LEN})):
+            for k in P22_FLAGS:
+                os.environ.pop(k, None)
+            eng = phase9_engine(cfg, params, f"phase 22 {label}, flags off",
+                                smi, **knobs)
+            try:
+                want = [eng.generate(p, max_new_tokens=P22_NEW,
+                                     timeout=600)["token_ids"]
+                        for p in prompts]
+            finally:
+                eng.close()
+            os.environ.update(P22_FLAGS)
+            res_debug.reset()
+            cuda_debug.reset()
+            eng = phase9_engine(cfg, params, f"phase 22 {label}, witnessed",
+                                smi, **knobs)
+            zero_counts()
+            try:
+                got = [eng.generate(p, max_new_tokens=P22_NEW,
+                                    timeout=600)["token_ids"]
+                       for p in prompts]
+                stats = eng.stats()
+                programs = eng.loop.program_counts()
+            finally:
+                eng.close()
+            counts = read_counts()
+            add_counts(launches, counts)
+            syncs = cuda_debug.host_sync_counts()
+            over = cuda_debug.over_budget_reports()
+            leaks = {k: n for k, n in res_debug.outstanding().items()
+                     if k in res_debug.LEAK_KINDS or k == "thread"}
+            bad = res_debug.violations()
+            same_tokens(f"phase 22 {label}", got, want)
+            if syncs.get("engine.decode") != stats["decode_host_syncs"] \
+                    or not stats["decode_host_syncs"]:
+                raise AssertionError(
+                    f"phase 22 {label}: counted decode syncs "
+                    f"{syncs.get('engine.decode')} != fetched chunks "
+                    f"{stats['decode_host_syncs']}")
+            if syncs.get("engine.prefill") != len(prompts) or stats[
+                    "host_syncs"]["prefill"] != len(prompts):
+                raise AssertionError(
+                    f"phase 22 {label}: prefill syncs {syncs}, "
+                    f"{stats['host_syncs']} != {len(prompts)} admissions")
+            spec = bool(knobs)
+            if (programs.get("decode_chunk") != 1
+                    or programs.get("prefill", 0) > len(
+                        ENGINE_KW["prompt_buckets"])
+                    or ("verify_chunk" in programs) != spec
+                    or (spec and programs["verify_chunk"] != 1) or over):
+                raise AssertionError(f"phase 22 {label}: programs "
+                                     f"{programs} over budget: {over}")
+            if leaks or bad:
+                raise AssertionError(f"phase 22 {label}: resources "
+                                     f"unbalanced at close: {leaks}, "
+                                     f"violations {bad}")
+            require_launches(f"phase 22 {label}", counts,
+                             ("paged_decode_attention",) + TRAIN_ONLY)
+            if spec and not stats["spec_chunks"]:
+                raise AssertionError("phase 22 spec on: no verify chunk ran")
+            parts.append(f"{label}: {len(prompts)} requests x {P22_NEW} "
+                         f"tokens identical to the flags-off engine's; "
+                         f"counted syncs {syncs} for "
+                         f"{stats['decode_host_syncs']} fetched chunks; "
+                         f"programs {programs}; res_debug counts "
+                         f"{res_debug.counts()}")
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        res_debug.reset()
+        cuda_debug.reset()
+    wall = time.perf_counter() - t0
+    rows = {k: launches[k] for k in P22_ROWS}
+    log(f"phase 22 witnesses on the engine ({cfg.n_layers} of Llama-3-8B's "
+        f"32 layers), every tick under the sync guard, none raised: "
+        + "; ".join(parts) + f"; launches (rows 1, 3-6) {rows}; "
+        f"{wall:.1f} s (budget {P22_BUDGET_S} s); on {smi}")
+    if wall > P22_BUDGET_S:
+        raise AssertionError(f"phase 22 took {wall:.1f} s, over its "
+                             f"{P22_BUDGET_S} s budget")
+    return launches
+
+
+def phase_witness(smi):
+    """``--witness``: phase 22 alone, on its own 8-layer tree."""
+    from ray_tpu_torch.models import llama
+
+    cfg = serve_cfg()
+    params = llama.init_params(cfg, _gen(ENGINE_KW["seed"]))
+    phase22(cfg, params, smi)
+
+
 def phase_engine_tier(smi):
     """Phase 9: the engine tier on Llama-3-8B (9a, 9b: bf16 at
     ``SERVE_LAYERS``, one params tree shared by every engine; 9c: f32 at
@@ -1725,6 +1874,7 @@ def phase_engine_tier(smi):
     _, pair = phase9a(cfg, params, smi, paged=True, want=want)
     add_counts(launches, pair)
     add_counts(launches, phase9b(cfg, params, smi))
+    MEASURED["phase22"] = phase22(cfg, params, smi)
     del params
     add_counts(launches, phase9c(smi))
     require_launches("phase 9", launches, TRAIN_ONLY)
@@ -2456,13 +2606,16 @@ def phase_cluster(smi, name, phase12=None, only14=False):
     prompts, warmup = phase5_prompts(cfg.vocab_size)
     seq = [warmup] + prompts
     apps_before = len(compute_apps()[0])
-    rt = ray_tpu_torch.init(object_store_memory=2 << 30)
+    with warm_flags():
+        rt = ray_tpu_torch.init(object_store_memory=2 << 30)
     # The replicas draw the same tree from ENGINE_KW's seed on their card;
     # the driver's direct engines read one drawn here. One direct engine
     # takes the sequence twice: 13b holds its replica to the first pass,
     # 14a its replies and streams to both.
     pids, one, params = [], None, None
     try:
+        pids += warm_workers("phase 13-14",
+                             2 * 3 if only14 else WARM_GPU_13)
         params = llama.init_params(cfg, _gen(ENGINE_KW["seed"]))
         want, direct_ms = direct_sequence(cfg, params, seq + seq,
                                           "phase 13-14 direct", smi)
@@ -3506,6 +3659,14 @@ def phase16c_rank(rank, store, out):
     from ray_tpu_torch.parallel.mesh import MeshSpec, make_mesh
 
     fa = importlib.import_module("ray_tpu_torch.ops.flash_attention")
+    # Started with phase 16 (``start_16c_ranks``): wait for 16c's turn
+    # before the first CUDA call, so 16a and 16b have the card alone.
+    go = store + ".go"
+    deadline = time.time() + 600
+    while not os.path.exists(go):
+        if time.time() > deadline:
+            raise TimeoutError("phase 16c rank: never started")
+        time.sleep(0.05)
     torch.cuda.set_device(0)
     dist.init_process_group("gloo", store=dist.FileStore(store, 2),
                             rank=int(rank), world_size=2,
@@ -3552,11 +3713,22 @@ def phase16c_rank(rank, store, out):
     dist.destroy_process_group()
 
 
-def phase16c(smi, mesh):
-    """Two ranks on the one card over gloo, against the world-of-one mesh
-    step on the same weights and tokens in this process."""
-    import tempfile
+def start_16c_ranks(tmp):
+    """16c's two rank processes, started when phase 16 starts: they import
+    torch and the port while 16a and 16b run, and touch the card only once
+    ``phase16c`` lets them. Returns (procs, store, outs)."""
+    store = os.path.join(tmp, "store")
+    outs = [os.path.join(tmp, f"rank{r}.pt") for r in range(2)]
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                               "--p16c-rank", str(r), store, outs[r]])
+             for r in range(2)]
+    return procs, store, outs
 
+
+def phase16c(smi, mesh, ranks):
+    """Two ranks on the one card over gloo (``ranks``, from
+    ``start_16c_ranks``), against the world-of-one mesh step on the same
+    weights and tokens in this process."""
     from ray_tpu_torch.models import llama
     from ray_tpu_torch.parallel import spmd
 
@@ -3576,24 +3748,14 @@ def phase16c(smi, mesh):
         ref["grad_norms"].append(metrics["grad_norm"].item())
     del state, params, step, metrics
     free_card()
-    with tempfile.TemporaryDirectory() as tmp:
-        store = os.path.join(tmp, "store")
-        outs = [os.path.join(tmp, f"rank{r}.pt") for r in range(2)]
-        t = time.perf_counter()
-        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
-                                   "--p16c-rank", str(r), store, outs[r]])
-                 for r in range(2)]
-        try:
-            rcs = [p.wait(timeout=240) for p in procs]
-        finally:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-                    p.wait()
-        if rcs != [0, 0]:
-            raise AssertionError(f"phase 16c: ranks exited {rcs}")
-        ranks = [torch.load(o, weights_only=False) for o in outs]
-        wall = time.perf_counter() - t
+    procs, store, outs = ranks
+    t = time.perf_counter()
+    open(store + ".go", "w").close()
+    rcs = [p.wait(timeout=240) for p in procs]
+    if rcs != [0, 0]:
+        raise AssertionError(f"phase 16c: ranks exited {rcs}")
+    ranks = [torch.load(o, weights_only=False) for o in outs]
+    wall = time.perf_counter() - t
     log(f"phase 16c: two ranks on one card over gloo, Llama-3-8B widths, "
         f"{P16C_LAYERS} layers (cut from 32), bf16, B={P16C_B} S={P16C_S}, "
         f"{P16C_STEPS} steps a mesh; world of one: losses {ref['losses']}, "
@@ -3628,16 +3790,27 @@ def phase_parallel(smi):
 
     from ray_tpu_torch.parallel.mesh import mesh_2d
 
+    import tempfile
+
     t = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="rtt_16c_")
+    ranks = start_16c_ranks(tmp)
     dist.init_process_group("nccl", init_method=f"tcp://localhost:"
                             f"{_free_port()}", rank=0, world_size=1)
     try:
         mesh = mesh_2d(1)
         launches = phase16a(smi, mesh)
         phase16b(smi, mesh)
-        phase16c(smi, mesh)
+        phase16c(smi, mesh, ranks)
     finally:
         dist.destroy_process_group()
+        for p in ranks[0]:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        import shutil
+
+        shutil.rmtree(tmp, ignore_errors=True)
     log(f"phase 16: {time.perf_counter() - t:.1f} s")
     return launches
 
@@ -4044,11 +4217,12 @@ def phase15c(smi, loop):
         f"{time.perf_counter() - t0:.1f} s; on {smi}")
 
 
-def on_cluster(label, run):
+def on_cluster(label, run, warm=(0, 0, True)):
     """``run(storage)`` on a fresh ``ray_tpu_torch.init()`` cluster (the
     card counted as ``GPU``) with a scratch storage path, after checking
-    that this process holds under 2 GiB of the card; then the cluster
-    shut down, the storage removed, and every cluster process gone."""
+    that this process holds under 2 GiB of the card and starting ``warm``
+    (GPU, CPU) workers together (``warm_workers``); then the cluster shut
+    down, the storage removed, and every cluster process gone."""
     import gc
     import shutil
     import tempfile
@@ -4062,9 +4236,14 @@ def on_cluster(label, run):
         raise AssertionError(f"{label}: {held} bytes still allocated "
                              "before the trainer's worker starts")
     storage = tempfile.mkdtemp(prefix="rtt_phase_")
-    rt = ray_tpu_torch.init(object_store_memory=1 << 30)
+    n_gpu, n_cpu, card = warm
+    with warm_flags():
+        rt = ray_tpu_torch.init(object_store_memory=1 << 30)
     procs = list(rt._procs)
+    pids = []
     try:
+        if n_gpu or n_cpu:
+            pids = warm_workers(label, n_gpu, n_cpu, card)
         out = run(storage)
         spawn_line(label, rt)
     finally:
@@ -4073,7 +4252,7 @@ def on_cluster(label, run):
         finally:
             shutil.rmtree(storage, ignore_errors=True)
     deadline = time.time() + 30
-    while any(alive(p.pid) for p in procs):
+    while any(alive(pid) for pid in [p.pid for p in procs] + pids):
         if time.time() > deadline:
             raise AssertionError(f"{label}: cluster processes outlived "
                                  "shutdown")
@@ -4113,7 +4292,8 @@ def phase_trainer(smi, data=False):
         MEASURED["phase21"] = phase21(smi, storage)
         return launches, data_launches
 
-    return on_cluster("phase 15", run)
+    return on_cluster("phase 15", run,
+                      warm=(WARM_GPU_15, WARM_CPU_15, False))
 
 
 # --------------------------------------------------------------- phase 17
@@ -5010,6 +5190,127 @@ def phase21(smi, storage):
     return out["launches"]
 
 
+# Worker processes a cluster phase leases one after another, started
+# together when its cluster starts (``warm_workers``): phases 13-14 lease
+# 9 GPU workers (13a's task and 13b's replica share one), phase 15's
+# cluster 8 GPU workers and, for its actors and RL runners, CPU workers.
+WARM_GPU_13 = 9
+WARM_GPU_15, WARM_CPU_15 = 8, 8
+# The cluster flags that let the node start every warm worker at once and
+# keep the CPU ones idle until used (GPU workers are never reaped idle).
+WARM_FLAGS = {"RTPU_MAX_CONCURRENT_WORKER_SPAWNS": "24",
+              "RTPU_WORKER_POOL_IDLE_TTL_S": "1800"}
+
+
+def _warm_worker(card, n, barrier, hold_s):
+    """One warm-up task: import what the phases' workers import (torch,
+    the port's serving, training, data and RL modules); with ``card``
+    also open the CUDA context, load the kernel libraries and serve two
+    tokens of a one-layer model through them (cuBLAS, the kernels' first
+    launches), return the cached blocks and set the launch counters back
+    to 0. Waits until all ``n`` tasks of its kind are running, so each
+    holds its own worker. Returns the worker's pid."""
+    import os
+    import time
+
+    import torch
+
+    import ray_tpu_torch.data  # noqa: F401
+    import ray_tpu_torch.rllib  # noqa: F401
+    import ray_tpu_torch.serve.llm  # noqa: F401
+    import ray_tpu_torch.train  # noqa: F401
+
+    if card:
+        import dataclasses
+
+        from ray_tpu_torch import ops
+        from ray_tpu_torch.models import llama
+        from ray_tpu_torch.serve.llm import LLMEngine
+
+        ops.build_kernels()
+        cfg = dataclasses.replace(llama.tiny_config(max_seq_len=64),
+                                  d_model=1024, n_heads=8, n_kv_heads=2,
+                                  n_layers=1, d_ff=2048, vocab_size=1024,
+                                  fused_ops=True, use_decode_kernel=True,
+                                  dtype=torch.bfloat16)
+        eng = LLMEngine(cfg, max_batch=1, max_len=64, prompt_buckets=[16],
+                        decode_chunk=2, device="cuda")
+        try:
+            eng.generate([1, 2, 3], max_new_tokens=2, timeout=120)
+        finally:
+            eng.close()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        for fn in ops.KERNELS.values():
+            fn.launches = 0
+    os.makedirs(barrier, exist_ok=True)
+    open(os.path.join(barrier, str(os.getpid())), "w").close()
+    deadline = time.time() + hold_s
+    while len(os.listdir(barrier)) < n and time.time() < deadline:
+        time.sleep(0.05)
+    return os.getpid()
+
+
+def warm_workers(label, n_gpu, n_cpu=0, card=True):
+    """Start ``n_gpu`` GPU workers (``num_gpus=1/n_gpu`` each, no CPU) and
+    ``n_cpu`` CPU workers on the running cluster together, each through
+    ``_warm_worker`` under a scheduling key of its own, so that the node
+    starts them at once and the phase's later leases find them idle in its
+    pools instead of starting each one cold. ``card``: the GPU workers
+    also open their CUDA context and warm the kernels (each idle worker
+    then holds its context on the card; phase 15's trainer needs that
+    memory, so its cluster warms imports only). Returns their pids."""
+    import tempfile
+    import types
+
+    import ray_tpu_torch
+
+    t0 = time.perf_counter()
+    refs = []
+    barrier = tempfile.mkdtemp(prefix="rtt_warm_")
+    for gpu, n in ((True, n_gpu), (False, n_cpu)):
+        if not n:
+            continue
+        opts = ({"num_gpus": 1.0 / n, "num_cpus": 0} if gpu
+                else {"num_cpus": 1})
+        for i in range(n):
+            fn = types.FunctionType(_warm_worker.__code__,
+                                    _warm_worker.__globals__,
+                                    f"warm_{'gpu' if gpu else 'cpu'}_{i}")
+            fn.__qualname__ = fn.__name__
+            refs.append(ray_tpu_torch.remote(**opts)(fn).remote(
+                gpu and card, n, os.path.join(barrier, str(gpu)), 120.0))
+    try:
+        pids = ray_tpu_torch.get(refs, timeout=300)
+        time.sleep(1.0)  # the tasks' leases go back to the node
+    finally:
+        import shutil
+
+        shutil.rmtree(barrier, ignore_errors=True)
+    if len(set(pids)) != len(pids):
+        raise AssertionError(f"{label}: warm-up tasks shared workers: {pids}")
+    log(f"  {label}: {n_gpu} GPU (CUDA context {card}) and {n_cpu} CPU "
+        f"workers started together in {time.perf_counter() - t0:.1f} s, "
+        f"idle in the node's pools for the phase's leases: pids {pids}")
+    return pids
+
+
+@contextlib.contextmanager
+def warm_flags():
+    """``WARM_FLAGS`` in this process's environment (which the cluster's
+    processes inherit) while a cluster phase runs."""
+    saved = {k: os.environ.get(k) for k in WARM_FLAGS}
+    os.environ.update(WARM_FLAGS)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
 def spawn_line(label, rt):
     """Each node's worker starts of a cluster, by route."""
     for s in rt.spawn_stats():
@@ -5900,15 +6201,86 @@ def phase11c(smi):
             f"after learning starts: {json.dumps(out)}; on {smi}")
 
 
-def phase_rllib(smi):
+def start_p11b(smi):
+    """11b's learning gates in a process of their own, started before
+    phases 13-14 so they run beside the cluster phases (each gate is a
+    host-bound loop on one core; the cluster phases wait on their
+    replicas). Returns what ``join_p11b`` takes."""
+    import tempfile
+
+    fd, path = tempfile.mkstemp(prefix="rtt_p11b_", suffix=".log")
+    with os.fdopen(fd, "w") as out:
+        proc = subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                                 "--p11b", smi, path + ".card"],
+                                stdout=out, stderr=subprocess.STDOUT)
+    return proc, path, time.perf_counter()
+
+
+def wait_p11b_card(p11b, timeout=120.0):
+    """Wait until 11b's process holds its CUDA context (phase 13 counts
+    the card's compute apps before and after its cluster)."""
+    proc, path, _ = p11b
+    deadline = time.time() + timeout
+    while not os.path.exists(path + ".card"):
+        if proc.poll() is not None or time.time() > deadline:
+            join_p11b(p11b)
+            raise AssertionError("phase 11b's process never reached the "
+                                 "card")
+        time.sleep(0.1)
+
+
+def join_p11b(p11b):
+    """Wait for ``start_p11b``'s process and print its lines; raise with
+    its output if it failed."""
+    proc, path, t0 = p11b
+    try:
+        rc = proc.wait(timeout=900)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        with open(path) as f:
+            text = f.read()
+        os.unlink(path)
+        if os.path.exists(path + ".card"):
+            os.unlink(path + ".card")
+    for line in text.splitlines():
+        log(line)
+    if rc != 0:
+        raise AssertionError(f"phase 11b's process exited {rc}: "
+                             f"{text[-3000:]}")
+    log(f"phase 11b's process: {time.perf_counter() - t0:.1f} s from its "
+        f"start after phase 9 to this join")
+
+
+def p11b_main(smi, card_file):
+    """``--p11b``: 11b alone in this process; no port kernel may launch.
+    Writes ``card_file`` once its CUDA context exists."""
+    from ray_tpu_torch import ops
+
+    torch.zeros(1, device="cuda")
+    open(card_file, "w").close()
+    zero_counts()
+    gates = phase11b(smi)
+    require_launches("phase 11b", read_counts(), tuple(ops.KERNELS))
+    log(f"phase 11b gates (iterations to the threshold): {gates}")
+
+
+def phase_rllib(smi, p11b=None):
     """Phase 11: RLlib on the card (11a, 11b, 11c); no port kernel may
-    launch. Returns the gates' iterations to their thresholds."""
+    launch. ``p11b``: 11b already runs in its own process
+    (``start_p11b``), joined here. Returns the gates' iterations to their
+    thresholds (None when 11b ran in its own process)."""
     from ray_tpu_torch import ops
 
     t0 = time.perf_counter()
     zero_counts()
     phase11a(smi)
-    gates = phase11b(smi)
+    if p11b is None:
+        gates = phase11b(smi)
+    else:
+        gates = None
+        join_p11b(p11b)
     phase11c(smi)
     require_launches("phase 11", read_counts(), tuple(ops.KERNELS))
     log(f"phase 11 RLlib: {time.perf_counter() - t0:.1f} s; on {smi}")
@@ -6733,6 +7105,9 @@ def main() -> int:
     if args[:1] == ["--p16c-rank"] and len(args) == 4:
         phase16c_rank(*args[1:])
         return 0
+    if args[:1] == ["--p11b"] and len(args) == 3:
+        p11b_main(*args[1:])
+        return 0
     t_start = time.perf_counter()
     smi, name = phase_device()
     if args == ["--rllib"]:
@@ -6771,6 +7146,10 @@ def main() -> int:
                 phase20(smi, storage), phase21(smi, storage)))
         log(f"total {time.perf_counter() - t_start:.1f} s on {smi}")
         return 0
+    if args == ["--witness"]:
+        phase_witness(smi)
+        log(f"total {time.perf_counter() - t_start:.1f} s on {smi}")
+        return 0
     if args == ["--spec-ab"]:
         spec_ab(smi)
         log(f"total {time.perf_counter() - t_start:.1f} s on {smi}")
@@ -6779,8 +7158,12 @@ def main() -> int:
         (flash_probe if args[0] == "--flash" else decode_probe)(smi, root)
         log(f"total {time.perf_counter() - t_start:.1f} s on {smi}")
         return 0
+    groups = {}
+
     def done(label):
-        log(f"elapsed {time.perf_counter() - t_start:.1f} s after {label}")
+        now = time.perf_counter() - t_start
+        groups[label] = now - sum(groups.values())
+        log(f"elapsed {now:.1f} s after {label}")
 
     done("phases 1-2")
     phase_kernels()
@@ -6793,9 +7176,11 @@ def main() -> int:
     done("phases 5 and 7")
     tier = phase_engine_tier(smi)
     done("phase 9")
+    p11b = start_p11b(smi)
     served, phase12 = phase_serve(smi, then=lambda cfg, params: phase17b(
         smi, cfg, params))
     done("phase 12 and 17b")
+    wait_p11b_card(p11b)
     cluster, disagg, front = phase_cluster(smi, name, phase12)
     done("phases 13-14")
     train = phase_train(smi)
@@ -6811,7 +7196,7 @@ def main() -> int:
         launches[kernel] = train[kernel]
     zoo = phase_zoo(smi)
     done("phase 10")
-    phase_rllib(smi)
+    phase_rllib(smi, p11b)
     done("phases 11a-11c")
     rows = phase_timing(launches, tier, served)
     for row in rows:
@@ -6826,8 +7211,14 @@ def main() -> int:
         row["launches_phase19"] = tuned[row["name"]]
         row["launches_phase20"] = MEASURED["phase20"][row["name"]]
         row["launches_phase21"] = MEASURED["phase21"][row["name"]]
+        row["launches_phase22"] = MEASURED["phase22"][row["name"]]
     fused_apply_cost(smi)
-    log(f"total {time.perf_counter() - t_start:.1f} s on {smi}")
+    done("kernel timing")
+    total = time.perf_counter() - t_start
+    log(f"total {total:.1f} s on {smi}")
+    print("phase seconds " + json.dumps(
+        {"groups": {k: round(v, 1) for k, v in groups.items()},
+         "total": round(total, 1)}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

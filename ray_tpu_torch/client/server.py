@@ -174,7 +174,8 @@ class ClientGateway:
         refs = self.rt.submit_task(
             func, args, kwargs,
             num_returns=opts.get("num_returns", 1),
-            resources=ResourceSet.from_dict(resources) if resources else None,
+            resources=(ResourceSet.from_dict(resources)
+                       if resources is not None else None),
             max_retries=opts.get("max_retries", 0),
             retry_exceptions=bool(opts.get("retry_exceptions", False)),
             scheduling_strategy=opts.get("scheduling_strategy"),
@@ -211,7 +212,8 @@ class ClientGateway:
             concurrency_groups=opts.get("concurrency_groups"),
             max_restarts=opts.get("max_restarts", 0),
             max_task_retries=opts.get("max_task_retries", 0),
-            resources=ResourceSet.from_dict(resources) if resources else None,
+            resources=(ResourceSet.from_dict(resources)
+                       if resources is not None else None),
             lifetime=opts.get("lifetime"),
             scheduling_strategy=opts.get("scheduling_strategy"),
             get_if_exists=opts.get("get_if_exists", False),

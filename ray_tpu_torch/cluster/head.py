@@ -33,6 +33,9 @@ from ray_tpu_torch.core.config import GLOBAL_CONFIG as cfg
 from ray_tpu_torch.core.task_spec import pg_key_from_strategy
 from ray_tpu_torch.cluster.persistence import HeadStore
 from ray_tpu_torch.cluster.protocol import ClientPool, RpcServer, blocking_rpc
+from ray_tpu_torch.devtools import res_debug as _resdbg
+from ray_tpu_torch.devtools import rpc_debug as _rpcdbg
+from ray_tpu_torch.devtools.lock_debug import make_lock, make_rlock
 from ray_tpu_torch.util import flight_recorder as _flight
 from ray_tpu_torch.util import metrics as _metrics
 
@@ -59,7 +62,7 @@ class _DirShard:
     __slots__ = ("lock", "object_dir", "node_objects", "object_sizes")
 
     def __init__(self, idx: int):
-        self.lock = threading.Lock()
+        self.lock = make_lock(f"head._dir_shard{idx}")
         self.object_dir: Dict[bytes, Set[str]] = {}
         # node -> resident oids WITHIN this shard (drain/death scrub
         # walks only this node's entries per shard, O(touched)).
@@ -137,6 +140,7 @@ class ActorInfo:
 class HeadServer:
     """All control-plane state + RPC handlers. One instance per cluster."""
 
+    chaos_role = "head"  # fault-injection scope (devtools/chaos.py)
 
     def __init__(self, host: str = "127.0.0.1", port: int = 0,
                  persist_path: Optional[str] = None):
@@ -149,7 +153,7 @@ class HeadServer:
 
         self.incarnation = _uuid.uuid4().hex[:12]
         _flight.set_role("head")
-        self._lock = threading.RLock()
+        self._lock = make_rlock("head._lock")
         self._nodes: Dict[str, NodeInfo] = {}
         self._actors: Dict[bytes, ActorInfo] = {}
         self._named: Dict[Tuple[str, str], bytes] = {}
@@ -172,7 +176,7 @@ class HeadServer:
         # O(objects on node). Own lock: cursor updates ride the
         # object_batch path, which must not take the scheduler lock.
         self._dir_cursors: Dict[str, int] = {}
-        self._dir_cursor_lock = threading.Lock()
+        self._dir_cursor_lock = make_lock("head._dir_cursor_lock")
         self._locality_hits = 0
         self._locality_misses = 0
         # Utilization-bucket index over ALIVE nodes (guarded by _lock):
@@ -204,7 +208,7 @@ class HeadServer:
         # per-request span flushes from every traced worker/replica
         # (plus trace_tail's O(ring) copies) must not contend with the
         # scheduler-critical self._lock.
-        self._trace_lock = threading.Lock()
+        self._trace_lock = make_lock("head._trace_lock")
         self._trace_ring = _collections.deque()
         self._trace_ring_bytes = 0
         # Compiled-DAG channel registry: channel_id -> {addr, owner,
@@ -262,8 +266,9 @@ class HeadServer:
         self._server = RpcServer(self, host, port).start()
         self.address = self._server.address
         self._stop = threading.Event()
-        self._health_thread = threading.Thread(
-            target=self._health_loop, daemon=True, name="head-health")
+        self._health_thread = _resdbg.track_thread(threading.Thread(
+            target=self._health_loop, daemon=True, name="head-health"),
+            owner=self)
         self._health_thread.start()
 
     # -------------------------------------------------------- persistence
@@ -361,6 +366,10 @@ class HeadServer:
         self._pool.close_all()
         if self._store is not None:
             self._store.close()
+        # RTPU_DEBUG_RES: the health sweep must be gone after the join
+        # above (reports, never raises; witness off = one env read).
+        _resdbg.check_balanced("head.shutdown", kinds=("thread",),
+                               owner=self)
 
     # ------------------------------------------------------------- publish
 
@@ -1610,6 +1619,10 @@ class HeadServer:
         heartbeat audits); ``snapshot`` means the frame is a full mirror
         republish — the node's previous entries are scrubbed first so a
         post-restart rehydration can't resurrect departed objects."""
+        if _rpcdbg.enabled():
+            # RTPU_DEBUG_RPC: assert the node's directory stream arrived
+            # in order (strips the sequence stamp).
+            entries = _rpcdbg.check_outbox("head", entries)
         if snapshot:
             with self._dir_cursor_lock:
                 self._dir_cursors.pop(node_id, None)

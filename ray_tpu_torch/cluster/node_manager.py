@@ -66,6 +66,9 @@ from ray_tpu_torch.core.config import GLOBAL_CONFIG as cfg
 from ray_tpu_torch.core.shm_store import ShmStore
 from ray_tpu_torch.cluster.protocol import (ClientPool, RpcClient, RpcServer,
                                       blocking_rpc)
+from ray_tpu_torch.devtools import res_debug as _resdbg
+from ray_tpu_torch.devtools import rpc_debug as _rpcdbg
+from ray_tpu_torch.devtools.lock_debug import make_lock, make_rlock
 from ray_tpu_torch.util import flight_recorder as _flight
 
 logger = logging.getLogger(__name__)
@@ -237,6 +240,8 @@ class _SimProc:
 
 
 class NodeManager:
+    chaos_role = "node"  # fault-injection scope (devtools/chaos.py)
+
     def __init__(self, head_addr: str, node_id: str,
                  resources: Dict[str, float], labels: Dict[str, str],
                  object_store_bytes: int, host: str = "127.0.0.1",
@@ -262,7 +267,7 @@ class NodeManager:
             self.store = ShmStore.create(
                 self.store_name, object_store_bytes,
                 prefault=cfg.object_store_prefault)
-        self._lock = threading.RLock()
+        self._lock = make_rlock("node_manager._lock")
         self._idle_cv = threading.Condition(self._lock)
         # Signalled whenever resources are credited back (lease return,
         # blocked worker, bundle release): queued lease requests re-check
@@ -301,7 +306,7 @@ class NodeManager:
         # concurrent pulls of one object onto a single in-flight transfer
         # and fans chunked pulls of large objects out across holders.
         self._pulls: Dict[bytes, threading.Event] = {}
-        self._pull_lock = threading.Lock()
+        self._pull_lock = make_lock("node_manager._pull_lock")
         # Local holder-set mirror: oid -> size of every object the node
         # believes is resident in ITS store (owner object_batch frames
         # route through here on their way to the head; pulls record
@@ -311,11 +316,11 @@ class NodeManager:
         # the node's copies again (reference: raylets resubscribe and
         # re-push local object tables after GCS restart).
         self._local_objects: Dict[bytes, int] = {}
-        self._dir_lock = threading.Lock()
+        self._dir_lock = make_lock("node_manager._dir_lock")
         # Serializes the node->head directory stream (stamp + send as
         # one unit; see _head_object_batch). Leaf lock: nothing else is
         # taken under it.
-        self._head_batch_lock = threading.Lock()
+        self._head_batch_lock = make_lock("node_manager._head_batch_lock")
         # Head incarnation learned at (re-)registration: a changed value
         # means the head restarted (new era).
         self._head_incarnation: Optional[str] = None
@@ -429,8 +434,8 @@ class NodeManager:
         # serializes the fork round-trip's pipe I/O. stop() and concurrent
         # spawns need only the former, so a zygote stuck mid-fork (up to
         # zygote_spawn_timeout_s) cannot wedge them.
-        self._zygote_lock = threading.Lock()
-        self._zygote_io_lock = threading.Lock()
+        self._zygote_lock = make_lock("node_manager._zygote_lock")
+        self._zygote_io_lock = make_lock("node_manager._zygote_io_lock")
         # Worker starts by route, and why the last default-env CPU worker
         # did not fork (None while every one did): rpc_spawn_stats.
         self._spawn_counts = {"forked": 0, "cold_cpu": 0, "cold_gpu": 0}
@@ -464,6 +469,7 @@ class NodeManager:
             # tables via the death/drain path).
             for bid in list(self._lease_blocks):
                 del self._lease_blocks[bid]
+                _resdbg.note_release("lease_block", bid)
         if self._metrics_exporter is not None:
             self._metrics_exporter.stop()
             self._metrics_exporter = None
@@ -763,6 +769,9 @@ class NodeManager:
             while len(self._dir_journal) > cap:
                 self._dir_journal.popleft()
             cursor = self._dir_seq
+            if _rpcdbg.enabled():
+                entries = _rpcdbg.stamp_outbox(f"node:{self.node_id}",
+                                               entries)
             self._head.notify("object_batch", self.node_id, entries,
                               cursor, snapshot)
 
@@ -773,6 +782,11 @@ class NodeManager:
         Entries are ("add", oid, size) / ("rm", oid, None) in submission
         order; forwarded to the head as one frame, same best-effort
         contract as before."""
+        if _rpcdbg.enabled():
+            # RTPU_DEBUG_RPC: assert the owner's outbox stream arrived
+            # in order (strips the sequence stamp).
+            entries = _rpcdbg.check_outbox(f"node:{self.node_id}",
+                                           entries)
         with self._dir_lock:
             for kind, oid, size in entries:
                 if kind == "add":
@@ -845,6 +859,7 @@ class NodeManager:
         with self._lock:
             lease = self._leases.pop(w.lease_id, None) if w.lease_id else None
             if lease is not None:
+                _resdbg.note_release("lease", lease.lease_id)
                 self._free_cards(lease)
                 if lease.blocked == 0:
                     self._release_resources(lease)
@@ -855,6 +870,7 @@ class NodeManager:
                            if l.lessee == w.address]
                 for l in orphans:
                     self._leases.pop(l.lease_id, None)
+                    _resdbg.note_release("lease", l.lease_id)
                     self._free_cards(l)
                     if l.blocked == 0:
                         self._release_resources(l)
@@ -1539,6 +1555,10 @@ class NodeManager:
                     "owner": owner_addr, "resources": dict(resources),
                     "remaining": int(size), "size": int(size),
                     "expires_at": time.monotonic() + ttl_ms / 1000.0}
+                # Same-lock acquire as the table insert (witness rule —
+                # see the lease grant path).
+                _resdbg.note_acquire("lease_block", key=block_id,
+                                     owner=self)
         _flight.record("lease_block_install", block=block_id[:12])
         return True
 
@@ -1548,7 +1568,7 @@ class NodeManager:
         already-revoked block is True ('not installed' holds)."""
         with self._lock:
             if self._lease_blocks.pop(block_id, None) is not None:
-                pass
+                _resdbg.note_release("lease_block", block_id)
         return True
 
     def _sweep_expired_lease_blocks(self) -> None:
@@ -1560,6 +1580,7 @@ class NodeManager:
                        if now > ent["expires_at"]]
             for bid in expired:
                 del self._lease_blocks[bid]
+                _resdbg.note_release("lease_block", bid)
 
     def _do_request_lease(self, resources: Dict[str, float],
                           pg: Optional[Tuple[bytes, int]],
@@ -1619,6 +1640,11 @@ class NodeManager:
         w.lease_id = lease_id
         with self._lock:
             self._leases[lease_id] = lease
+            # Registered under the SAME lock as the table insert: the
+            # death sweep pops (and note_release-s) under this lock, so
+            # an acquire landing after a racing release could otherwise
+            # mint a phantom permanently-open entry in the witness.
+            _resdbg.note_acquire("lease", key=lease_id, owner=self)
         _flight.record("lease_grant", lease=lease_id[:12],
                        worker=w.address, lessee=str(lease.lessee)[:40])
         return w.address, lease_id
@@ -1632,6 +1658,7 @@ class NodeManager:
         _flight.record("lease_return", lease=lease_id[:12],
                        pooled=pool_worker)
         with self._lock:
+            _resdbg.note_release("lease", lease_id)
             lease = self._leases.pop(lease_id, None)
             if lease is None:
                 # Re-delivered return of a lease already returned: ack
@@ -1926,6 +1953,7 @@ class NodeManager:
         self.store.seal(oid)
         _flight.record("store_seal", oid=oid.hex()[:12], bytes=total,
                        via="pull")
+        _resdbg.note_event("store_seal")
         self._note_local_object(oid.binary(), total)
         with self._pull_lock:
             self.pull_stats["bytes_pulled"] += total

@@ -47,14 +47,23 @@ the classification sets below.
 ``RETRY_SAFE_RPCS`` (the ``retrying_call`` gate) is the union of the
 first three.
 
-A copy of ``ray_tpu/cluster/protocol.py`` without ``ray_tpu``'s chaos
-injection, RPC witness, resource witness and flight recorder.
+Chaos injection, two tiers (as ``ray_tpu``'s): ``rpc_chaos_failure_prob``
+drops requests or replies blindly, but only of methods in
+``RETRY_SAFE_RPCS``; ``chaos_plan`` / ``RTPU_CHAOS_PLAN``
+(``devtools/chaos.py``) applies a seeded plan by (method, role, peer, nth
+call) at the dispatch and reply seams below. Under ``RTPU_DEBUG_RPC=1``
+(``devtools/rpc_debug.py``) a dispatched method in none of the sets fails
+loudly and idempotent requests are delivered twice with their replies
+compared; under ``RTPU_DEBUG_RES=1`` every ``BufferLease`` registers in
+the resource witness; under ``RTPU_DEBUG_LOCKS=1`` the module's locks are
+witnessed.
 """
 
 from __future__ import annotations
 
 import itertools
 import os
+import random
 import socket
 import socketserver
 import struct
@@ -64,6 +73,11 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 from ray_tpu_torch.core.config import GLOBAL_CONFIG as cfg
 from ray_tpu_torch.core.serialization import SERIALIZER
+from ray_tpu_torch.devtools import chaos as _chaos
+from ray_tpu_torch.devtools import res_debug as _resdbg
+from ray_tpu_torch.devtools import rpc_debug as _rpcdbg
+from ray_tpu_torch.devtools.chaos import chaos_enabled as _chaos_enabled
+from ray_tpu_torch.devtools.lock_debug import make_lock
 from ray_tpu_torch.util import flight_recorder as _flight
 
 _LEN = struct.Struct("<I")
@@ -117,7 +131,8 @@ class BufferLease:
 
     def __init__(self, value: Any, release: Callable):
         self.value = value
-        self._release = release
+        self._release = _resdbg.wrap_release("buffer_lease", release,
+                                             owner=self)
 
     def release(self) -> None:
         rel, self._release = self._release, None
@@ -440,6 +455,12 @@ def get_event_stats() -> dict:
 # --------------------------------------------------------------------------
 
 
+def _chaos_drop(method: str) -> bool:
+    p = cfg.rpc_chaos_failure_prob
+    return (p > 0 and method in RETRY_SAFE_RPCS
+            and random.random() < p)
+
+
 class RpcServer:
     """Threaded frame server. ``handler_obj`` methods named ``rpc_<method>``
     are callable remotely; each gets (conn, *args) where conn is the
@@ -448,6 +469,10 @@ class RpcServer:
     def __init__(self, handler_obj: Any, host: str = "127.0.0.1",
                  port: int = 0):
         self.handler_obj = handler_obj
+        # Fault-injection scope: chaos-plan rules target the RECEIVING
+        # process by the role its handler declares (head / node / worker
+        # / driver — set by HeadServer, NodeManager, ClusterCore).
+        self.chaos_role = getattr(handler_obj, "chaos_role", "")
         outer = self
 
         class _Handler(socketserver.BaseRequestHandler):
@@ -491,7 +516,7 @@ class RpcServer:
         # "stopped" server's stale state indefinitely (peers must fail
         # over to the replacement, not talk to a zombie).
         self._conns: set = set()
-        self._conns_lock = threading.Lock()
+        self._conns_lock = make_lock("protocol.server._conns_lock")
 
     def start(self) -> "RpcServer":
         self._thread.start()
@@ -532,7 +557,19 @@ class RpcServer:
         # seconds before a kill (heartbeats are recorded by their loops).
         if method != "heartbeat":
             _flight.record("rpc", m=method, notify=req_id == 0)
+        if _chaos_enabled():
+            if _chaos.apply(self.chaos_role, method, "request",
+                            conn) is not None:
+                return  # plan dropped the request / severed the peer
+            if _chaos_drop(method):
+                return  # request lost (blind mode, retry-safe only)
         fn = getattr(self.handler_obj, "rpc_" + method, None)
+        # RTPU_DEBUG_RPC witness: off, ``audit`` stays None and the
+        # handler runs directly; on, every dispatched method must be
+        # classified, and idempotent requests are delivered twice with
+        # their replies compared.
+        audit = _rpcdbg.dispatch_audit(method, self.handler_obj) \
+            if _rpcdbg.enabled() else None
 
         def run():
             t0 = time.monotonic() if _stats_on() else 0.0
@@ -540,7 +577,10 @@ class RpcServer:
             try:
                 if fn is None:
                     raise RpcError(f"no such rpc method: {method}")
-                result = fn(conn, *args)
+                if audit is not None:
+                    result = audit(fn, conn, args)
+                else:
+                    result = fn(conn, *args)
                 ok = True
             except BaseException as e:  # noqa: BLE001
                 result, ok = e, False
@@ -550,10 +590,16 @@ class RpcServer:
                 _record_event_stat(method, time.monotonic() - t0, ok)
             try:
                 if req_id > 0:
-                    try:
-                        conn.send_payload((-req_id, ok, result))
-                    except Exception:
-                        pass
+                    lost = False
+                    if _chaos_enabled():
+                        lost = (_chaos.apply(self.chaos_role, method,
+                                             "response", conn) is not None
+                                or _chaos_drop(method))
+                    if not lost:
+                        try:
+                            conn.send_payload((-req_id, ok, result))
+                        except Exception:
+                            pass
             finally:
                 if lease is not None:
                     lease.release()
@@ -579,7 +625,7 @@ class PeerConnection:
     def __init__(self, sock: socket.socket, server: RpcServer):
         self.sock = sock
         self.server = server
-        self.send_lock = threading.Lock()
+        self.send_lock = make_lock("protocol.send_lock")
         self.peer_info: Dict[str, Any] = {}  # set by register handlers
 
     def send_payload(self, payload) -> None:
@@ -616,10 +662,10 @@ class RpcClient:
                            connect_timeout or cfg.rpc_connect_timeout_s)
         self._sock.settimeout(None)
         self._sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
-        self._send_lock = threading.Lock()
+        self._send_lock = make_lock("protocol._send_lock")
         self._req_counter = itertools.count(1)
         self._pending: Dict[int, "_Waiter"] = {}
-        self._pending_lock = threading.Lock()
+        self._pending_lock = make_lock("protocol._pending_lock")
         #: req_id -> writable memoryview: the reader lands a scatter
         #: response's single buffer directly here (see call_into).
         self._sinks: Dict[int, memoryview] = {}
@@ -868,7 +914,7 @@ class ClientPool:
     def __init__(self):
         self._clients: Dict[str, RpcClient] = {}
         self._creating: Dict[str, threading.Lock] = {}
-        self._lock = threading.Lock()
+        self._lock = make_lock("protocol.client_pool._lock")
 
     @staticmethod
     def _upgrade(c: RpcClient, on_push: Optional[Callable],

@@ -36,6 +36,7 @@ from ray_tpu_torch.core.ids import ActorID, JobID, ObjectID, TaskID
 from ray_tpu_torch.core.object_ref import ObjectRef
 from ray_tpu_torch.core.serialization import SERIALIZER, capture_exception
 from ray_tpu_torch.cluster.protocol import ClientPool
+from ray_tpu_torch.devtools.lock_debug import make_lock
 from ray_tpu_torch.exceptions import ActorDiedError, RayTpuError, TaskError
 
 logger = logging.getLogger(__name__)
@@ -80,7 +81,7 @@ class _HostedActor:
         # applies (at-least-once pushes), ordering guarantees don't.
         self.out_of_order = out_of_order
         self.is_async = is_async
-        self.lock = threading.Lock()
+        self.lock = make_lock("worker_main.actor.lock")
         self.pool = ThreadPoolExecutor(
             max_workers=max_concurrency,
             thread_name_prefix=f"actor-{actor_id.hex()[:8]}")
@@ -109,7 +110,7 @@ class _HostedActor:
         # the documented at-least-once floor).
         self.order: "collections.OrderedDict[str, _OrderState]" = \
             collections.OrderedDict()
-        self.order_lock = threading.Lock()
+        self.order_lock = make_lock("worker_main.actor.order_lock")
         self.dead = False
 
     def pool_for(self, method_name: str) -> ThreadPoolExecutor:
@@ -145,17 +146,17 @@ class WorkerRuntime(ClusterCore):
         self._task_slot = threading.Semaphore(1)
         self._slot_state = threading.local()
         self._hosted: Dict[ActorID, _HostedActor] = {}
-        self._hosted_lock = threading.Lock()
+        self._hosted_lock = make_lock("worker_main._hosted_lock")
         self._owner_pool = ClientPool()
         # Dedup for retried pushes (the submitter retries an unacked push;
         # at-least-once delivery + this set = exactly-once execution here).
         self._seen_tasks: set = set()
         self._seen_order = collections.deque()
-        self._seen_lock = threading.Lock()
+        self._seen_lock = make_lock("worker_main._seen_lock")
         # Per-owner completion flushers: one dead/unreachable owner must not
         # head-of-line block completion delivery to every other owner.
         self._done_flushers: Dict[str, tuple] = {}
-        self._done_lock = threading.Lock()
+        self._done_lock = make_lock("worker_main._done_lock")
         # Cooperative cancellation: ids cancelled before execution start
         # are skipped (running user code is never preempted — reference
         # semantics for non-force cancel). FIFO-bounded like _seen_tasks.

@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import itertools
 import logging
+import queue
 import threading
 import time
 import uuid
@@ -43,6 +44,9 @@ from ray_tpu_torch.core.shm_store import ShmObjectExistsError, ShmStore
 from ray_tpu_torch.core.task_spec import PlacementGroupSpec, pg_key_from_strategy
 from ray_tpu_torch.cluster.protocol import (ClientPool, ConnectionLost, RpcClient,
                                       RpcServer, blocking_rpc)
+from ray_tpu_torch.devtools import res_debug as _resdbg
+from ray_tpu_torch.devtools import rpc_debug as _rpcdbg
+from ray_tpu_torch.devtools.lock_debug import make_lock
 from ray_tpu_torch.exceptions import (ActorDiedError, GetTimeoutError, TaskError,
                                 WorkerCrashedError)
 from ray_tpu_torch.core.lineage import LineageRecord as _LineageRecord
@@ -273,7 +277,7 @@ class _ActorConn:
         self.outbound = collections.deque()  # (seq, task_id_bytes, blob, rids)
         self.unacked = collections.deque()   # [seq, tid, blob, waiter, tries, deadline]
         self.pending: Dict[int, tuple] = {}  # seq -> (tid, blob, return_ids)
-        self.lock = threading.Lock()
+        self.lock = make_lock("cluster_core.actor_conn.lock")
         self.sender_running = False
         self.dead = False
         self.death_reason = ""
@@ -323,14 +327,17 @@ class ClusterCore:
         self._pool = ClientPool()
         self.head = RpcClient(head_addr)
         self.node = RpcClient(node_addr)
+        # Fault-injection scope (devtools/chaos.py): chaos-plan rules
+        # target this process's RPC server by role.
+        self.chaos_role = "driver" if is_driver else "worker"
         from ray_tpu_torch.util import flight_recorder as _fl
 
-        _fl.set_role("driver" if is_driver else "worker", node_id=node_id)
+        _fl.set_role(self.chaos_role, node_id=node_id)
         self._server = RpcServer(self).start()
         self.owner_addr = self._server.address
 
         self._key_queues: Dict[tuple, _KeyQueue] = {}
-        self._lease_lock = threading.Lock()
+        self._lease_lock = make_lock("cluster_core._lease_lock")
         # Steady-state dispatch accounting (bench.py --scale reads this):
         # head_picks counts pick_node/pick_nodes FRAMES, block_dispatches
         # counts leases admitted node-direct against a block,
@@ -347,18 +354,25 @@ class ClusterCore:
         import collections as _coll
 
         self._obj_locality: "_coll.OrderedDict" = _coll.OrderedDict()
-        self._obj_loc_lock = threading.Lock()
+        self._obj_loc_lock = make_lock("cluster_core._obj_loc_lock")
         self._inflight: Dict[bytes, _InflightTask] = {}  # task_id -> info
-        self._inflight_lock = threading.Lock()
+        self._inflight_lock = make_lock("cluster_core._inflight_lock")
         # task_id -> ObjectIDs passed as args: each holds a submitted-task
         # ref until the task reaches a TERMINAL state (done or failed), so
         # the caller dropping its local ObjectRef right after `.remote(ref)`
         # cannot free an argument out from under the executing worker
         # (reference: ReferenceCounter's submitted_task_ref_count).
         self._submitted_args: Dict[bytes, List[ObjectID]] = {}
+        # Dependency resolution: tasks whose owned arguments are still
+        # being computed wait here, not on a worker. Their last argument's
+        # arrival hands them to the resolver thread, which enqueues them
+        # (never from the delivering thread, which may hold _lease_lock).
+        self._resolved_q: "queue.SimpleQueue" = queue.SimpleQueue()
+        self._resolver_started = False
+        self._resolver_lock = make_lock("cluster_core._resolver_lock")
         # task_id -> _StreamState for in-flight streaming generators.
         self._streams: Dict[bytes, _StreamState] = {}
-        self._streams_lock = threading.Lock()
+        self._streams_lock = make_lock("cluster_core._streams_lock")
         # (expiry, oid) transfer pins for owned refs serialized outbound;
         # swept by the push-ack loop.
         import collections as _collections
@@ -373,12 +387,12 @@ class ClusterCore:
 
         self.lineage = LineageStore(cfg.max_lineage_bytes)
         self._recovering: Dict[bytes, float] = {}  # task_id -> last attempt
-        self._recover_lock = threading.Lock()
+        self._recover_lock = make_lock("cluster_core._recover_lock")
         # Observability: recent completions ring (util.state.list_tasks).
         self._recent_tasks: "_collections.deque" = _collections.deque(
             maxlen=cfg.recent_tasks_ring)
         self._actors: Dict[ActorID, _ActorConn] = {}
-        self._actors_lock = threading.Lock()
+        self._actors_lock = make_lock("cluster_core._actors_lock")
         # Bounded memo of RETIRED actors (dead conns dropped from
         # _actors — which otherwise grew one _ActorConn per actor ever
         # called, for the life of the driver): actor_id -> death
@@ -408,7 +422,7 @@ class ClusterCore:
         self._push_acks = collections.deque()
         self._push_ack_event = threading.Event()
         self._borrow_buf: Dict[str, list] = {}
-        self._borrow_buf_lock = threading.Lock()
+        self._borrow_buf_lock = make_lock("cluster_core._borrow_buf_lock")
         #: oid bytes -> owner addr for refs this process BORROWS; consulted
         #: when the borrowed ref goes out of scope so the owner can be
         #: told to drop us from its borrower set (the release half of the
@@ -433,7 +447,7 @@ class ClusterCore:
 
         self._fn_exports: "weakref.WeakKeyDictionary" = (
             weakref.WeakKeyDictionary())
-        self._fn_exports_lock = threading.Lock()
+        self._fn_exports_lock = make_lock("cluster_core._fn_exports_lock")
         # digest -> fn, LRU-bounded: unique-lambda loops must not grow it
         # without bound; an evicted digest re-fetches from the head KV.
         import collections
@@ -442,7 +456,7 @@ class ClusterCore:
         self._fn_cache_max = 4096
         # Dedicated cache lock: _fn_exports_lock spans a head kv_put RPC in
         # _export_function; cache mutation must never wait on network I/O.
-        self._fn_cache_lock = threading.Lock()
+        self._fn_cache_lock = make_lock("cluster_core._fn_cache_lock")
         # Object-directory notify outbox: per-put/per-release head frames
         # coalesce into one object_batch frame per flush window — N
         # concurrent writers were paying N head frames (+ head dispatch +
@@ -452,14 +466,14 @@ class ClusterCore:
         # Single-flusher guard: shutdown's last-gasp flush racing the
         # daemon's would split an ordered add/rm pair across two frames
         # whose send order is unconstrained.
-        self._obj_notify_flush_lock = threading.Lock()
+        self._obj_notify_flush_lock = make_lock("cluster_core._obj_notify_flush_lock")
         threading.Thread(target=self._obj_notify_loop, daemon=True,
                          name="obj-notify").start()
         threading.Thread(target=self._push_ack_loop, daemon=True,
                          name="push-acks").start()
-        self._lease_reaper = threading.Thread(
+        self._lease_reaper = _resdbg.track_thread(threading.Thread(
             target=self._lease_reaper_loop, daemon=True,
-            name="lease-reaper")
+            name="lease-reaper"), owner=self)
         self._lease_reaper.start()
 
     # ------------------------------------------------------------------ refs
@@ -698,6 +712,12 @@ class ClusterCore:
                     # frames and forwards them, so a restarted head can
                     # be rehydrated by the node (see NodeManager.
                     # _on_head_reregistered). Same best-effort contract.
+                    if _rpcdbg.enabled():
+                        # RTPU_DEBUG_RPC: per-sender sequence stamp so
+                        # the node can assert no frame reordering /
+                        # re-delivery (add/rm inversion witness).
+                        batch = _rpcdbg.stamp_outbox(self.owner_addr,
+                                                     batch)
                     self.node.notify("object_batch", batch)
                 except Exception:
                     return  # best-effort, like the old per-object notifies
@@ -751,6 +771,7 @@ class ClusterCore:
         with self._obj_loc_lock:
             self._obj_locality.pop(oid.binary(), None)
         if self.store.delete(oid):
+            _resdbg.note_event("store_delete")
             self._queue_object_notify("rm", oid.binary())
 
     # ------------------------------------------------------------------ put/get
@@ -818,6 +839,7 @@ class ClusterCore:
             self.store.abort(oid)
             raise
         self.store.seal(oid)
+        _resdbg.note_event("store_seal")
         self._queue_object_notify("add", oid.binary(), total)
 
     def _read_plasma(self, oid: ObjectID, timeout: Optional[float],
@@ -1519,8 +1541,13 @@ class ClusterCore:
                                               validate_runtime_env)
 
         runtime_env = validate_runtime_env(runtime_env)
-        res = _as_resource_dict(resources)
-        res.setdefault("CPU", 1.0)
+        # Only a task that names no resources at all costs the default
+        # CPU, as for actors (create_actor): the caller's own default
+        # (``remote_function._task_resources``) already adds CPU 1 when
+        # num_cpus is not given, and ResourceSet drops zero amounts, so
+        # a missing CPU here is an explicit num_cpus=0 and leases none.
+        res = ({"CPU": 1.0} if resources is None
+               else _as_resource_dict(resources))
         strategy = _strategy_dict(scheduling_strategy)
         task_name = name or getattr(func, "__name__", "task")
         spread = bool(strategy and strategy.get("kind") == "spread")
@@ -1608,9 +1635,52 @@ class ClusterCore:
         self.lineage.record(task_id_bytes, _LineageRecord(
             spec_blob, sched_key, tmpl.resources, tmpl.strategy, tmpl.name,
             return_ids, arg_ids, runtime_env=tmpl.runtime_env))
-        self._enqueue_task(task_id_bytes, info)
+        self._enqueue_when_resolved(task_id_bytes, info, args, kwargs)
         self._emit_submit_span(info, t_submit)
         return refs
+
+    def _enqueue_when_resolved(self, task_id_bytes: bytes,
+                               info: "_InflightTask", args,
+                               kwargs) -> None:
+        """Enqueue a task once every argument this process owns and is
+        still computing has arrived (the reference's dependency resolver).
+        Pushed earlier, the task would occupy a worker that blocks in
+        ``get`` and hands its CPU back, so the node would start another
+        worker for the next link: a chain of n dependent tasks would hold
+        n workers. Top-level arguments only, as the worker resolves only
+        those; an argument that fails still arrives (as its error)."""
+        pending = [a.id() for a in itertools.chain(args, kwargs.values())
+                   if isinstance(a, ObjectRef)
+                   and a.owner_address == self.owner_addr
+                   and not self.memory_store.contains(a.id())]
+        if not pending:
+            self._enqueue_task(task_id_bytes, info)
+            return
+        left = [len(pending)]
+        lock = threading.Lock()
+
+        def arrived(_rec) -> None:
+            with lock:
+                left[0] -= 1
+                done = left[0] == 0
+            if done:
+                self._resolved_q.put((task_id_bytes, info))
+
+        with self._resolver_lock:
+            if not self._resolver_started:
+                self._resolver_started = True
+                threading.Thread(target=self._resolver_loop, daemon=True,
+                                 name="dep-resolver").start()
+        for oid in pending:
+            self.memory_store.get_async(oid, arrived)
+
+    def _resolver_loop(self) -> None:
+        while not self._shutdown_flag:
+            try:
+                task_id_bytes, info = self._resolved_q.get(timeout=0.5)
+            except queue.Empty:
+                continue
+            self._enqueue_task(task_id_bytes, info)
 
     @staticmethod
     def _emit_submit_span(info: "_InflightTask", t_submit: float) -> None:
@@ -3258,6 +3328,11 @@ class ClusterCore:
             self.store.close()
         except Exception:
             pass
+        # RTPU_DEBUG_RES balance assertion: this core's tracked threads
+        # must have exited by now (the reaper was joined above); the
+        # check reports and never blocks teardown.
+        _resdbg.check_balanced("cluster_core.shutdown", kinds=("thread",),
+                               owner=self)
         runtime_context.set_runtime(None)
 
 

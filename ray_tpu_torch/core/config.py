@@ -10,8 +10,10 @@ overridable via ``RTPU_<NAME>`` environment variables and via the
 differ from ``ray_tpu``'s on purpose: ``log_dir`` and
 ``object_spilling_dir`` lie under the port's own directories in
 ``tempfile.gettempdir()``, so the two packages' clusters never share a
-session directory. The witnesses' and the chaos harness's flags come with
-them (ROADMAP.md, queue 1, item 8b).
+session directory. The chaos harness's flags (``chaos_plan``,
+``chaos_seed``, ``rpc_chaos_failure_prob``) are here; the witnesses
+(``devtools/``) read their own ``RTPU_DEBUG_*`` environment flags, as
+``ray_tpu``'s do.
 """
 
 from __future__ import annotations
@@ -167,6 +169,25 @@ _d("serve_router_fleet_kv_weight", float, 0.0,
    "keeps scores byte-identical to per-replica prefix affinity; "
    "fleet-enabled deployments set it so multi-turn traffic lands "
    "where its evicted prefixes still live in the shm tier")
+_d("serve_snapshot_prefix_hashes", int, 256,
+   "cap on resident prefix-block chain hashes exported per replica "
+   "load snapshot")
+_d("serve_kv_fleet_min_prefix_blocks", int, -1,
+   "fleet KV-cache economy: minimum contiguous pullable prefix (in "
+   "blocks) before an engine pulls spilled KV pages from the tiered "
+   "object store instead of recomputing them. -1 (default) disables "
+   "the fleet tier entirely — engines are byte-identical to "
+   "per-replica caching; 0 always pulls; n>0 pulls only runs of at "
+   "least n blocks (engines may also be built with 'auto' to gate on "
+   "the measured pull-vs-recompute crossover)")
+_d("serve_snapshot_fleet_hashes", int, 32,
+   "cap on recently-spilled/pulled prefix-block chain hashes exported "
+   "per replica load snapshot (the fleet-residency summary the "
+   "router's fleet term scores on)")
+_d("serve_kv_fleet_local_bytes", int, 256 << 20,
+   "byte cap of the in-process fleet KV page store used when no "
+   "cluster shm store is attached (store-free engines, unit tests); "
+   "oldest pages evict LRU past the cap")
 _d("serve_router_topk", int, 4,
    "scored routing at scale (> serve_router_score_all_max replicas): "
    "how many best-base-score candidates the incremental rank feeds "
@@ -513,6 +534,22 @@ _d("recent_tasks_ring", int, 512,
 _d("recovering_ids_max", int, 4096,
    "FIFO window of object ids currently under lineage reconstruction "
    "(dedups concurrent recovery triggers)")
+_d("rpc_chaos_failure_prob", float, 0.0,
+   "fault-injection: probability an RPC is dropped (request or reply). "
+   "Equivalent of the reference's RAY_testing_rpc_failure chaos flag "
+   "(src/ray/rpc/rpc_chaos.h). Blind drops fire only on RETRY_SAFE_RPCS "
+   "(cluster/protocol.py) — methods whose callers retry/dedup; targeted "
+   "drops of anything else go through chaos_plan rules")
+_d("chaos_plan", str, "",
+   "deterministic fault-injection plan (devtools/chaos.py grammar): "
+   "';'-separated rules targeting (rpc method, role, peer, nth call) "
+   "with drop_request/drop_response/delay/sever/kill actions. Set via "
+   "RTPU_CHAOS_PLAN so every spawned head/node/worker process inherits "
+   "the same plan; counters are per process, so nth-rules are "
+   "reproducible wherever request routing is")
+_d("chaos_seed", int, 0,
+   "default RNG seed for chaos_plan prob= rules (per-rule seed= "
+   "overrides); fixed seed + fixed plan => identical fault sequences")
 _d("rpc_connect_timeout_s", float, 10.0, "TCP connect timeout")
 _d("rpc_control_timeout_s", float, 5.0,
    "standard control-RPC deadline (lease return, bundle release, "

@@ -15,6 +15,7 @@ import time
 from typing import Any, Callable, Dict, List, Optional, Set
 
 from ray_tpu_torch.core.ids import ObjectID
+from ray_tpu_torch.devtools.lock_debug import make_lock
 from ray_tpu_torch.exceptions import GetTimeoutError
 
 
@@ -39,7 +40,7 @@ class PlasmaStub:
 class MemoryStore:
     def __init__(self):
 
-        self._lock = threading.Lock()
+        self._lock = make_lock("memory_store._lock")
         self._cv = threading.Condition(self._lock)
         self._objects: Dict[ObjectID, _Record] = {}
         self._callbacks: Dict[ObjectID, List[Callable[[_Record], None]]] = {}

@@ -42,9 +42,10 @@ from typing import Optional, Tuple
 import numpy as np
 
 from ray_tpu_torch.core.ids import ObjectID
+from ray_tpu_torch.devtools.lock_debug import make_lock
 
 _LIB = None
-_LIB_LOCK = threading.Lock()
+_LIB_LOCK = make_lock("shm_store._LIB_LOCK")
 
 #: Expected shm segment layout version. MUST match kLayoutVersion in
 #: shm_store.cc: the v2 layout shards the arena (per-shard mutexes, slot

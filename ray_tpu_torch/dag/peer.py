@@ -15,8 +15,9 @@ Wire format, writer → reader (one socket per channel edge)::
             | u32 nparts | u32 lens[nparts] | parts...
                                             (size = sum of lens)
 
-``clock``/``crc`` keep ``ray_tpu``'s frame layout (its channel witness
-stamps them); the port sends them as 0.
+``clock``/``crc`` carry the RTPU_DEBUG_CHAN witness's Lamport stamp
+and sampled payload checksum (``devtools/chan_debug.py``); both are 0
+when the witness is off.
 
 reader → writer (same socket)::
 
@@ -35,8 +36,8 @@ dead reader gets ``peer_alive=False`` context (and
 ``ChannelClosedError`` once the registry entry is gone) instead of an
 opaque timeout.
 
-``ray_tpu``'s channel witness, resource witness and tracing spans are left
-out of this copy, and its lock witness is a plain ``threading.Lock``.
+``ray_tpu``'s tracing spans are left out of this copy; its channel,
+resource and lock witnesses are the port's own ``devtools``.
 """
 
 from __future__ import annotations
@@ -54,6 +55,9 @@ logger = logging.getLogger(__name__)
 
 from ray_tpu_torch.dag.errors import ChannelClosedError, ChannelTimeoutError
 from ray_tpu_torch.dag.ring import KIND_ERR, KIND_OK, KIND_STOP
+from ray_tpu_torch.devtools import chan_debug as _chandbg
+from ray_tpu_torch.devtools import res_debug as _resdbg
+from ray_tpu_torch.devtools.lock_debug import make_lock
 
 _HELLO = 0xC0DE0001
 _ACK = 0xACACACAC
@@ -90,9 +94,11 @@ class ChannelEndpoint:
     """Reader-side frame server: one per process, shared by every
     cross-node channel whose reader lives here."""
 
+    chaos_role = "channel"  # fault-injection scope (devtools/chaos.py)
+
     def __init__(self, host: Optional[str] = None):
         self._inboxes: Dict[bytes, _Inbox] = {}
-        self._lock = threading.Lock()
+        self._lock = make_lock("dag.peer.endpoint._lock")
         self._violations: List[dict] = []
         self._sock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
         self._sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
@@ -101,9 +107,11 @@ class ChannelEndpoint:
         self._stopped = False
         # The process-wide listener is long-lived BY DESIGN: it serves
         # every channel whose reader lives here.
-        self._accept_thread = threading.Thread(
+        _resdbg.note_acquire("channel_endpoint",
+                             key=("endpoint", id(self)), owner=self)
+        self._accept_thread = _resdbg.track_thread(threading.Thread(
             target=self._accept_loop, daemon=True,
-            name="dag-channel-endpoint")
+            name="dag-channel-endpoint"), owner=self)
         self._accept_thread.start()
 
     @property
@@ -151,6 +159,8 @@ class ChannelEndpoint:
                              daemon=True, name="dag-channel-conn").start()
 
     def _serve_conn(self, conn: socket.socket) -> None:
+        _resdbg.note_acquire("channel_sock",
+                             key=("conn", id(conn)), owner=self)
         try:
             hdr = _recv_exact(conn, 8)
             if hdr is None:
@@ -178,6 +188,7 @@ class ChannelEndpoint:
             self._pump(conn, cid, ib)
         finally:
             _shutdown(conn)
+            _resdbg.note_release("channel_sock", ("conn", id(conn)))
 
     def _pump(self, conn: socket.socket, cid: bytes, ib: _Inbox) -> None:
         while not self._stopped and not ib.closed:
@@ -245,6 +256,7 @@ class ChannelEndpoint:
             if conn is not None:
                 _shutdown(conn)
         _shutdown(self._sock)
+        _resdbg.note_release("channel_endpoint", ("endpoint", id(self)))
         if self._accept_thread is not threading.current_thread():
             self._accept_thread.join(timeout=5.0)
 
@@ -369,6 +381,12 @@ class CrossNodeChannel:
         self._inbox: Optional[_Inbox] = None
         self._registered = False
 
+    def _witness_key(self) -> str:
+        k = getattr(self, "_wkey", None)
+        if k is None:
+            k = self._wkey = f"{self.edge}@{id(self) & 0xFFFFFF:06x}"
+        return k
+
     # ------------------------------------------------------------- reader
 
     def prepare_read(self) -> str:
@@ -403,7 +421,7 @@ class CrossNodeChannel:
             step = 0.5 if deadline is None else max(
                 0.0, min(0.5, deadline - time.monotonic()))
             try:
-                kind, got_seq, _clock, _crc, parts = ib.q.get(timeout=step)
+                kind, got_seq, clock, crc, parts = ib.q.get(timeout=step)
                 break
             except queue.Empty:
                 if self._closed or ib.closed:
@@ -419,7 +437,12 @@ class CrossNodeChannel:
             raise ChannelClosedError(
                 f"channel {self.edge}: seq mismatch (got {got_seq}, "
                 f"expected {seq})")
+        if _chandbg.enabled():
+            _chandbg.note_consume(self._witness_key(), got_seq, clock,
+                                  crc, *parts)
         get_endpoint().ack(ib, seq)  # consumption credit -> writer
+        if _chandbg.enabled():
+            _chandbg.note_ack(self._witness_key(), seq)
         if kind == KIND_STOP:
             raise ChannelClosedError(f"channel {self.edge} closed")
         value = pickle.loads(bytes(parts[0]),
@@ -476,9 +499,11 @@ class CrossNodeChannel:
             raise
         self._sock = sock
         self._sock_dead = None
-        t = threading.Thread(
+        _resdbg.note_acquire("channel_sock",
+                             key=("writer", id(sock)), owner=self)
+        t = _resdbg.track_thread(threading.Thread(
             target=self._ack_loop, args=(sock,), daemon=True,
-            name="dag-channel-acks")
+            name="dag-channel-acks"), owner=self)
         self._ack_thread = t
         t.start()
         return sock
@@ -510,6 +535,7 @@ class CrossNodeChannel:
                 if self._sock is sock:
                     self._sock_dead = "ack stream ended"
                 self._ack_cond.notify_all()
+            _resdbg.note_release("channel_sock", ("writer", id(sock)))
 
     def _peer_alive(self) -> Optional[bool]:
         head = _head_client()
@@ -558,7 +584,11 @@ class CrossNodeChannel:
         parts = [head_bytes] + [memoryview(b) for b in bufs]
         lens = [len(p) for p in parts]
         size = sum(lens)
-        hdr = (struct.pack("<IBQQII", size, kind, seq, 0, 0, len(parts))
+        witness = _chandbg.enabled()
+        clock = _chandbg.clock_stamp(self._witness_key()) if witness else 0
+        crc = _chandbg.payload_crc(seq, *parts) if witness else 0
+        hdr = (struct.pack("<IBQQII", size, kind, seq, clock, crc,
+                           len(parts))
                + struct.pack("<%dI" % len(parts), *lens))
         from ray_tpu_torch.cluster.protocol import _sendmsg_all
 
@@ -600,6 +630,10 @@ class CrossNodeChannel:
                 with self._ack_cond:
                     self._sent_bytes += size
                     self._inflight_sizes[seq] = size
+                    floor = self._acked
+                if witness:
+                    _chandbg.note_send(self._witness_key(), seq, size,
+                                       window=(floor, self.capacity))
                 return
             except (ChannelClosedError, ChannelTimeoutError):
                 raise

@@ -21,8 +21,9 @@ Records never wrap:
 ``[u32 size | u32 kind | u64 seq | u64 clock | u32 crc | payload]``
 padded to 8 bytes; when the contiguous tail is too small the writer
 stamps a wrap marker (size = 0xFFFFFFFF) and continues at offset 0.
-``clock`` and ``crc`` keep ``ray_tpu``'s record layout (its channel
-witness stamps them); the port writes them as 0.
+``clock``/``crc`` carry the RTPU_DEBUG_CHAN witness's Lamport stamp and
+sampled payload checksum (``devtools/chan_debug.py``) and are 0 when the
+witness is off, as in ``ray_tpu``'s layout v3.
 Position publishes happen AFTER the payload memcpy, so the reader only
 ever observes complete records (aligned 8-byte stores are atomic on
 the platforms this runtime targets).
@@ -30,9 +31,9 @@ the platforms this runtime targets).
 Rendezvous needs no coordination service: both endpoints derive the
 ring path from the channel id and race ``O_CREAT|O_EXCL`` — the loser
 attaches. Payloads larger than ``dag_ring_spill_bytes`` spill to a
-side file the ring references; the writer keeps each spill until it
-observes consumption and reclaims unconsumed spills at close, so a dead
-reader cannot leak them.
+side file the ring references; the writer pins each spill (RTPU_DEBUG_RES
+kind ``channel_spill``) until it observes consumption and reclaims
+unconsumed spills at close, so a dead reader cannot leak them.
 
 Values travel as ``pickle.dumps(("ok", value), protocol=5)``: a CPU torch
 tensor rides as it is (its storage's bytes), and a KV page keeps its
@@ -52,6 +53,8 @@ import time
 from typing import Any, List, Optional, Tuple
 
 from ray_tpu_torch.dag.errors import ChannelClosedError, ChannelTimeoutError
+from ray_tpu_torch.devtools import chan_debug as _chandbg
+from ray_tpu_torch.devtools import res_debug as _resdbg
 
 _MAGIC = 0x52545543  # "RTUC"
 _VERSION = 3
@@ -205,7 +208,21 @@ class RingChannel:
         self._mm = mm
         self._path = path
         self._cap = struct.unpack_from("<Q", mm, _O_CAP)[0]
+        # Keyed by ENDPOINT identity, not path: both ends of a
+        # same-process channel map the same file and must balance
+        # independently.
+        _resdbg.note_acquire("channel_ring",
+                             key=(os.getpid(), id(self)), owner=self)
         return mm
+
+    def _witness_key(self) -> str:
+        """RTPU_DEBUG_CHAN endpoint token: edge + object identity, so a
+        reopened channel under the same edge name starts a fresh
+        stream in the witness registry."""
+        k = getattr(self, "_wkey", None)
+        if k is None:
+            k = self._wkey = f"{self.edge}@{id(self) & 0xFFFFFF:06x}"
+        return k
 
     # ------------------------------------------------------------- cursors
 
@@ -243,6 +260,14 @@ class RingChannel:
 
         mm = self._ensure()
         self._role = "w"
+        witness = _chandbg.enabled()
+        clock = crc = 0
+        if witness:
+            clock = _chandbg.clock_stamp(self._witness_key())
+            # crc over the ORIGINAL payload, before any spill-out: the
+            # reader recomputes after spill resolution, so a side file
+            # mutated between send and consume is caught too.
+            crc = _chandbg.payload_crc(seq, payload)
         if len(payload) > cfg.dag_ring_spill_bytes:
             payload = self._spill_out(payload, seq)
             kind = KIND_SPILL if kind == KIND_OK else KIND_SPILL_ERR
@@ -280,13 +305,23 @@ class RingChannel:
                 struct.pack_into("<I", mm, _HDR + off, _WRAP)
             wpos += tail
             off = 0
-        struct.pack_into("<IIQQI", mm, _HDR + off, size, kind, seq, 0, 0)
+        struct.pack_into("<IIQQI", mm, _HDR + off, size, kind, seq,
+                         clock, crc)
         mm[_HDR + off + _REC_HDR:_HDR + off + _REC_HDR + size] = payload
         # Publish AFTER the payload memcpy: the reader never sees a
         # partial record.
         self._set_u64(_O_WPOS, wpos + rec)
         if kind in (KIND_SPILL, KIND_SPILL_ERR):
             self._spills.append((wpos + rec, self._last_spill_path))
+            if witness:
+                _chandbg.note_spill_pin(self._witness_key(),
+                                        self._last_spill_path,
+                                        wpos + rec)
+        if witness:
+            _chandbg.note_cursor(self._witness_key(), "wpos", wpos + rec)
+            _chandbg.note_send(self._witness_key(), seq, size,
+                               window=(self._u64(_O_RSEQ),
+                                       self.capacity))
         self._settle_spills(self._u64(_O_RPOS))
 
     def _spill_out(self, payload: bytes, seq: int) -> bytes:
@@ -297,11 +332,15 @@ class RingChannel:
             f.write(payload)
         os.replace(tmp, path)
         self._last_spill_path = path
+        _resdbg.note_acquire("channel_spill",
+                             key=(os.getpid(), path), owner=self)
         return name.encode()
 
     def _settle_spills(self, rpos: int) -> None:
         while self._spills and self._spills[0][0] <= rpos:
-            self._spills.pop(0)
+            _end, path = self._spills.pop(0)
+            _resdbg.note_release("channel_spill", (os.getpid(), path))
+            _chandbg.note_spill_release(self._witness_key(), path)
 
     # -------------------------------------------------------------- reader
 
@@ -363,7 +402,7 @@ class RingChannel:
                 if tail < _REC_HDR:
                     self._set_u64(_O_RPOS, rpos + tail)
                     continue
-                size, kind, seq, _clock, _crc = struct.unpack_from(
+                size, kind, seq, clock, crc = struct.unpack_from(
                     "<IIQQI", mm, _HDR + off)
                 if size == _WRAP:
                     self._set_u64(_O_RPOS, rpos + tail)
@@ -380,6 +419,11 @@ class RingChannel:
                 self._set_u64(_O_RPOS, new_rpos)
                 self._set_u64(_O_RSEQ, seq + 1)
                 self._read_seq = seq + 1
+                if _chandbg.enabled():
+                    _chandbg.note_cursor(self._witness_key(), "rpos",
+                                         new_rpos)
+                    _chandbg.note_consume(self._witness_key(), seq,
+                                          clock, crc, payload)
                 return kind, seq, payload
             if self._peer_closed("r"):
                 raise ChannelClosedError(
@@ -468,17 +512,29 @@ class RingChannel:
                     break
                 time.sleep(pause)
                 pause = min(pause * 2, 0.02)
+        if self._spills and self._role == "w" and _chandbg.enabled():
+            # A pin whose record the reader already dequeued but that
+            # never settled is the spill reclaim race: reclaiming it
+            # below would unlink a file _spill_in may open any instant.
+            try:
+                _chandbg.note_close(self._witness_key(),
+                                    self._u64(_O_RPOS))
+            except (ValueError, OSError):
+                pass
         for _end, path in self._spills:
             try:
                 os.unlink(path)
             except OSError:
                 pass
+            _resdbg.note_release("channel_spill", (os.getpid(), path))
+            _chandbg.note_spill_release(self._witness_key(), path)
         self._spills = []
         path, mm, self._mm = self._path, self._mm, None
         try:
             mm.close()
         except (ValueError, OSError):
             pass
+        _resdbg.note_release("channel_ring", (os.getpid(), id(self)))
         if unlink and path:
             try:
                 os.unlink(path)

@@ -353,6 +353,7 @@ def _channel_exchange(bundles, assignment_fn, num_outputs: int,
     from ray_tpu_torch.core.runtime_context import require_runtime
     from ray_tpu_torch.dag.channel import open_edge
     from ray_tpu_torch.data._queues import ChannelQueue
+    from ray_tpu_torch.devtools import res_debug
     from ray_tpu_torch.util import tracing
 
     rt = require_runtime()
@@ -370,6 +371,9 @@ def _channel_exchange(bundles, assignment_fn, num_outputs: int,
     reducers = [reducer_cls.options(num_cpus=0).remote()
                 for _ in range(n_red)]
     actors = mappers + reducers
+    res_keys = [res_debug.note_acquire("data_operator", owner=a,
+                                       note="exchange")
+                for a in actors]
     map_nodes = ray_tpu_torch.get([m.whereami.remote() for m in mappers],
                             timeout=60.0)
     red_nodes = ray_tpu_torch.get([r.whereami.remote() for r in reducers],
@@ -413,11 +417,12 @@ def _channel_exchange(bundles, assignment_fn, num_outputs: int,
                        for (b, _m), meta in zip(pairs, metas))
         return out
     finally:
-        for a in actors:
+        for a, key in zip(actors, res_keys):
             try:
                 ray_tpu_torch.kill(a)
             except Exception:  # rtpu-lint: disable=swallowed-exception — best-effort teardown
                 pass
+            res_debug.note_release("data_operator", key)
         for row in mesh:
             for q in row:
                 q.shutdown(unlink=True)

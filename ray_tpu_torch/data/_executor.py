@@ -51,6 +51,7 @@ from ray_tpu_torch.data._streaming import (ActorPoolMapOperator, ExecContext,
                                            MapStage, Operator, RefBundle,
                                            TaskPoolMapOperator, _apply_stages)
 from ray_tpu_torch.data.block import BlockMetadata
+from ray_tpu_torch.devtools import res_debug
 from ray_tpu_torch.util import tracing
 
 FRAME_BLK = 0
@@ -170,7 +171,7 @@ class _OperatorActor:
 
 class _Lane:
     __slots__ = ("actor", "in_q", "out_q", "run_ref", "pending",
-                 "respawns")
+                 "respawns", "res_key")
 
     def __init__(self, actor, in_q, out_q, run_ref):
         self.actor = actor
@@ -180,6 +181,7 @@ class _Lane:
         #: frames dispatched but not yet gathered: (index, ref, meta)
         self.pending: collections.deque = collections.deque()
         self.respawns = 0
+        self.res_key = res_debug.note_acquire("data_operator", owner=self)
 
 
 class ChannelMapStage(Operator):
@@ -242,6 +244,7 @@ class ChannelMapStage(Operator):
             pass
         lane.in_q.shutdown(unlink=unlink)
         lane.out_q.shutdown(unlink=unlink)
+        res_debug.note_release("data_operator", lane.res_key)
 
     def _respawn_lane(self, lanes: List[_Lane], i: int, rt,
                       node_addr: Dict[str, str]) -> None:

@@ -24,6 +24,8 @@ import collections
 import threading
 from typing import Any, Optional
 
+from ray_tpu_torch.devtools import res_debug
+
 from ray_tpu_torch.dag.channel import (ChannelClosedError, ChannelError,
                                        ChannelReader, ChannelTimeoutError,
                                        ChannelWriter)
@@ -50,6 +52,8 @@ class LocalQueue:
         self._cond = threading.Condition()
         self._stopped = False      # producer finished
         self._shutdown = False     # consumer gone: puts become no-ops
+        self._res_key = res_debug.note_acquire(
+            "data_queue", owner=self, note=f"local:{name}")
 
     def put(self, item: Any, timeout: Optional[float] = None) -> None:
         with self._cond:
@@ -92,6 +96,8 @@ class LocalQueue:
             self._shutdown = True
             self._items.clear()
             self._cond.notify_all()
+        res_debug.note_release("data_queue", self._res_key)
+        self._res_key = None
 
 
 class ChannelQueue:
@@ -113,9 +119,10 @@ class ChannelQueue:
         self.name = name
         self._writer: Optional[ChannelWriter] = None
         self._reader: Optional[ChannelReader] = None
+        self._res_key = None
 
     # -- pickling: the queue travels to the operator actor with its
-    # channel; the facades are per-process state.
+    # channel; facades and witness keys are per-process state.
     def __getstate__(self):
         return {"channel": self.channel, "name": self.name}
 
@@ -124,8 +131,13 @@ class ChannelQueue:
         self.name = state["name"]
         self._writer = None
         self._reader = None
+        self._res_key = None
 
     def _ensure_role(self, writer: bool):
+        if self._res_key is None:
+            self._res_key = res_debug.note_acquire(
+                "data_queue", owner=self,
+                note=f"chan:{self.name}:{'w' if writer else 'r'}")
         if writer:
             if self._reader is not None:
                 raise RuntimeError(f"queue {self.name!r} already a reader")
@@ -180,3 +192,5 @@ class ChannelQueue:
                     close()
         except (ChannelError, ChannelTimeoutError, OSError):
             pass
+        res_debug.note_release("data_queue", self._res_key)
+        self._res_key = None

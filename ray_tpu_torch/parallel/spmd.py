@@ -53,6 +53,7 @@ from torch.distributed.tensor import DTensor
 from torch.optim.optimizer import _get_scalar_dtype
 
 from ray_tpu_torch import resolve_device
+from ray_tpu_torch.devtools import cuda_debug
 from ray_tpu_torch.models import _tree, llama
 from ray_tpu_torch.models.quant import QuantTensor
 from ray_tpu_torch.parallel.collectives import all_reduce_, local_slice
@@ -523,7 +524,11 @@ def make_train_step(cfg: llama.LlamaConfig, tx: Optimizer, mesh=None
         return (TrainState(state.step + 1, state.params, opt),
                 dict(metrics, grad_norm=gnorm))
 
-    return step_fn
+    # Budget 1: a steady-state trainer runs ONE step signature — shape
+    # churn per step is the costliest silent bug a training loop has.
+    # The RTPU_DEBUG_CUDA witness reports it; off, the step is returned
+    # untouched.
+    return cuda_debug.wrap_program(step_fn, "spmd.train_step", budget=1)
 
 
 def make_eval_step(cfg: llama.LlamaConfig, mesh=None):
@@ -534,4 +539,4 @@ def make_eval_step(cfg: llama.LlamaConfig, mesh=None):
             _, metrics = llama.loss_fn(params, tokens, cfg, mesh=mesh)
         return metrics
 
-    return eval_fn
+    return cuda_debug.wrap_program(eval_fn, "spmd.eval_step", budget=1)

@@ -30,11 +30,13 @@ class ServeController:
         import ray_tpu_torch
 
         self._ray = ray_tpu_torch
-        self._lock = threading.RLock()
+        from ray_tpu_torch.devtools.lock_debug import make_lock, make_rlock
+
+        self._lock = make_rlock("serve.controller._lock")
         # Serializes whole reconcile passes: deploy() and the background
         # loop reconciling the same deployment concurrently would both
         # observe the deficit and double-create replicas.
-        self._reconcile_mutex = threading.Lock()
+        self._reconcile_mutex = make_lock("serve.controller._reconcile_mutex")
         # name -> {config..., replicas: [ActorHandle], version}
         self._deployments: Dict[str, Dict[str, Any]] = {}
         # Replica-SET versions + condvar: routers long-poll
@@ -63,7 +65,7 @@ class ServeController:
         # Serializes _ensure_proxies (user RPC vs reconcile loop): two
         # concurrent passes would each spawn a proxy for the same node and
         # the overwritten handle would leak its actor forever.
-        self._proxy_mutex = threading.Lock()
+        self._proxy_mutex = make_lock("serve.controller._proxy_mutex")
         self._wake = threading.Event()  # cuts the reconcile sleep short
         self._loop_thread = threading.Thread(
             target=self._reconcile_loop, daemon=True, name="serve-reconcile")

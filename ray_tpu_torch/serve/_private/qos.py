@@ -1,6 +1,8 @@
 """Per-tenant QoS: weighted fair queueing, token budgets, priorities
-(``ray_tpu/serve/_private/qos.py``, without the ``res_debug`` witness's
-tenant-lane ledger: ROADMAP.md, queue 1, item 8b).
+(``ray_tpu/serve/_private/qos.py``). Under ``RTPU_DEBUG_RES=1`` every
+lazily minted tenant lane is a ``qos_tenant`` entry of the resource
+witness, settled when the lane is reaped, pinned by ``configure`` or
+dropped with its deployment.
 
 Parity target: the reference Serve proxy has no tenant isolation — one
 flooding client saturates the shared admission path for everyone.
@@ -35,6 +37,8 @@ import collections
 import dataclasses
 import itertools
 from typing import Any, Deque, Dict, Optional
+
+from ray_tpu_torch.devtools import res_debug as _resdbg
 
 #: Requests with no tenant attribution share one bucket/queue under
 #: this id (single-tenant deployments behave exactly like the pre-QoS
@@ -144,9 +148,12 @@ class WFQQueue:
             t = self._tenants[tenant] = _Tenant(cfg, now, self._window)
             t.pinned = True  # operator-installed: never idle-reaped
             return
-        # A lazily-minted lane graduates to operator-owned: never
-        # idle-reaped from here on.
-        t.pinned = True
+        if not t.pinned:
+            # A lazily-minted lane graduates to operator-owned: it
+            # leaves the reap-eligible ledger (qos_tenant counts only
+            # lanes that MUST eventually be reaped or released).
+            t.pinned = True
+            _resdbg.note_release("qos_tenant", (id(self), tenant))
         t.cfg = cfg
         t.bucket = min(t.bucket, _Tenant._cap(cfg))
         t.refill(now)
@@ -165,6 +172,11 @@ class WFQQueue:
         if t is None:
             t = self._tenants[name] = _Tenant(self._default_cfg(), now,
                                               self._window)
+            # RTPU_DEBUG_RES: every lazily-minted lane must be settled
+            # by reap_idle (or pinned by configure) — the tenant-churn
+            # leak the res witness's balance assertion covers.
+            _resdbg.note_acquire("qos_tenant", key=(id(self), name),
+                                 owner=self, note="lazy_tenant")
         self._last_now = max(self._last_now, now)
         t.last_active = now
         return t
@@ -214,6 +226,7 @@ class WFQQueue:
                 and now - t.last_active > ttl]
         for name in dead:
             del self._tenants[name]
+            _resdbg.note_release("qos_tenant", (id(self), name))
         return len(dead)
 
     def head(self, now: float) -> Optional[_Ticket]:
@@ -282,8 +295,13 @@ class WFQQueue:
         self.tenant(tenant, now).shed += 1
 
     def close(self) -> None:
-        """Drop every lane when the owning deployment state is dropped
-        (AdmissionController.forget): teardown is a drain, not a leak."""
+        """Settle the witness ledger when the owning deployment state
+        is dropped (AdmissionController.forget): every still-live
+        lazily-minted lane is released deliberately — teardown is a
+        drain, not a leak."""
+        for name, t in self._tenants.items():
+            if not t.pinned:
+                _resdbg.note_release("qos_tenant", (id(self), name))
         self._tenants.clear()
 
     def idle(self) -> bool:

@@ -1,6 +1,7 @@
 """Replica actor: hosts one copy of a deployment's user callable
-(``ray_tpu/serve/_private/replica.py``, without the stream-slot witness:
-ROADMAP.md, queue 1, item 8b).
+(``ray_tpu/serve/_private/replica.py``). Under ``RTPU_DEBUG_RES=1`` every
+open stream cursor slot is a ``serve_stream`` entry of the resource
+witness, settled on completion, error, cancel or the TTL reaper.
 
 Parity target: reference python/ray/serve/_private/replica.py (ReplicaActor
 :883, UserCallableWrapper :1125) — constructs the user class once, serves
@@ -18,6 +19,8 @@ import threading
 import time
 import uuid
 from typing import Any, Dict, Optional, Tuple
+
+from ray_tpu_torch.devtools import res_debug as _resdbg
 
 _logger = logging.getLogger(__name__)
 
@@ -38,7 +41,9 @@ class ReplicaActor:
         self._callable = cls(*init_args, **init_kwargs)
         self._ongoing = 0
         self._total = 0
-        self._lock = threading.Lock()
+        from ray_tpu_torch.devtools.lock_debug import make_lock
+
+        self._lock = make_lock("serve.replica._lock")
         self._started = time.time()
         # Live response streams: stream_id -> [queue, cancelled_event,
         # last_poll_monotonic] (a drain thread pulls the user generator so
@@ -111,6 +116,11 @@ class ReplicaActor:
         buf: "_queue_mod.Queue" = _queue_mod.Queue()
         cancelled = threading.Event()
         self._streams[sid] = [buf, cancelled, time.monotonic()]
+        # RTPU_DEBUG_RES: every open cursor slot must be settled by
+        # completion, error, cancel, or the TTL reaper — the balance
+        # the leak witness asserts after a stream-cancel loop.
+        _resdbg.note_acquire("serve_stream", key=(id(self), sid),
+                             owner=self, note="stream_open")
         ctx = context or {}
 
         def drain():
@@ -167,6 +177,12 @@ class ReplicaActor:
 
     _STREAM_TTL_S = 600.0
 
+    def _settle_stream(self, sid: str) -> None:
+        """Settle the witness ledger at every cursor-slot drop site
+        (done / error / cancel / TTL reap). Idempotent — re-entered
+        release paths must never turn into a false report."""
+        _resdbg.note_release("serve_stream", (id(self), sid))
+
     def _reap_stale_streams(self) -> None:
         now = time.monotonic()
         for sid, entry in list(self._streams.items()):
@@ -174,6 +190,7 @@ class ReplicaActor:
                 entry[1].set()
                 self._streams.pop(sid, None)
                 self._stream_errors.pop(sid, None)
+                self._settle_stream(sid)
 
     def next_chunks(self, sid: str, max_items: int = 64,
                     wait_s: float = 10.0) -> Tuple[list, bool]:
@@ -182,6 +199,7 @@ class ReplicaActor:
         pending_err = self._stream_errors.pop(sid, None)
         if pending_err is not None:
             self._streams.pop(sid, None)
+            self._settle_stream(sid)
             raise pending_err
         entry = self._streams.get(sid)
         if entry is None:
@@ -198,6 +216,7 @@ class ReplicaActor:
                 items.append(val)
             elif kind == "done":
                 self._streams.pop(sid, None)
+                self._settle_stream(sid)
                 return items, True
             else:
                 if items:
@@ -206,6 +225,7 @@ class ReplicaActor:
                     self._stream_errors[sid] = val
                     return items, False
                 self._streams.pop(sid, None)
+                self._settle_stream(sid)
                 raise val
             if len(items) >= max_items:
                 return items, False
@@ -220,6 +240,7 @@ class ReplicaActor:
         if entry is None:
             return False
         entry[1].set()  # the drain thread stops pulling the generator
+        self._settle_stream(sid)
         return True
 
     def queue_len(self) -> int:

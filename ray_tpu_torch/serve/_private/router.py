@@ -54,7 +54,9 @@ class Router:
         # for the config weights, keys prefix/queue/kv/ttft. None =
         # config weights exactly (the default, byte-identical scores).
         self._weights = dict(score_weights) if score_weights else None
-        self._lock = threading.Lock()
+        from ray_tpu_torch.devtools.lock_debug import make_lock
+
+        self._lock = make_lock("serve.router._lock")
         self._replicas: List[Any] = []
         self._version = -1
         self._load_gen = -1

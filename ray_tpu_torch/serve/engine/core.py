@@ -26,8 +26,15 @@ Tracing spans (``engine.queued``, ``engine.prefill``,
 ``engine.preempt_park``/``_resume``) are emitted only for a request
 submitted under a trace context; with tracing off the tick reads no extra
 clock and adds no sync. Each decode tick appends one flight-recorder
-event. ``ray_tpu``'s debug witnesses (resources, jax) are not carried over
-(ROADMAP.md, queue 1, item 8b).
+event.
+
+The debug witnesses (``devtools/``) hook in here as in ``ray_tpu``: under
+``RTPU_DEBUG_RES=1`` the engine's threads, speculation reservations,
+parked requests and in-flight fleet pages are balanced at ``close``;
+under ``RTPU_DEBUG_CUDA=1`` the loop's programs count their signatures,
+``_to_host`` counts each fetch per tag, and with
+``RTPU_DEBUG_CUDA_SYNC=error`` every tick runs under the sync guard, which
+only the counted fetch and the explicit puts pass.
 """
 
 from __future__ import annotations
@@ -44,9 +51,12 @@ import numpy as np
 import torch
 
 from ray_tpu_torch import resolve_device
+from ray_tpu_torch.core.config import GLOBAL_CONFIG as _cfg
+from ray_tpu_torch.devtools import cuda_debug
+from ray_tpu_torch.devtools import res_debug as _resdbg
 from ray_tpu_torch.models import llama, quant
 from ray_tpu_torch.serve.engine import kv_fleet
-from ray_tpu_torch.serve.engine.decode_loop import DecodeLoop
+from ray_tpu_torch.serve.engine.decode_loop import DecodeLoop, to_card
 from ray_tpu_torch.serve.engine.drafter import PromptLookupDrafter, SpecControl
 from ray_tpu_torch.serve.engine.kv_manager import KVCacheManager, chain_hashes
 from ray_tpu_torch.serve.engine.metrics import (SERVE_TTFT_BREAKDOWN_MS,
@@ -170,7 +180,7 @@ class InferenceEngine:
         self.spec_adaptive = bool(spec_adaptive)
         self.drafter = (PromptLookupDrafter(ngram_max=spec_ngram_max)
                         if self.spec_draft_len else None)
-        gate = (kv_fleet.MIN_PREFIX_BLOCKS
+        gate = (_cfg.serve_kv_fleet_min_prefix_blocks
                 if kv_fleet_min_prefix_blocks is None
                 else kv_fleet_min_prefix_blocks)
         self._fleet_min_blocks = gate
@@ -182,7 +192,8 @@ class InferenceEngine:
                                chunk=self.decode_chunk,
                                spec_window=self.spec_draft_len + 1,
                                spec_chunk=spec_chunk,
-                               kv_page=prefix_block if transfer else 0)
+                               kv_page=prefix_block if transfer else 0,
+                               prefill_budget=len(self.buckets))
         # Verify windows span spec_draft_len+1 rows: the scratch strip past
         # max_len takes parked and overrunning window writes (row
         # accounting everywhere else uses the logical max_len).
@@ -240,8 +251,9 @@ class InferenceEngine:
             # Packing and store puts run off the engine thread, which only
             # exports (device work stays on its thread).
             self._spill_q: "queue.Queue" = queue.Queue()
-            self._spill_thread = threading.Thread(
-                target=self._spill_loop, daemon=True, name="llm-kv-spill")
+            self._spill_thread = _resdbg.track_thread(
+                threading.Thread(target=self._spill_loop, daemon=True,
+                                 name="llm-kv-spill"), owner=self)
             self._spill_thread.start()
 
         # Admissions whose prefill has not landed yet, and the multi-step
@@ -260,8 +272,9 @@ class InferenceEngine:
         self._install_queue: "queue.Queue" = queue.Queue()
         self._install_waiting: List[tuple] = []
         self._shutdown = False
-        self._thread = threading.Thread(target=self._engine_loop,
-                                        daemon=True, name="llm-engine")
+        self._thread = _resdbg.track_thread(
+            threading.Thread(target=self._engine_loop, daemon=True,
+                             name="llm-engine"), owner=self)
         self._thread.start()
 
     # ------------------------------------------------------------- public
@@ -396,6 +409,9 @@ class InferenceEngine:
                "dispatches": dict(self.loop.dispatches)}
         if self.quantize is not None:
             out["weight_bytes"], out["weight_bytes_f32"] = self._weight_bytes
+        programs = self.loop.program_counts()
+        if programs:  # RTPU_DEBUG_CUDA signature witness is on
+            out["compiled_programs"] = programs
         out.update(self.kv.stats())
         out.update(self.metrics.snapshot())
         if self._fleet is not None:
@@ -432,7 +448,7 @@ class InferenceEngine:
             "ewma_ttft_ms": m["ttft_ms_ewma"],
             "prefix_block_size": self.kv.block_size,
             "prefix_hashes": self.kv.resident_hashes(
-                kv_fleet.SNAPSHOT_PREFIX_HASHES),
+                _cfg.serve_snapshot_prefix_hashes),
         }
         if self._fleet is not None:
             with self._fleet_lock:
@@ -447,8 +463,21 @@ class InferenceEngine:
         if (self._thread.is_alive()
                 and self._thread is not threading.current_thread()):
             self._thread.join(timeout=60.0)
-        # Requests still parked at close never resume.
+        # RTPU_DEBUG_RES balance assertion: no in-flight KV speculation
+        # reservation may outlive the engine (commit_speculation or the
+        # slot's release settles each one), and the engine thread must
+        # have exited by the join above. Reports, never raises; witness
+        # off = one env read.
+        _resdbg.check_balanced("engine.close", kinds=("kv_spec",),
+                               owner=self.kv)
+        # Requests still parked at close never resume: settle their pins
+        # deliberately (teardown mid-workload is a drain, not a leak),
+        # then assert nothing else is left outstanding.
+        for req in self._parked:
+            _resdbg.note_release("parked_kv", (id(self), id(req)))
         self._parked.clear()
+        _resdbg.check_balanced("engine.close", kinds=("parked_kv",),
+                               owner=self)
         if self._fleet is not None:
             # Drain the spill worker after the engine thread, its only
             # producer, is gone: every exported page lands in the store.
@@ -457,6 +486,11 @@ class InferenceEngine:
                     and self._spill_thread
                     is not threading.current_thread()):
                 self._spill_thread.join(timeout=30.0)
+            _resdbg.check_balanced("engine.close", kinds=("kv_page_obj",),
+                                   owner=self)
+        if self._thread is not threading.current_thread():
+            _resdbg.check_balanced("engine.close", kinds=("thread",),
+                                   owner=self)
 
     # ------------------------------------------------------------- engine
 
@@ -465,14 +499,17 @@ class InferenceEngine:
         per tag: one per prefill admission, one per fetched chunk, one
         per batch of exported pages."""
         self.host_syncs[tag] += 1
-        return t.cpu()
+        cuda_debug.note_host_sync(f"engine.{tag}")
+        with cuda_debug.allow_sync():
+            return t.cpu()
 
     def _fetch(self, t: torch.Tensor, tag: str) -> np.ndarray:
         return self._to_host(t, tag).numpy()
 
     def _put(self, value: np.ndarray) -> torch.Tensor:
-        """Explicit host->device placement of dispatch inputs."""
-        return torch.from_numpy(value).to(self.device)
+        """Explicit host->device placement of dispatch inputs; on a card
+        it never waits for the card (``to_card``)."""
+        return to_card(torch.from_numpy(value), self.device)
 
     def _admit(self) -> None:
         """Match waiting requests to free slots; each admission becomes a
@@ -539,6 +576,11 @@ class InferenceEngine:
         t0w = time.time() if traced else 0.0
         self.scheduler.preempt(victim)
         self._parked.append(victim)
+        # RTPU_DEBUG_RES: a parked session pins scheduler + KV residency
+        # until it resumes (or the engine closes) — an entry left behind
+        # by a resume/close path is exactly the leak the witness flags.
+        _resdbg.note_acquire("parked_kv", key=(id(self), id(victim)),
+                             owner=self, note="preempt_park")
         self._preempts += 1
         if traced:
             _tracing.emit_span(
@@ -567,6 +609,7 @@ class InferenceEngine:
             resumed.append(req)
         for req in resumed:
             self._parked.remove(req)
+            _resdbg.note_release("parked_kv", (id(self), id(req)))
 
     def _resume_one(self, orig: EngineRequest) -> None:
         """Resume a parked request as a CONTINUATION: a fresh request whose
@@ -772,10 +815,15 @@ class InferenceEngine:
         t0w = time.time() if traced else 0.0
         pages_k, pages_v, crcs = self.export_pages(
             slot, [i * P for i, _ in todo], tag="kv_spill")
-        self._spill_q.put([
-            (oid, tuple(resident[i * P:(i + 1) * P]), tuple(chain[:i + 1]),
-             k, v, crc)
-            for (i, oid), k, v, crc in zip(todo, pages_k, pages_v, crcs)])
+        jobs = []
+        for (i, oid), k, v, crc in zip(todo, pages_k, pages_v, crcs):
+            # RTPU_DEBUG_RES: a page exported off the card but not yet in
+            # the store is a tier transition in flight.
+            key = _resdbg.note_acquire("kv_page_obj", owner=self,
+                                       note=f"spill block {i}")
+            jobs.append((oid, tuple(resident[i * P:(i + 1) * P]),
+                         tuple(chain[:i + 1]), k, v, crc, key))
+        self._spill_q.put(jobs)
         if traced:
             _tracing.emit_span("engine.kv_spill", t0w, time.time(),
                                parent=req.trace_ctx,
@@ -788,7 +836,7 @@ class InferenceEngine:
             jobs = self._spill_q.get()
             if jobs is None:
                 return
-            for oid, toks, ch, k, v, crc in jobs:
+            for oid, toks, ch, k, v, crc, key in jobs:
                 try:
                     payload = kv_fleet.pack_page(toks, ch, k, v, crc)
                     if self._fleet.put(oid, payload):
@@ -799,6 +847,8 @@ class InferenceEngine:
                 except Exception:  # noqa: BLE001 — a failed put is a
                     # skipped optimization, never a veto
                     pass
+                finally:
+                    _resdbg.note_release("kv_page_obj", key)
 
     def _fleet_extend(self, adm) -> None:
         """Fleet lookup on a (partial) prefix-cache miss: walk the prompt's
@@ -852,17 +902,26 @@ class InferenceEngine:
             return
         # Verified depth by depth, installed as ONE run stacked along the
         # row axis: one install a run instead of one a block.
-        k_run = torch.cat([p["k_page"] for p in payloads[:run]], dim=2)
-        v_run = torch.cat([p["v_page"] for p in payloads[:run]], dim=2)
-        self.cache = self.loop.install_page(self.cache, k_run, v_run,
-                                            adm.slot, d0 * P)
-        new_cached = adm.cached_len + run * P
-        self.kv.commit_prefill(adm.slot, req.prompt_ids[:new_cached])
-        if list(self.kv.slot_chain(adm.slot)) != [
-                int(h) for h in want[:d0 + run]]:
-            raise RuntimeError(
-                "KV chain mismatch after fleet install: the slot's block "
-                "hashes disagree with the pulled prefix's")
+        # RTPU_DEBUG_RES: each pulled page is in flight until installed
+        # or rejected.
+        keys = [_resdbg.note_acquire("kv_page_obj", owner=self,
+                                     note="fleet pull")
+                for _ in range(run)]
+        try:
+            k_run = torch.cat([p["k_page"] for p in payloads[:run]], dim=2)
+            v_run = torch.cat([p["v_page"] for p in payloads[:run]], dim=2)
+            self.cache = self.loop.install_page(self.cache, k_run, v_run,
+                                                adm.slot, d0 * P)
+            new_cached = adm.cached_len + run * P
+            self.kv.commit_prefill(adm.slot, req.prompt_ids[:new_cached])
+            if list(self.kv.slot_chain(adm.slot)) != [
+                    int(h) for h in want[:d0 + run]]:
+                raise RuntimeError(
+                    "KV chain mismatch after fleet install: the slot's "
+                    "block hashes disagree with the pulled prefix's")
+        finally:
+            for key in keys:
+                _resdbg.note_release("kv_page_obj", key)
         adm.cached_len = new_cached
         req.cached_len = new_cached
         suffix = plen - new_cached
@@ -884,7 +943,7 @@ class InferenceEngine:
     def _note_fleet_hash(self, h: int) -> None:
         """Record a chain hash this engine can serve from the tier (spilled
         or pulled): the capped newest-first summary of load_snapshot."""
-        cap = max(1, kv_fleet.SNAPSHOT_FLEET_HASHES)
+        cap = max(1, _cfg.serve_snapshot_fleet_hashes)
         with self._fleet_lock:
             if h not in self._fleet_recent:
                 self._fleet_block_count += 1
@@ -1377,10 +1436,16 @@ class InferenceEngine:
                     self._fail_in_flight(e)
 
     def _tick(self) -> None:
-        self._admit()
-        if self.role == "decode":
-            self._install_tick()
-        self._prefill_tick()
+        # tick_guard is a null context unless RTPU_DEBUG_CUDA=1 and
+        # RTPU_DEBUG_CUDA_SYNC are set and the engine runs on a card;
+        # then the tick's device work runs under the sync guard: anything
+        # that makes the host wait on the card raises, except the counted
+        # fetch (``_to_host``).
+        with cuda_debug.tick_guard(self.device):
+            self._admit()
+            if self.role == "decode":
+                self._install_tick()
+            self._prefill_tick()
         self.metrics.record_depths(self.scheduler.queue_depth(),
                                    len(self.scheduler.active),
                                    self.kv.hit_rate())
@@ -1400,7 +1465,8 @@ class InferenceEngine:
             except queue.Empty:
                 pass
             return
-        self._decode_tick()
+        with cuda_debug.tick_guard(self.device):
+            self._decode_tick()
 
     def _fail_in_flight(self, e: BaseException) -> None:
         """Fail the roster, every admission still prefilling, every queued

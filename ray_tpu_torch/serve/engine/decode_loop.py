@@ -51,7 +51,23 @@ from typing import Dict
 
 import torch
 
+from ray_tpu_torch.devtools import cuda_debug
 from ray_tpu_torch.models import llama
+
+#: The loop's device programs, in the order ``program_counts`` lists them.
+PROGRAMS = ("prefill", "decode_chunk", "decode_step", "verify_chunk",
+            "export_page", "install_page")
+
+
+def to_card(t: torch.Tensor, device) -> torch.Tensor:
+    """Host->device copy that never makes the host wait for the card: a
+    CPU tensor bound for a card is staged in pinned memory and copied
+    without blocking (a pageable copy synchronizes the stream, which
+    stalls the engine behind the chunk it just queued). Anything else is
+    ``t.to(device)``."""
+    if t.device.type == "cpu" and torch.device(device).type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
 
 
 class DecodeLoop:
@@ -59,7 +75,8 @@ class DecodeLoop:
 
     def __init__(self, cfg: llama.LlamaConfig, params: llama.Params, *,
                  max_len: int, chunk: int = 8, spec_window: int = 1,
-                 spec_chunk: int = 0, kv_page: int = 0):
+                 spec_chunk: int = 0, kv_page: int = 0,
+                 prefill_budget: int = 0):
         self.cfg = cfg
         self.params = params
         self.layers = llama.layer_views(params)
@@ -78,6 +95,38 @@ class DecodeLoop:
         self.dispatches = {"prefill": 0, "decode": 0, "verify": 0}
         if self.kv_page:
             self.dispatches.update(export_page=0, install_page=0)
+        # Declared prefill signatures (one a prompt bucket; 0 = count
+        # only) for the RTPU_DEBUG_CUDA signature witness.
+        self.prefill_budget = max(0, int(prefill_budget))
+        self._witness()
+
+    def _witness(self) -> None:
+        """Under RTPU_DEBUG_CUDA=1, wrap every device program in the
+        signature witness with its DECLARED steady-state budget: one
+        decode chunk signature (+ one verify signature when speculation
+        is on), at most one prefill signature per prompt bucket. Off,
+        nothing is wrapped: the methods are the class's own."""
+        if not cuda_debug.enabled():
+            return
+        budgets = {"prefill": self.prefill_budget or None,
+                   "decode_chunk": 1, "decode_step": 1}
+        if self.spec_window > 1:
+            budgets["verify_chunk"] = 1
+        if self.kv_page:
+            budgets.update(export_page=1, install_page=1)
+        for name, budget in budgets.items():
+            setattr(self, name, cuda_debug.wrap_program(
+                getattr(self, name), f"decode_loop.{name}", budget=budget))
+
+    def program_counts(self) -> dict:
+        """{program name: distinct signatures} when the RTPU_DEBUG_CUDA
+        witness wrapped this loop; {} otherwise."""
+        out = {}
+        for name in PROGRAMS:
+            fn = self.__dict__.get(name)
+            if isinstance(fn, cuda_debug.ProgramWitness):
+                out[name] = fn.program_count
+        return out
 
     @property
     def scratch_rows(self) -> int:
@@ -132,7 +181,10 @@ class DecodeLoop:
         tok, ln, rem, dn = tokens, lengths, remaining, done
         emitted, was_done = [], []
         for _ in range(self.chunk):
-            nxt, cache = self.decode_step(cache, tok, ln)
+            # The class's step, not the instance's: a witnessed
+            # decode_step counts standalone steps only, as ray_tpu's
+            # chunk program does not run its step program.
+            nxt, cache = DecodeLoop.decode_step(self, cache, tok, ln)
             emit = torch.where(dn, tok[:, 0], nxt)
             ln = torch.where(dn, ln, ln + 1)
             rem = torch.where(dn, rem, rem - 1)
@@ -273,5 +325,5 @@ class DecodeLoop:
         self.dispatches["install_page"] += 1
         for key, page in (("k", k_page), ("v", v_page)):
             dst = cache[key][:, slot, :, start:start + rows]
-            dst.copy_(page.to(device=dst.device, dtype=dst.dtype))
+            dst.copy_(to_card(page, dst.device).to(dst.dtype))
         return cache

@@ -29,7 +29,7 @@ picks the cluster one when a cluster runtime is attached.
 Differences from ``ray_tpu``: ``page_object_id`` returns the 28 bytes of
 ``ray_tpu.core.ids.ObjectID``'s binary, and the stores key on them (the
 cluster store wraps them in the port's own ``ObjectID``);
-``GLOBAL_CONFIG``'s defaults are the module constants below.
+the fleet defaults are flags of the port's own ``core.config``.
 """
 
 from __future__ import annotations
@@ -44,16 +44,6 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
-
-# ray_tpu/core/config.py's defaults.
-#: Minimum contiguous pullable prefix in blocks (-1 = tier off).
-MIN_PREFIX_BLOCKS = -1
-#: Byte cap of the process-local page store.
-LOCAL_BYTES = 256 << 20
-#: Recently spilled/pulled chain hashes a load snapshot carries.
-SNAPSHOT_FLEET_HASHES = 32
-#: Resident prefix chain hashes a load snapshot carries.
-SNAPSHOT_PREFIX_HASHES = 256
 
 # ray_tpu.core.ids._FLAG_PUT: a page id presents as an ordinary put-object.
 _PUT_FLAGS = struct.pack("<I", 0x1)
@@ -171,8 +161,11 @@ class LocalKVPageStore:
     may share one instance (the node-local tier without a cluster)."""
 
     def __init__(self, capacity_bytes: Optional[int] = None):
-        self.capacity_bytes = int(LOCAL_BYTES if capacity_bytes is None
-                                  else capacity_bytes)
+        if capacity_bytes is None:
+            from ray_tpu_torch.core.config import GLOBAL_CONFIG as cfg
+
+            capacity_bytes = cfg.serve_kv_fleet_local_bytes
+        self.capacity_bytes = int(capacity_bytes)
         self._lock = threading.Lock()
         self._objs: "OrderedDict[bytes, bytes]" = OrderedDict()
         self._bytes = 0

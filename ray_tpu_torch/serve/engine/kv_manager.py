@@ -21,14 +21,17 @@ Pure host-side bookkeeping: unit-testable without a model, and the
 scheduler consults it for admission.
 
 A copy of ``ray_tpu/serve/engine/kv_manager.py`` (the port keeps its own
-copies of ``ray_tpu``'s framework-free modules) without the
-``RTPU_DEBUG_RES`` resource-witness hooks.
+copies of ``ray_tpu``'s framework-free modules); under ``RTPU_DEBUG_RES=1``
+every speculation reservation is a ``kv_spec`` entry of the resource
+witness.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from typing import Dict, List, Optional, Sequence, Set, Tuple
+
+from ray_tpu_torch.devtools import res_debug as _resdbg
 
 
 def _ceil_div(a: int, b: int) -> int:
@@ -266,6 +269,9 @@ class KVCacheManager:
             raise ValueError(f"slot {slot} already has an in-flight "
                              "speculation")
         info.spec_rows = max(0, rows)
+        # RTPU_DEBUG_RES: a reservation is an acquisition — it must be
+        # settled by commit_speculation or die with the slot (release).
+        _resdbg.note_acquire("kv_spec", key=(id(self), slot), owner=self)
 
     def commit_speculation(self, slot: int, accepted_rows: int) -> None:
         """Resolve a reservation: ``accepted_rows`` rows were verified
@@ -280,6 +286,7 @@ class KVCacheManager:
                 f"{info.spec_rows}-row reservation")
         info.length += accepted_rows
         info.spec_rows = 0
+        _resdbg.note_release("kv_spec", (id(self), slot))
 
     def release(self, slot: int,
                 resident_tokens: Optional[Sequence[int]] = None) -> None:
@@ -295,6 +302,7 @@ class KVCacheManager:
         info.length = 0
         info.spec_rows = 0  # a pending reservation dies with the slot
         #                     (device-failure path releases mid-flight)
+        _resdbg.note_release("kv_spec", (id(self), slot))
         info.pending_chain = ()
         info.resident = tuple(resident_tokens or ())
         info.chain = tuple(self._chain(info.resident))

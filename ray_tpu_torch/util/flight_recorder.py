@@ -1,7 +1,8 @@
 """Always-on, lock-cheap per-process flight recorder
-(``ray_tpu/util/flight_recorder.py``, without the debug witnesses' stats
-in a dump and without the chaos harness's dump before a planned kill:
-ROADMAP.md, queue 1, item 8b).
+(``ray_tpu/util/flight_recorder.py``). A dump carries the debug
+witnesses' per-process stats (``"rpc_debug"``, ``"res_debug"`` and
+``"chan_debug"`` keys, each only with its flag on), and the chaos harness
+dumps the ring just before a planned kill (``devtools/chaos.py``).
 
 Parity target: the reference's in-memory event recorders (the GCS/raylet
 debug-state dumps plus RAY_event ring buffers) redesigned as one tiny
@@ -119,6 +120,23 @@ def dump_payload(clock_offset_s: Optional[float] = None) -> Dict[str, Any]:
                            else _clock_offset_s),
         "events": snapshot(),
     }
+    # The witnesses' stats ride the flight dump: it is the one channel
+    # every process (head/node/worker) already serves, so a driver can
+    # aggregate cluster-wide audit coverage, leak and violation counts
+    # without a new RPC surface.
+    from ray_tpu_torch.devtools import chan_debug as _chandbg
+    from ray_tpu_torch.devtools import res_debug as _resdbg
+    from ray_tpu_torch.devtools import rpc_debug as _rpcdbg
+
+    if _rpcdbg.enabled():
+        payload["rpc_debug"] = {
+            "violations": len(_rpcdbg.violations()),
+            "dup_audits": sum(_rpcdbg.dup_audit_counts().values()),
+        }
+    if _resdbg.enabled():
+        payload["res_debug"] = _resdbg.dump_payload()
+    if _chandbg.enabled():
+        payload["chan_debug"] = _chandbg.dump_payload()
     return payload
 
 

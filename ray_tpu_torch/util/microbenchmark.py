@@ -15,7 +15,10 @@ are Ray's published numbers from CPU hosts (AWS m5-class nodes): every
 row here runs on the host's CPUs and its shm store, none on a card, and
 neither side of the ratio is a number of a GPU. ``--quick`` takes 0.5 s a
 row and batches of 250, as ``ray_tpu``'s does. ``main`` runs on the
-runtime the caller already started, if any, and leaves it up.
+runtime the caller already started, if any, and leaves it up; that
+runtime's store must hold the put rows' 800 MB object in one sub-arena,
+or ``main`` raises before the first row. The runtime ``main`` starts
+itself has such a store (``STORE_BYTES`` in ``STORE_SHARDS`` shards).
 
 Rows not implemented here and why:
 - Ray Client get/put calls: no Ray-Client-equivalent tier (the framework
@@ -97,6 +100,35 @@ def _host_memcpy_gbps() -> float:
     return best
 
 
+#: The put rows' object: np.zeros(100M int64), the reference's 800 MB.
+PUT_BYTES = 100 * 1024 * 1024 * 8
+#: The store ``main`` starts: the default 2 GiB in two 1 GiB sub-arenas,
+#: so the put rows' object fits one (at the default eight shards a
+#: sub-arena holds 256 MiB).
+STORE_BYTES = 2 << 30
+STORE_SHARDS = 2
+
+
+def check_store_fits() -> None:
+    """Raise, naming the sizes, when the caller's runtime cannot hold the
+    put rows' object in one store sub-arena (the in-process runtime has
+    no such store and always fits)."""
+    from ray_tpu_torch.core.runtime_context import get_runtime
+
+    store = getattr(get_runtime(), "store", None)
+    limit = getattr(store, "max_object_bytes", None)
+    # The object's header and alignment ride along with its buffer.
+    need = PUT_BYTES + (1 << 20)
+    if limit is not None and limit < need:
+        raise RuntimeError(
+            f"the put rows put one {PUT_BYTES}-byte object, and this "
+            f"runtime's largest store sub-arena holds {limit} bytes "
+            f"({getattr(store, 'n_shards', '?')} shards): start the "
+            f"runtime with object_store_memory and object_store_shards "
+            f"that give a sub-arena of at least {need} bytes, or let "
+            f"main start its own runtime")
+
+
 def main(argv: List[str] = None) -> Dict[str, float]:
     parser = argparse.ArgumentParser()
     parser.add_argument("--out", default=None, help="write PERF json here")
@@ -115,8 +147,13 @@ def main(argv: List[str] = None) -> Dict[str, float]:
     # reference benchmark and here, so actor gangs fit any pool size.
     n_cpus = max(2, os.cpu_count() or 1)
     started = not ray_tpu_torch.is_initialized()
-    ray_tpu_torch.init(num_cpus=n_cpus, ignore_reinit_error=True,
-                       _system_config={"object_store_prefault": True})
+    if started:
+        ray_tpu_torch.init(num_cpus=n_cpus, object_store_memory=STORE_BYTES,
+                           _system_config={"object_store_prefault": True,
+                                           "object_store_shards":
+                                               STORE_SHARDS})
+    else:
+        check_store_fits()
     try:
         return _run(args, min_s)
     finally:

@@ -1696,3 +1696,63 @@ def test_workflow_bf16_cuda_tensor_resumes_onto_the_card(card_cluster,
         assert got.is_cuda and got.dtype == torch.bfloat16
         assert torch.equal(got.view(torch.int16), want.view(torch.int16))
     assert done and marker.read_text().count("ran") == 1
+
+
+def _witness_engine(monkeypatch, flags):
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.serve.engine.core import InferenceEngine
+
+    for k in ("RTPU_DEBUG_CUDA", "RTPU_DEBUG_CUDA_SYNC", "RTPU_DEBUG_RES"):
+        monkeypatch.delenv(k, raising=False)
+    for k, v in flags.items():
+        monkeypatch.setenv(k, v)
+    cfg = llama.tiny_config(max_seq_len=256)
+    return InferenceEngine(cfg, max_batch=2, max_len=128,
+                           prompt_buckets=[16, 32], decode_chunk=4,
+                           device="cuda")
+
+
+def test_tick_guard_raises_on_a_planted_sync_and_passes_the_fetch(
+        card, monkeypatch):
+    """Under RTPU_DEBUG_CUDA_SYNC=error a clean engine serves with every
+    tick guarded (its counted fetches pass), and an ``.item()`` planted
+    in the decode tick raises there, failing that tick's request."""
+    from ray_tpu_torch.devtools import cuda_debug
+
+    eng = _witness_engine(monkeypatch, {"RTPU_DEBUG_CUDA": "1",
+                                        "RTPU_DEBUG_CUDA_SYNC": "error"})
+    cuda_debug.reset()
+    try:
+        out = eng.generate([5, 6, 7], max_new_tokens=8, timeout=120)
+        assert out["num_generated"] == 8
+        syncs = cuda_debug.host_sync_counts()
+        assert syncs["engine.decode"] == eng.stats()["decode_host_syncs"]
+        tick = eng._decode_tick
+
+        def planted():
+            torch.ones(1, device="cuda").sum().item()  # an uncounted sync
+            tick()
+
+        eng._decode_tick = planted
+        with pytest.raises(Exception, match="synchroniz"):
+            eng.generate([5, 6, 7, 8], max_new_tokens=8, timeout=120)
+    finally:
+        eng.close()
+        cuda_debug.reset()
+    assert torch.cuda.get_sync_debug_mode() == 0
+
+
+def test_flag_off_engine_programs_are_the_unwrapped_methods(card,
+                                                           monkeypatch):
+    from ray_tpu_torch.serve.engine.decode_loop import PROGRAMS, DecodeLoop
+
+    eng = _witness_engine(monkeypatch, {})
+    try:
+        assert eng.loop.program_counts() == {}
+        for name in PROGRAMS:
+            assert name not in eng.loop.__dict__, name
+        assert eng.loop.decode_chunk.__func__ is DecodeLoop.decode_chunk
+        assert eng.generate([5, 6, 7], max_new_tokens=4,
+                            timeout=120)["num_generated"] == 4
+    finally:
+        eng.close()

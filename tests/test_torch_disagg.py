@@ -406,3 +406,26 @@ def test_engine_fault_fails_queued_and_waiting_installs(tiny, jax_ref):
         pre.close()
         dec.close()
     assert out["token_ids"] == jax_ref(PROMPTS[0], 8)
+
+
+def test_disagg_engines_close_balanced(tiny, monkeypatch):
+    """``ray_tpu``'s case of the same name: under RTPU_DEBUG_RES a full
+    prefill -> handoff -> install -> decode round leaves no outstanding
+    reservation on either engine, and neither close reports."""
+    from ray_tpu_torch.devtools import res_debug
+
+    monkeypatch.setenv("RTPU_DEBUG_RES", "1")
+    res_debug.reset()
+    try:
+        pre, dec = _pair(tiny)
+        try:
+            h = pre.prefill_remote(PROMPTS[1], max_new_tokens=8, timeout=60)
+            assert dec.install_remote(h, timeout=60)["num_generated"] == 8
+        finally:
+            pre.close()
+            dec.close()
+        assert res_debug.violations() == []
+        assert res_debug.outstanding("kv_spec").get("kv_spec", 0) == 0
+        assert res_debug.outstanding("thread") == {}
+    finally:
+        res_debug.reset()

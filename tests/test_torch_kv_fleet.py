@@ -191,13 +191,13 @@ def test_resolve_store_and_defaults():
     assert kv_fleet.resolve_store() is kv_fleet.local_store()
     assert kv_fleet.local_store().capacity_bytes == 256 << 20
     from ray_tpu.core.config import GLOBAL_CONFIG as cfg
+    from ray_tpu_torch.core.config import GLOBAL_CONFIG as port_cfg
 
-    assert kv_fleet.LOCAL_BYTES == cfg.serve_kv_fleet_local_bytes
-    assert kv_fleet.MIN_PREFIX_BLOCKS == \
-        cfg.serve_kv_fleet_min_prefix_blocks
-    assert kv_fleet.SNAPSHOT_FLEET_HASHES == cfg.serve_snapshot_fleet_hashes
-    assert kv_fleet.SNAPSHOT_PREFIX_HASHES == \
-        cfg.serve_snapshot_prefix_hashes
+    for flag in ("serve_kv_fleet_local_bytes",
+                 "serve_kv_fleet_min_prefix_blocks",
+                 "serve_snapshot_fleet_hashes",
+                 "serve_snapshot_prefix_hashes"):
+        assert getattr(port_cfg, flag) == getattr(cfg, flag), flag
 
 
 # ------------------------------------------------------------ engine tier
@@ -591,3 +591,33 @@ def test_fleet_pages_survive_replica_sigkill(fleet_cluster, tiny, jax_ref):
                 assert gen(p, deadline)["token_ids"] == jax_ref(p, 8)
     finally:
         serve.delete("kvfleet")
+
+
+def test_fleet_tier_transitions_balance_under_res_debug(tiny, monkeypatch):
+    """``ray_tpu``'s case of the same name: under RTPU_DEBUG_RES every
+    kv_page_obj acquire (a block exported for spill, a payload pulled for
+    install) is released by the time the engines close."""
+    from ray_tpu_torch.devtools import res_debug
+
+    monkeypatch.setenv("RTPU_DEBUG_RES", "1")
+    res_debug.reset()
+    try:
+        store = kv_fleet.LocalKVPageStore()
+        eng_a, ref = _spill_from_fresh_engine(tiny, store)
+        eng_b = _fleet_engine(tiny, store)
+        try:
+            out = eng_b.generate(P1, max_new_tokens=8, timeout=60)
+            assert out["token_ids"] == ref["token_ids"]
+            assert eng_b.stats()["kv_fleet_hits"] == 1
+        finally:
+            eng_a.close()
+            eng_b.close()
+        c = res_debug.counts()["kv_page_obj"]
+        # P1's 4 spilled blocks, then the pulled run of 3 (the prompt's
+        # last block is always recomputed).
+        assert c == {"acquired": 7, "released": 7, "outstanding": 0}
+        assert res_debug.violations() == []
+        assert res_debug.outstanding("kv_page_obj").get(
+            "kv_page_obj", 0) == 0
+    finally:
+        res_debug.reset()

@@ -165,3 +165,31 @@ def test_tick_fault_fails_parked_requests(tiny, jax_ref):
     finally:
         eng.close()
     assert out["token_ids"] == jax_ref(LO, 8)
+
+
+def test_preemption_parked_kv_witness_balanced(tiny, monkeypatch):
+    """``ray_tpu``'s case of the same name: under RTPU_DEBUG_RES the
+    parked_kv ledger balances across a real preempt + resume cycle, and
+    the engine's close reports nothing."""
+    from ray_tpu_torch.devtools import res_debug
+
+    monkeypatch.setenv("RTPU_DEBUG_RES", "1")
+    res_debug.reset()
+    try:
+        eng = _engine(tiny)
+        try:
+            lo = eng._make_request(LO, 40, None, priority=0)
+            eng._queue.put(lo)
+            _when_active(eng, lo)
+            hi = eng._make_request(HI, 8, None, priority=5)
+            eng._queue.put(hi)
+            hi.future.result(timeout=60)
+            lo.future.result(timeout=60)
+        finally:
+            eng.close()
+        assert eng._preempts >= 1 and eng._resumes >= 1
+        assert res_debug.counts()["parked_kv"]["acquired"] >= 1
+        assert res_debug.outstanding("parked_kv") == {}
+        assert res_debug.violations() == []
+    finally:
+        res_debug.reset()

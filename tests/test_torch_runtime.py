@@ -601,7 +601,7 @@ def test_system_config_applies_and_unknown_flag_raises():
         TCFG.set("serve_handle_timeout_s",
                  TCFG._flags["serve_handle_timeout_s"].default)
     with pytest.raises(KeyError):
-        TCFG.set("rpc_chaos_failure_prob", 0.5)  # not a flag of the port
+        TCFG.set("tpu_chips_per_host", 4)  # not a flag of the port
 
 
 def test_config_define_twice_raises():
