@@ -5041,9 +5041,9 @@ def phase21(smi, storage):
     first attempt raises ``ConnectionResetError`` under
     ``retry_exceptions=(ConnectionError,)``) -> ``p21_forward`` (the
     forward of phase 20 with the last position's bf16 logits on the
-    card, in a GPU worker phase 20 started; a driver that joined the
-    cluster returns its leases when it shuts down, so 20b's job left the
-    worker idle): argmax and f32 logit sum bit-equal to phase 20a's, the
+    card, in phase 20a's GPU worker; a driver that joined the cluster
+    returns its leases when it shuts down, so 20b's job left that worker
+    idle on top of the node's pool): argmax and f32 logit sum bit-equal to phase 20a's, the
     forward's launches equal to 20a's exactly and its marker written
     once, the check run twice; ``resume`` of the finished id returns the
     same and launches nothing; the stored bf16 tensor loads back onto
@@ -5121,10 +5121,15 @@ def phase21(smi, storage):
                              f"(want 1), check {check_runs} (want 2)")
     if any(resumed.values()):
         raise AssertionError(f"phase 21a: resume launched {resumed}")
+    # Phase 20b's job left 20a's worker idle on top of the node's pool
+    # (its joined driver returned the lease at shutdown); an unreturned
+    # lease would send the forward to another worker, warm or new.
     spawned = sum(s["cold_gpu"] for s in rt.spawn_stats()) - gpu_workers
-    if spawned:
-        raise AssertionError(f"phase 21a: {spawned} GPU worker(s) started; "
-                             "the forward must reuse phase 20's")
+    if spawned or out["pid"] != p20["pid"]:
+        raise AssertionError(f"phase 21a: the forward ran in GPU worker "
+                             f"{out['pid']}, not phase 20a's {p20['pid']} "
+                             f"({spawned} started); phase 20b's job must "
+                             "return its lease")
     if status["status"] != "SUCCEEDED" or status["steps_completed"] != 3:
         raise AssertionError(f"phase 21a: status {status}")
     bits = out["last"].view(torch.int16)
@@ -5173,8 +5178,8 @@ def phase21(smi, storage):
         raise AssertionError(f"phase 21b: the dashboard shows {shown}")
     took = time.perf_counter() - t0
     log(f"  phase 21a workflow: prompt -> check (2 attempts, the first "
-        f"ConnectionResetError) -> forward in GPU worker {out['pid']} "
-        f"(phase 20a's: {out['pid'] == p20['pid']}): argmax and logit sum "
+        f"ConnectionResetError) -> forward in phase 20a's GPU worker "
+        f"{out['pid']}: argmax and logit sum "
         f"bit-equal to phase 20a's, launches equal to one forward's, run "
         f"{run_s:.2f} s; resume {resume_s:.3f} s, 0 launches; the stored "
         f"bf16 logits [{out['last'].numel()}] back on {stored['last'].device}"
@@ -6266,25 +6271,19 @@ def p11b_main(smi, card_file):
     log(f"phase 11b gates (iterations to the threshold): {gates}")
 
 
-def phase_rllib(smi, p11b=None):
+def phase_rllib(smi, p11b):
     """Phase 11: RLlib on the card (11a, 11b, 11c); no port kernel may
-    launch. ``p11b``: 11b already runs in its own process
-    (``start_p11b``), joined here. Returns the gates' iterations to their
-    thresholds (None when 11b ran in its own process)."""
+    launch. ``p11b``: 11b runs in its own process (``start_p11b``),
+    joined here."""
     from ray_tpu_torch import ops
 
     t0 = time.perf_counter()
     zero_counts()
     phase11a(smi)
-    if p11b is None:
-        gates = phase11b(smi)
-    else:
-        gates = None
-        join_p11b(p11b)
+    join_p11b(p11b)
     phase11c(smi)
     require_launches("phase 11", read_counts(), tuple(ops.KERNELS))
     log(f"phase 11 RLlib: {time.perf_counter() - t0:.1f} s; on {smi}")
-    return gates
 
 
 # -------------------------------------------------------------- phase 11d
@@ -7111,7 +7110,7 @@ def main() -> int:
     t_start = time.perf_counter()
     smi, name = phase_device()
     if args == ["--rllib"]:
-        phase_rllib(smi)
+        phase_rllib(smi, start_p11b(smi))
         on_cluster("phase 11d", lambda storage: phase11d(smi))
         log(f"total {time.perf_counter() - t_start:.1f} s on {smi}")
         return 0

@@ -368,6 +368,11 @@ class ClusterCore:
         # arrival hands them to the resolver thread, which enqueues them
         # (never from the delivering thread, which may hold _lease_lock).
         self._resolved_q: "queue.SimpleQueue" = queue.SimpleQueue()
+        # task_id -> (info, pending arg ids, their get_async callback) for
+        # every task still waiting on an argument; ``cancel`` takes a task
+        # out of here and fails it at once.
+        self._dep_waiting: Dict[bytes, tuple] = {}
+        self._dep_lock = make_lock("cluster_core._dep_lock")
         self._resolver_started = False
         self._resolver_lock = make_lock("cluster_core._resolver_lock")
         # task_id -> _StreamState for in-flight streaming generators.
@@ -1664,23 +1669,48 @@ class ClusterCore:
                 left[0] -= 1
                 done = left[0] == 0
             if done:
-                self._resolved_q.put((task_id_bytes, info))
+                self._resolved_q.put(task_id_bytes)
 
         with self._resolver_lock:
             if not self._resolver_started:
                 self._resolver_started = True
                 threading.Thread(target=self._resolver_loop, daemon=True,
                                  name="dep-resolver").start()
+        with self._dep_lock:
+            self._dep_waiting[task_id_bytes] = (info, pending, arrived)
         for oid in pending:
             self.memory_store.get_async(oid, arrived)
 
     def _resolver_loop(self) -> None:
         while not self._shutdown_flag:
             try:
-                task_id_bytes, info = self._resolved_q.get(timeout=0.5)
+                task_id_bytes = self._resolved_q.get(timeout=0.5)
             except queue.Empty:
                 continue
-            self._enqueue_task(task_id_bytes, info)
+            # Enqueued under _dep_lock, so ``cancel`` finds the task
+            # either here or in its key queue.
+            with self._dep_lock:
+                entry = self._dep_waiting.pop(task_id_bytes, None)
+                if entry is not None:
+                    self._enqueue_task(task_id_bytes, entry[0])
+
+    def _cancel_waiting(self, tid_bytes: bytes) -> bool:
+        """Fail a task still waiting on its arguments with
+        TaskCancelledError and drop its callbacks; False if none waits."""
+        from ray_tpu_torch.exceptions import TaskCancelledError
+
+        with self._dep_lock:
+            entry = self._dep_waiting.pop(tid_bytes, None)
+        if entry is None:
+            return False
+        info, pending, arrived = entry
+        for oid in pending:
+            self.memory_store.remove_callback(oid, arrived)
+        err = TaskCancelledError(f"task {info.name} cancelled")
+        for oid in info.return_ids:
+            self.memory_store.put(oid, err, is_exception=True)
+        self._release_submitted_args(tid_bytes)
+        return True
 
     @staticmethod
     def _emit_submit_span(info: "_InflightTask", t_submit: float) -> None:
@@ -2724,11 +2754,11 @@ class ClusterCore:
 
     def cancel(self, ref: ObjectRef, force: bool = False,
                recursive: bool = True):
-        """Cancel the task that produces `ref`: queued tasks are failed
-        with TaskCancelledError immediately; dispatched ones get a
-        cancel RPC to their worker — cooperative by default (skipped if
-        not yet started; running user code is never preempted), while
-        ``force=True`` kills the executing worker the way the reference's
+        """Cancel the task that produces `ref`: tasks waiting on their
+        arguments or queued are failed with TaskCancelledError
+        immediately; dispatched ones get a cancel RPC to their worker —
+        cooperative by default (skipped if not yet started; running user
+        code is never preempted), while ``force=True`` kills the executing worker the way the reference's
         ray.cancel(force=True) does (core_worker Cancel path +
         force_kill): the conn-lost re-enqueue then converts the task to
         TaskCancelledError at re-dispatch."""
@@ -2743,7 +2773,10 @@ class ClusterCore:
         # -> worker exits and the re-dispatch converts the task to
         # TaskCancelledError).
         self._mark_cancelled(task_id, force=force)
-        # Still queued? Remove + fail its returns.
+        # Still waiting on an argument, or queued? Remove + fail its
+        # returns.
+        if self._cancel_waiting(tid_bytes):
+            return
         with self._lease_lock:
             for kq in self._key_queues.values():
                 for entry in list(kq.queue):

@@ -6,15 +6,16 @@ one-replica ``build_llm_deployment`` handle for ``seconds``, then 20
 streamed requests time their first token. Run as:
 
     python -m ray_tpu_torch.serve.benchmark [--out ROWS.json] \
-        [--seconds 10] [--concurrency 8] [--device cpu|cuda]
+        [--seconds 10] [--concurrency 8] [--device cuda|cpu]
 
 The engine is the tiny Llama config with random weights, as in
 ``ray_tpu``. A TTFT is timed from before the streaming call (``ray_tpu``
 starts the clock after it returns, by when the stream's start RPC has
-already waited for the first token). On the CPU (the default) the rows are a host's numbers,
-labelled ``tiny-cpu``; ``--device cuda`` serves the same config from a
-replica that leases one ``GPU`` and labels the rows with the card's
-name. The rows are printed, and written only to the ``--out`` file when
+already waited for the first token). By default the engine runs on the
+card, from a replica that leases one ``GPU``, and the rows are labelled
+with the card's name; with no card it raises. ``--device cpu`` serves the
+same config on the host, as ``ray_tpu``'s CPU run does, and labels the
+rows ``tiny-cpu``. The rows are printed, and written only to the ``--out`` file when
 one is given (``ray_tpu`` merges them into an existing report there; the
 port writes the file whole). A runtime the benchmark starts itself is
 shut down at the end; a caller's runtime is left up.
@@ -32,20 +33,17 @@ from typing import Any, Dict, List
 
 def run_benchmark(seconds: float = 10.0, concurrency: int = 8,
                   prompt_len: int = 16, new_tokens: int = 8,
-                  device: str = "cpu") -> Dict[str, Any]:
+                  device: str | None = None) -> Dict[str, Any]:
     import numpy as np
+    import torch
 
     import ray_tpu_torch
-    from ray_tpu_torch import serve
+    from ray_tpu_torch import resolve_device, serve
     from ray_tpu_torch.serve.llm import build_llm_deployment
 
+    device = str(resolve_device(device))
     on_card = device.startswith("cuda")
     if on_card:
-        import torch
-
-        if not torch.cuda.is_available():
-            raise RuntimeError("--device cuda needs a card; this host "
-                               "has none")
         label = f"tiny-{torch.cuda.get_device_name(0)}"
     else:
         label = "tiny-cpu"
@@ -123,7 +121,8 @@ def main(argv=None) -> Dict[str, Any]:
     p.add_argument("--out", default=None)
     p.add_argument("--seconds", type=float, default=10.0)
     p.add_argument("--concurrency", type=int, default=8)
-    p.add_argument("--device", default="cpu")
+    p.add_argument("--device", default=None,
+                   help="the card when not given; 'cpu' for the host")
     args = p.parse_args(argv)
     rows = run_benchmark(seconds=args.seconds,
                          concurrency=args.concurrency, device=args.device)

@@ -5,6 +5,7 @@
 - the owner resolves a task's owned arguments before it pushes the task,
   so a chain of dependent tasks holds no worker per link and its time
   grows in proportion to its length;
+  a task that waits on its arguments is cancelled at once;
 - ``python -m ray_tpu_torch.util.microbenchmark`` run alone sizes its
   store for the put rows' 800 MB object, and on a caller's runtime too
   small for it raises before the first row, naming the sizes.
@@ -85,10 +86,10 @@ def _chain(n):
     def inc(x):
         return x + 1
 
+    t0 = time.monotonic()
     ref = inc.remote(0)
     for _ in range(n - 1):
         ref = inc.remote(ref)
-    t0 = time.monotonic()
     assert ray_tpu_torch.get(ref, timeout=300) == n
     return time.monotonic() - t0
 
@@ -100,12 +101,57 @@ def test_dependent_chain_grows_with_its_length(cluster):
     its worker in ``get`` and made the node start another (35 workers for
     600 links), and the time grew faster than the length."""
     _chain(20)                      # warm the workers and the function
-    t_n = _chain(150)
-    t_2n = _chain(300)
-    assert t_2n <= 2.5 * t_n, (t_n, t_2n)
-    (stats,) = cluster.spawn_stats()
-    started = stats["forked"] + stats["cold_cpu"]
-    assert started <= 2, stats
+    # Each length's median of three, interleaved: a shared host's pauses
+    # and lucky runs land on single runs, not on a length.
+    times = {1000: [], 2000: []}
+    for _ in range(3):
+        for n in times:
+            times[n].append(_chain(n))
+            (stats,) = cluster.spawn_stats()
+            assert stats["forked"] + stats["cold_cpu"] <= 2, stats
+    t_n, t_2n = (sorted(times[n])[1] for n in (1000, 2000))
+    assert t_2n <= 2.5 * t_n, times
+
+
+def test_cancel_while_waiting_on_an_argument(cluster, tmp_path):
+    """A task whose argument is still being computed waits on its owner,
+    on no worker. ``cancel`` takes it out there: its ``get`` raises
+    TaskCancelledError within a second while the upstream task still runs,
+    and it does not run once the argument arrives."""
+    from ray_tpu_torch.exceptions import TaskCancelledError
+
+    gate = tmp_path / "go"
+    ran = tmp_path / "ran"
+
+    @ray_tpu_torch.remote
+    def slow(path):
+        import os as _os
+        import time as _time
+
+        while not _os.path.exists(path):
+            _time.sleep(0.05)
+        return 1
+
+    @ray_tpu_torch.remote
+    def inc(x, path):
+        open(path, "w").close()
+        return x + 1
+
+    up = slow.remote(str(gate))
+    down = inc.remote(up, str(ran))
+    try:
+        ray_tpu_torch.cancel(down)
+        t0 = time.monotonic()
+        with pytest.raises(TaskCancelledError):
+            ray_tpu_torch.get(down, timeout=30)
+        assert time.monotonic() - t0 < 1.0
+    finally:
+        gate.write_text("go")
+    assert ray_tpu_torch.get(up, timeout=60) == 1
+    with pytest.raises(TaskCancelledError):
+        ray_tpu_torch.get(down, timeout=5)
+    time.sleep(0.5)
+    assert not ran.exists()
 
 
 def test_microbenchmark_alone_gives_every_row(tmp_path):
