@@ -12,6 +12,9 @@ card and check it.
     python3 chip_smoke.py --decode [DIR]    # phases 1-2, the decode and
                                             # RoPE kernels, no result line
     python3 chip_smoke.py --decode-ab DIR   # --decode for DIR and this one
+    python3 chip_smoke.py --engine [DIR]    # phases 1-2, then phase 5
+                                            # three times, no result line
+    python3 chip_smoke.py --engine-ab DIR   # --engine for DIR and this one
     python3 chip_smoke.py --rllib           # phases 1 and 11 (11d on a
                                             # cluster of its own), no
                                             # result line
@@ -45,6 +48,9 @@ two versions of the kernels are compared on one card in one call.
 ``--decode [DIR]`` and ``--decode-ab DIR`` do the same for the decode
 kernels (contiguous and paged) and RoPE: their checks at phase 3's shapes,
 the launch floor, and their times at the shapes of ``decode_rope_times``.
+``--engine [DIR]`` and ``--engine-ab DIR`` do it for phase 5's serving
+engine, three runs an arm: its launches, dispatches and prefix hits, to
+hold a runtime change's launch counts to its parent's.
 
 Phases, in the order ``main()`` runs them; any failure raises and the
 script exits non-zero without printing its last line:
@@ -1607,9 +1613,9 @@ def phase9b(cfg, params, smi):
                 f1.generate(e, max_new_tokens=8, timeout=600)
             oid = kv_fleet.page_object_id(f1._fleet_ns,
                                           chain_hashes(a, PAGE)[1])
-            deadline = time.time() + 60
+            deadline = time.monotonic() + 60
             while not store.contains(oid):
-                if time.time() > deadline:
+                if time.monotonic() > deadline:
                     raise AssertionError("phase 9b: A's blocks never "
                                          f"spilled: {store.stats()}")
                 time.sleep(0.01)
@@ -1696,9 +1702,9 @@ def phase9c(smi):
         t0 = time.perf_counter()
         lo = eng._make_request(lo_p, 160, None, priority=0)
         eng._queue.put(lo)
-        deadline = time.time() + 600
+        deadline = time.monotonic() + 600
         while not any(r is lo for r in eng.scheduler.active):
-            if time.time() > deadline:
+            if time.monotonic() > deadline:
                 raise AssertionError("phase 9c: lo never activated")
             time.sleep(0.001)
         hi = eng._make_request(hi_p, 16, None, priority=1)
@@ -1957,8 +1963,8 @@ def wait_resident(h, prompt, timeout=60.0):
     from ray_tpu_torch.serve.engine.kv_manager import chain_hashes
 
     chain = set(chain_hashes(prompt, PAGE))
-    router, deadline = h._router, time.time() + timeout
-    while time.time() < deadline:
+    router, deadline = h._router, time.monotonic() + timeout
+    while time.monotonic() < deadline:
         with router._lock:
             fresh = router._fresh_loads()
             if fresh and any(chain <= s.get("prefix_hashes", frozenset())
@@ -2638,9 +2644,9 @@ def phase_cluster(smi, name, phase12=None, only14=False):
         finally:
             ray_tpu_torch.shutdown()
     pids += [p.pid for p in procs]
-    deadline = time.time() + 30
+    deadline = time.monotonic() + 30
     while any(alive(pid) for pid in pids):
-        if time.time() > deadline:
+        if time.monotonic() > deadline:
             raise AssertionError(f"phase 13: cluster processes outlived "
                                  f"shutdown: {[p for p in pids if alive(p)]}")
         time.sleep(0.1)
@@ -2860,10 +2866,10 @@ def phase18(cfg, smi, replicas, replica_pid, seq, prompts, want, handle_ms,
     want_counts = {"rtpu_llm_requests_total": float(sent),
                    "rtpu_llm_tokens_generated_total": float(tokens)}
     replica_call(replicas, "publish_metrics")
-    deadline = time.time() + 30
+    deadline = time.monotonic() + 30
     while True:
         counts = published_counts(replica_pid, engine, list(want_counts))
-        if counts == want_counts or time.time() > deadline:
+        if counts == want_counts or time.monotonic() > deadline:
             break
         time.sleep(0.5)
     if counts != want_counts:
@@ -3244,9 +3250,9 @@ def phase14b(cfg, params, smi):
             for e in evictors:
                 call(f1, e, 8)
             oid = kv_fleet.page_object_id(ns, chain_hashes(a, PAGE)[1])
-            deadline = time.time() + 60
+            deadline = time.monotonic() + 60
             while not store.contains(oid):
-                if time.time() > deadline:
+                if time.monotonic() > deadline:
                     raise AssertionError("phase 14b: A's blocks never "
                                          f"spilled: {store.stats()}")
                 time.sleep(0.01)
@@ -3662,9 +3668,9 @@ def phase16c_rank(rank, store, out):
     # Started with phase 16 (``start_16c_ranks``): wait for 16c's turn
     # before the first CUDA call, so 16a and 16b have the card alone.
     go = store + ".go"
-    deadline = time.time() + 600
+    deadline = time.monotonic() + 600
     while not os.path.exists(go):
-        if time.time() > deadline:
+        if time.monotonic() > deadline:
             raise TimeoutError("phase 16c rank: never started")
         time.sleep(0.05)
     torch.cuda.set_device(0)
@@ -4251,9 +4257,9 @@ def on_cluster(label, run, warm=(0, 0, True)):
             ray_tpu_torch.shutdown()
         finally:
             shutil.rmtree(storage, ignore_errors=True)
-    deadline = time.time() + 30
+    deadline = time.monotonic() + 30
     while any(alive(pid) for pid in [p.pid for p in procs] + pids):
-        if time.time() > deadline:
+        if time.monotonic() > deadline:
             raise AssertionError(f"{label}: cluster processes outlived "
                                  "shutdown")
         time.sleep(0.1)
@@ -4724,9 +4730,9 @@ def phase19(smi):
     finally:
         ray_tpu_torch.shutdown()
     launches = read_counts()
-    deadline = time.time() + 60
+    deadline = time.monotonic() + 60
     while session_threads():
-        if time.time() > deadline:
+        if time.monotonic() > deadline:
             raise AssertionError("phase 19: a trial's thread outlived fit()")
         time.sleep(0.05)
     free_card()
@@ -4948,14 +4954,14 @@ def phase20(smi, storage):
              json.dumps(prompt)], stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True, env=env)
         aid, actor_pid = got_a["actor"]
-        deadline = time.time() + 30
+        deadline = time.monotonic() + 30
         while True:
             live = [a for a in rt.list_actors()
                     if a.get("actor_id") == aid
                     and a.get("state") != "DEAD"]
             if not live and not alive(actor_pid):
                 break
-            if time.time() > deadline:
+            if time.monotonic() > deadline:
                 raise AssertionError(f"phase 20a: the client's owned actor "
                                      f"outlived its session: {live}")
             time.sleep(0.1)
@@ -5250,8 +5256,8 @@ def _warm_worker(card, n, barrier, hold_s):
             fn.launches = 0
     os.makedirs(barrier, exist_ok=True)
     open(os.path.join(barrier, str(os.getpid())), "w").close()
-    deadline = time.time() + hold_s
-    while len(os.listdir(barrier)) < n and time.time() < deadline:
+    deadline = time.monotonic() + hold_s
+    while len(os.listdir(barrier)) < n and time.monotonic() < deadline:
         time.sleep(0.05)
     return os.getpid()
 
@@ -6225,9 +6231,9 @@ def wait_p11b_card(p11b, timeout=120.0):
     """Wait until 11b's process holds its CUDA context (phase 13 counts
     the card's compute apps before and after its cluster)."""
     proc, path, _ = p11b
-    deadline = time.time() + timeout
+    deadline = time.monotonic() + timeout
     while not os.path.exists(path + ".card"):
-        if proc.poll() is not None or time.time() > deadline:
+        if proc.poll() is not None or time.monotonic() > deadline:
             join_p11b(p11b)
             raise AssertionError("phase 11b's process never reached the "
                                  "card")
@@ -6348,10 +6354,10 @@ def gpu_held(total, want, timeout=10.0):
     follows the node's heartbeats) or at ``timeout``."""
     import ray_tpu_torch
 
-    deadline = time.time() + timeout
+    deadline = time.monotonic() + timeout
     while True:
         held = total - ray_tpu_torch.available_resources().get("GPU", 0.0)
-        if abs(held - want) < 1e-6 or time.time() > deadline:
+        if abs(held - want) < 1e-6 or time.monotonic() > deadline:
             return held
         time.sleep(0.2)
 
@@ -7089,7 +7095,8 @@ def main() -> int:
         return 1
     args = sys.argv[1:]
     here = os.path.dirname(os.path.abspath(__file__))
-    if args[:1] in (["--flash-ab"], ["--decode-ab"]) and len(args) == 2:
+    if args[:1] in (["--flash-ab"], ["--decode-ab"],
+                    ["--engine-ab"]) and len(args) == 2:
         other, mode = os.path.abspath(args[1]), args[0][:-3]
         for root in (other, here, here, other):
             log(f"{mode[2:]} A/B arm: {root}")
@@ -7097,7 +7104,7 @@ def main() -> int:
                             mode, root], check=True, timeout=900)
         return 0
     root = os.path.abspath(args[1]) if args[:1] in (["--flash"], [
-        "--decode"]) and len(args) == 2 else here
+        "--decode"], ["--engine"]) and len(args) == 2 else here
     sys.path.insert(0, root)
     import ray_tpu_torch  # noqa: F401 — fails outside a checkout
 
@@ -7155,6 +7162,12 @@ def main() -> int:
         return 0
     if args[:1] in (["--flash"], ["--decode"]):
         (flash_probe if args[0] == "--flash" else decode_probe)(smi, root)
+        log(f"total {time.perf_counter() - t_start:.1f} s on {smi}")
+        return 0
+    if args[:1] == ["--engine"]:
+        log(f"engine arm: {root}")
+        for _ in range(3):
+            phase_engine(smi)
         log(f"total {time.perf_counter() - t_start:.1f} s on {smi}")
         return 0
     groups = {}

@@ -45,6 +45,10 @@ class _Session:
 class ClientGateway:
     """RPC handler object for one gateway server (any number of clients)."""
 
+    # Fault-injection scope (devtools/chaos.py): chaos-plan rules target
+    # this server's RPCs with role=client.
+    chaos_role = "client"
+
     def __init__(self, runtime):
         self.rt = runtime
         self._lock = threading.Lock()

@@ -1099,7 +1099,7 @@ class HeadServer:
             try:
                 self._pool.get(node_addr).retrying_call(
                     "lease_block_revoke", block_id, timeout=2)
-            except Exception:  # best-effort: the node is dead or dying; its TTL sweep releases the block
+            except Exception:  # rtpu-lint: disable=swallowed-exception — best-effort: the node is dead or dying; its TTL sweep releases the block
                 pass
             return None
         _flight.record("lease_block_grant", block=block_id[:12],
@@ -1176,7 +1176,7 @@ class HeadServer:
                 self._pool.get(addr).retrying_call("lease_block_revoke",
                                                    bid,
                                                    timeout=min(2.0, left))
-            except Exception:  # best-effort: an unreachable node expires the block by TTL
+            except Exception:  # rtpu-lint: disable=swallowed-exception — best-effort: an unreachable node expires the block by TTL
                 pass
 
     def _revoke_blocks(self, block_ids: List[str], notify: bool) -> None:
@@ -1736,7 +1736,7 @@ class HeadServer:
         for f in futures:
             try:
                 f.result(timeout=max(0.1, deadline - time.monotonic()))
-            except Exception:  # census_one recorded its own outcome; this is only the deadline wait
+            except Exception:  # rtpu-lint: disable=swallowed-exception — census_one recorded its own outcome; this is only the deadline wait
                 pass
         # Snapshot under the lock: a straggler may still write results
         # after the deadline, and the reply must not be mutated while it
@@ -1820,20 +1820,23 @@ class HeadServer:
             with self._lock:
                 nodes = [n for n in self._nodes.values() if n.alive]
                 placement = _place_bundles(bundles, strategy, nodes)
-            reserved = []
+            # Every bundle whose reservation was SENT, answered or not: a
+            # call that raised (its reply lost) may have reserved on the
+            # node, and the node releases an absent bundle as a no-op.
+            attempted = []
             if placement is not None:
                 try:
                     for idx, (bundle, node) in enumerate(
                             zip(bundles, placement)):
+                        attempted.append((node, idx, bundle))
                         ok = self._pool.get(node.address).retrying_call(
                             "reserve_bundle", pg_id, idx, bundle,
-                            timeout=10.0)
+                            timeout=cfg.rpc_state_timeout_s)
                         if not ok:
                             raise _TransientReservationFailure()
-                        reserved.append((node, idx, bundle))
                     break  # all bundles reserved
                 except BaseException as e:
-                    for node, idx, bundle in reserved:
+                    for node, idx, bundle in attempted:
                         try:
                             self._pool.get(node.address).retrying_call(
                                 "release_bundle", pg_id, idx,

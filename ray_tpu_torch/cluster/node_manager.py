@@ -1078,11 +1078,12 @@ class NodeManager:
         os.makedirs(log_dir, exist_ok=True)
         log_path = os.path.join(log_dir, f"worker-{worker_id[:8]}.log")
         from ray_tpu_torch.core.accelerators import GPUAcceleratorManager
-        from ray_tpu_torch.core.process_util import spawn_env
+        from ray_tpu_torch.core.process_util import NODE_PID_VAR, spawn_env
 
         env = spawn_env()  # worker arms PDEATHSIG itself (no preexec_fn:
         # fork-with-threads deadlocks)
         env["RTPU_WORKER_ID"] = worker_id
+        env[NODE_PID_VAR] = str(os.getpid())  # the worker's node watch
         spawn_cwd = apply_to_spawn_env(runtime_env, env) or os.getcwd()
         gpu = cards is not None
         if gpu:
@@ -1219,7 +1220,7 @@ class NodeManager:
                         # DESIGN: it happens once per zygote lifetime and
                         # a concurrent spawn must see either no zygote or
                         # a complete one.
-                        self._zygote = subprocess.Popen(
+                        self._zygote = subprocess.Popen(  # rtpu-lint: disable=blocking-under-lock
                             [sys.executable, "-m",
                              "ray_tpu_torch.cluster.worker_main", "--zygote",
                              "--node-addr", self.address,
@@ -1449,7 +1450,7 @@ class NodeManager:
     def _free_cards(self, lease: Lease) -> None:
         """The lease ended: its cards' shares go back (lock held)."""
         for i, share in lease.card_shares:
-            self._card_load[i] = max(0.0, self._card_load[i] - share)
+            self._card_load[i] = max(0.0, self._card_load[i] - share)  # rtpu-lint: disable=unbounded-registry-growth — one slot a card, sized at start; written in place
         if lease.card_shares:
             self._avail_cond.notify_all()
         lease.card_shares = []
@@ -1774,7 +1775,7 @@ class NodeManager:
                 # keys) — the key domain is the cluster's declared
                 # resource vocabulary, not per-request state; entries
                 # are overwritten in place, never accumulated.
-                self.available[k] = self.available.get(k, 0) - v
+                self.available[k] = self.available.get(k, 0) - v  # rtpu-lint: disable=unbounded-registry-growth
             self._bundles[(pg_id, idx)] = dict(bundle)
             self._bundle_avail[(pg_id, idx)] = dict(bundle)
             self._avail_cond.notify_all()

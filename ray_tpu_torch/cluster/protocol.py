@@ -526,7 +526,7 @@ class RpcServer:
         try:
             self._server.shutdown()
             self._server.server_close()
-        except Exception:  # best-effort teardown
+        except Exception:  # rtpu-lint: disable=swallowed-exception — best-effort teardown
             pass
         # serve_forever returns after shutdown(): join so teardown is
         # ordered (no acceptor thread outliving its server object).

@@ -34,6 +34,7 @@ from ray_tpu_torch.core.cluster_core import ClusterCore
 from ray_tpu_torch.core.config import GLOBAL_CONFIG as cfg
 from ray_tpu_torch.core.ids import ActorID, JobID, ObjectID, TaskID
 from ray_tpu_torch.core.object_ref import ObjectRef
+from ray_tpu_torch.core.process_util import ProcessWatch
 from ray_tpu_torch.core.serialization import SERIALIZER, capture_exception
 from ray_tpu_torch.cluster.protocol import ClientPool
 from ray_tpu_torch.devtools.lock_debug import make_lock
@@ -144,6 +145,7 @@ class WorkerRuntime(ClusterCore):
         # release), tracked per-thread so nested blocked scopes release
         # exactly once.
         self._task_slot = threading.Semaphore(1)
+        self._node_watch = ProcessWatch.from_env()
         self._slot_state = threading.local()
         self._hosted: Dict[ActorID, _HostedActor] = {}
         self._hosted_lock = make_lock("worker_main._hosted_lock")
@@ -195,10 +197,21 @@ class WorkerRuntime(ClusterCore):
 
     # ---------------------------------------------------------------- tasks
 
+    def _exit_if_node_dying(self) -> None:
+        """A SIGKILLed node's workers die only once the kernel has torn the
+        node, then the zygote, down (tens of ms; ``python -m
+        ray_tpu_torch.scripts.node_death``), and a call that reached this
+        worker in between ran on the old incarnation. The kill is visible
+        in /proc as soon as it is sent: exit unanswered, and the owner
+        retries on a restarted one."""
+        if self._node_watch is not None and self._node_watch.dying():
+            os._exit(1)
+
     def rpc_push_tasks(self, conn, pairs):
         """Batched push: one frame carries every task the dispatcher had
         ready for this lease (the reference pipelines PushNormalTask the
         same way via OnWorkerIdle bursts)."""
+        self._exit_if_node_dying()
         for task_id_bytes, spec_blob in pairs:
             if not self._seen_before(task_id_bytes):
                 self._exec_pool.submit(self._execute_task, spec_blob)
@@ -666,6 +679,7 @@ class WorkerRuntime(ClusterCore):
         incarnation never waits for seqs that predate it)."""
         if not entries:
             return True
+        self._exit_if_node_dying()
         specs = []
         for seq, blob in entries:
             t, undecodable = SERIALIZER.decode_or_error(blob)
@@ -1014,7 +1028,9 @@ def _zygote_child(args, worker_id: str) -> None:
     # spawner); this process's parent is the zygote — retarget before
     # bind_to_parent's stale-parent check silently exits us.
     os.environ[PARENT_PID_VAR] = str(os.getppid())
-    bind_to_parent()  # zygote dies -> its workers die (chain to the node)
+    # zygote dies -> its workers die (chain to the node); SIGKILL, since
+    # nothing of a worker's may run once its node is gone
+    bind_to_parent(_signal.SIGKILL)
     os.environ["RTPU_WORKER_ID"] = worker_id
     log_path = os.path.join(cfg.log_dir, f"worker-{worker_id[:8]}.log")
     os.makedirs(cfg.log_dir, exist_ok=True)
@@ -1050,7 +1066,7 @@ def zygote_main(args) -> None:
 
     from ray_tpu_torch.core.process_util import bind_to_parent
 
-    bind_to_parent()
+    bind_to_parent(_signal.SIGKILL)
     # torch is imported once here, so a forked worker does not pay for it
     # again. Nothing may touch torch.cuda in this process: a CUDA context
     # does not survive fork(), and every child would inherit a broken one.
@@ -1109,7 +1125,8 @@ def main() -> None:
         zygote_main(args)
         return
 
-    bind_to_parent()  # PDEATHSIG armed in the CHILD (no preexec_fn fork)
+    # PDEATHSIG armed in the CHILD (no preexec_fn fork)
+    bind_to_parent(signal.SIGKILL)
 
     faulthandler.register(signal.SIGUSR1)  # kill -USR1 <pid> dumps stacks
     _arm_flight_recorder()

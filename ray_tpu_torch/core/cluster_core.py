@@ -1486,7 +1486,7 @@ class ClusterCore:
                 # flights concurrent exports of one function (dedup) and
                 # is never taken on the dispatch/cache hot path (that is
                 # what _fn_cache_lock is for).
-                self.head.retrying_call("kv_put", "__fn__", digest, blob,
+                self.head.retrying_call("kv_put", "__fn__", digest, blob,  # rtpu-lint: disable=blocking-under-lock
                                         False, timeout=10)
                 self._fn_cache_put(digest, func)
         try:
@@ -2558,7 +2558,7 @@ class ClusterCore:
             try:
                 self.head.retrying_call("lease_block_revoke", block_id,
                                         timeout=5)
-            except Exception:  # best-effort: TTL expiry at head and node is the backstop
+            except Exception:  # rtpu-lint: disable=swallowed-exception — best-effort: TTL expiry at head and node is the backstop
                 pass
 
         threading.Thread(target=_go, daemon=True).start()
@@ -3341,7 +3341,7 @@ class ClusterCore:
             try:
                 self.head.retrying_call("lease_block_revoke", bid,
                                         timeout=min(2.0, left))
-            except Exception:  # best-effort: TTL expiry is the backstop at head and node
+            except Exception:  # rtpu-lint: disable=swallowed-exception — best-effort: TTL expiry is the backstop at head and node
                 pass
         if not getattr(self, "_owns_cluster", True):
             # A driver that joined a cluster (``ClusterRuntime``) returns

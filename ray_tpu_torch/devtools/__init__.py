@@ -1,5 +1,12 @@
-"""The port's runtime witnesses and its chaos harness
-(``ray_tpu/devtools``' runtime half).
+"""The port's runtime witnesses, its chaos harness and its static lint
+(``ray_tpu/devtools``).
+
+The static half is ``python -m ray_tpu_torch.devtools.lint``: ``ast``
+passes over ``ray_tpu_torch/`` and ``chip_smoke.py`` against
+``lint_baseline.json``, in five rule families (``concurrency``,
+``torch`` in place of ``ray_tpu``'s ``jax``, ``dist``, ``res``,
+``chan``; tables in ``invariants.py``). It imports neither torch nor the
+runtime and needs no card.
 
 Each witness is off unless its environment flag is set, and costs one
 environment read where it is off; spawned cluster processes inherit the

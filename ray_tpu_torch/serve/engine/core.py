@@ -501,7 +501,7 @@ class InferenceEngine:
         self.host_syncs[tag] += 1
         cuda_debug.note_host_sync(f"engine.{tag}")
         with cuda_debug.allow_sync():
-            return t.cpu()
+            return t.cpu()  # rtpu-lint: disable=host-sync-in-hot-path — this IS the counted sync
 
     def _fetch(self, t: torch.Tensor, tag: str) -> np.ndarray:
         return self._to_host(t, tag).numpy()
