@@ -12,6 +12,10 @@ card and check it.
     python3 chip_smoke.py --decode [DIR]    # phases 1-2, the decode and
                                             # RoPE kernels, no result line
     python3 chip_smoke.py --decode-ab DIR   # --decode for DIR and this one
+    python3 chip_smoke.py --glue [DIR]      # phases 1-2, RMSNorm and
+                                            # RMSNorm+residual, no result
+                                            # line
+    python3 chip_smoke.py --glue-ab DIR     # --glue for DIR and this one
     python3 chip_smoke.py --engine [DIR]    # phases 1-2, then phase 5
                                             # three times, no result line
     python3 chip_smoke.py --engine-ab DIR   # --engine for DIR and this one
@@ -48,6 +52,10 @@ two versions of the kernels are compared on one card in one call.
 ``--decode [DIR]`` and ``--decode-ab DIR`` do the same for the decode
 kernels (contiguous and paged) and RoPE: their checks at phase 3's shapes,
 the launch floor, and their times at the shapes of ``decode_rope_times``.
+``--glue [DIR]`` and ``--glue-ab DIR`` do it for RMSNorm and
+RMSNorm+residual: phase 3's checks of them (and of RoPE and SwiGLU at the
+same shapes), the launch floor, and rows 3, 4, 3b and 4b timed five
+times each (``glue_times``).
 ``--engine [DIR]`` and ``--engine-ab DIR`` do it for phase 5's serving
 engine, three runs an arm: its launches, dispatches and prefix hits, to
 hold a runtime change's launch counts to its parent's.
@@ -59,13 +67,14 @@ script exits non-zero without printing its last line:
 2. Build: compile every kernel from ``ray_tpu_torch/csrc`` with nvcc; for
    every kernel instantiation, by name and template arguments, ptxas'
    registers and spills and (decode, flash) the dynamic shared memory of
-   its launch.
+   its launch. An RMSNorm instantiation that spills fails the phase.
 3. Kernels against their plain PyTorch versions on the card, at the
    slice's shapes, in bf16 and f32 (tolerances below); the paged decode
    kernel also bit-equal to the contiguous one through the identity
    table, through a scattered table, over NaN-poisoned tails; the flash
    attention forward and backward at the training shape, at S=384, and
-   at ragged S with B > 1.
+   at ragged S with B > 1; RMSNorm and RMSNorm+residual at widths 64,
+   2048, 4096, 8192 and 4104 by 1, 8 and 2049 rows, the sum bit-equal.
 4. Model: a 2-layer model at Llama-3-8B widths in f32, prefill + 8
    decode steps through the kernels, against the same model on the plain
    versions; then in f32 and bf16 with ``paged_decode=True``, logits
@@ -573,6 +582,18 @@ def template_args(mangled):
         rest = rest[t.end():]
 
 
+def kernel_name(mangled):
+    """A mangled kernel's own name: the length-prefixed identifier ending
+    in ``_kernel`` (before its template arguments, if any). In an anonymous
+    namespace the prefix before it ends in a hash whose digits run into
+    the length, so each run of digits is read from its end."""
+    for m in re.finditer(r"(?=(\d+)([a-z]\w*?_kernel)[IE])", mangled):
+        digits, name = m.groups()
+        if digits.endswith(str(len(name))):
+            return name
+    return None
+
+
 def kernel_ptxas_report(lib):
     """One line per kernel instantiation of ``csrc/<lib>.cu``: its name and
     template arguments, ptxas' registers and spills, and (decode) the
@@ -592,16 +613,21 @@ def kernel_ptxas_report(lib):
         elif entry and "spill" in line:
             spill = line.strip()
         elif entry and "Used" in line:
-            kind = re.search(r"\d+([a-z]\w*?_kernel)", entry)
+            kind = kernel_name(entry)
             args = template_args(entry)
             dyn = ""
-            if smem is not None and kind and kind.group(1) == "decode_kernel":
+            if smem is not None and kind == "decode_kernel":
                 dt, d, g, paged = args
                 dyn = (f"; dynamic smem {smem(int(dt == 'bf16'), int(d), int(g))}"
                        f" bytes{' + 4 a page' if paged == '1' else ''}")
-            log(f"  ptxas {lib} {kind.group(1) if kind else entry}"
+            log(f"  ptxas {lib} {kind or entry}"
                 f"<{', '.join(args)}>: {line.split(':', 1)[-1].strip()}; "
                 f"{spill}{dyn}")
+            # RMSNorm holds its row in registers: a spill defeats it.
+            if kind == "rms_kernel" and re.search(r"[1-9]\d* bytes spill",
+                                                  spill):
+                raise AssertionError(f"phase 2: rms_kernel<{', '.join(args)}"
+                                     f"> spills: {spill}")
             entry = None
     clusters = getattr(_build.load(lib), "rtt_decode_attention_clusters",
                        None)
@@ -823,6 +849,44 @@ def check_fused(dtype, rows_shape, seed=10):
     return errs
 
 
+# The RMSNorm kernel holds a row in registers at the widths the models run
+# (64, 2048, 4096; bf16 8192 has f32 4096's vectors a row) and loops at any
+# other (4104). A wide row takes one vector a thread at 1 and 8 rows, two
+# at 2049, which also leave the last CTA of a narrow width part full.
+RMS_WIDTHS = (64, 2048, 4096, 8192, 4104)
+RMS_ROWS = (1, 8, 2049)
+
+
+def check_rms_widths(dtype, seed=40):
+    """RMSNorm and RMSNorm+residual at every width of ``RMS_WIDTHS`` and
+    row count of ``RMS_ROWS``: the norms within TOL of the plain version,
+    the sum bit-equal to ``x + r``."""
+    from ray_tpu_torch.ops import (fused_rms_norm, fused_rms_norm_residual,
+                                   rms_norm)
+
+    tol = TOL["rms_norm"][dtype]
+    worst = 0.0
+    for d in RMS_WIDTHS:
+        sc = _randn((d,), dtype, seed, scale=0.2)
+        for n in RMS_ROWS:
+            tag = f"{str(dtype)[6:]} [{n},{d}]"
+            x = _randn((n, d), dtype, seed + 1)
+            r = _randn((n, d), dtype, seed + 2)
+            err = close_enough(fused_rms_norm(x, sc, 1e-5),
+                               rms_norm(x, sc, 1e-5), tol, tol,
+                               f"rms_norm {tag}")
+            y, u = fused_rms_norm_residual(x, r, sc, 1e-5)
+            if not torch.equal(u, x + r):
+                raise AssertionError(f"rms_norm_residual {tag}: the sum "
+                                     "differs from x + r")
+            worst = max(err, worst, close_enough(
+                y, rms_norm(x + r, sc, 1e-5), tol, tol,
+                f"rms_norm_residual norm {tag}"))
+    log(f"  rms_norm and rms_norm_residual {str(dtype)[6:]}, widths "
+        f"{list(RMS_WIDTHS)} x rows {list(RMS_ROWS)}: max abs err {worst} "
+        f"(tol {tol}), sums bit-equal to x + r")
+
+
 def check_rope_bwd(dtype, seed=20):
     """The RoPE backward as the training path runs it: the kernel at the
     negated positions 0..-(S-1), reached through the autograd Function,
@@ -892,6 +956,7 @@ def phase_kernels():
             check_paged(dtype, s)
         for shape in ((8, 1), (1, 64), (TRAIN_B, TRAIN_S)):
             check_fused(dtype, shape)
+        check_rms_widths(dtype)
         check_rope_bwd(dtype)
         for shape in FLASH_SHAPES:
             check_flash(dtype, *shape)
@@ -7003,6 +7068,87 @@ def decode_probe(smi, root):
     wrapper_host_cost(smi)
 
 
+def kernel_own_ms(fn, timer, pattern, calls=20):
+    """The median device ms of the kernels named like ``pattern`` over
+    ``calls`` calls of ``fn``, each after the Timer's L2 flush, from
+    torch.profiler's kernel records: the kernel's own run, without the
+    launch that the Timer's events take in as well. None when the
+    profiler records no such kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            timer.flush_buf.max()
+            fn()
+        torch.cuda.synchronize()
+    own = sorted(ev.time_range.elapsed_us() for ev in prof.events()
+                 if ev.device_type == DeviceType.CUDA
+                 and re.search(pattern, ev.name))
+    return own[len(own) // 2] / 1e3 if own else None
+
+
+def glue_times(timer, floor, reps=5):
+    """Rows 3 and 4 at the decode shape [8,1,4096] and 3b and 4b at phase
+    8's [1,2048,4096], bf16, on phase 6's inputs: the Timer's median
+    ``reps`` times (the median of those and their range), beside the
+    bytes bound (each input read once, each output written once), the
+    share of it, the launch floor and the kernel's own run (profiler);
+    RMSNorm also beside F.rms_norm. Returns {row: [ms, ...]}."""
+    from ray_tpu_torch.ops import KERNELS
+
+    dt, dm, times = torch.bfloat16, 4096, {}
+    for (b, s), seed, tag in (((8, 1), 30, ""), ((TRAIN_B, TRAIN_S), 60, "b")):
+        n = b * s
+        x = _randn((b, s, dm), dt, seed)
+        r = _randn((b, s, dm), dt, seed + 1)
+        sc = _randn((dm,), dt, seed + 2, scale=0.2)
+        w = (1.0 + sc.float()).to(dt)
+        for row, name, fn, nbytes in (
+                ("3", "rms_norm", lambda: KERNELS["rms_norm"](x, sc, 1e-5),
+                 (2 * n * dm + dm) * 2),
+                ("4", "rms_norm_residual",
+                 lambda: KERNELS["rms_norm_residual"](x, r, sc, 1e-5),
+                 (4 * n * dm + dm) * 2)):
+            ms = [timer(fn) for _ in range(reps)]
+            bound = nbytes / HBM_BYTES_S * 1e3
+            own = kernel_own_ms(fn, timer, r"rms_kernel")
+            lib = ""
+            if name == "rms_norm":
+                lms = [timer(lambda: F.rms_norm(x, (dm,), weight=w, eps=1e-5))
+                       for _ in range(reps)]
+                lib = (f"; F.rms_norm {median(lms)} ms (range {min(lms)}-"
+                       f"{max(lms)})")
+            own_txt = (f"{own} ms ({bound / own} of the bound)" if own
+                       else "not recorded")
+            log(f"  row {row}{tag} {name} [{b},{s},{dm}] bf16: {median(ms)} "
+                f"ms (median of {reps} medians, range {min(ms)}-{max(ms)}), "
+                f"bytes bound {bound} ms ({bound / median(ms)} of it), "
+                f"launch floor {floor} ms, the kernel's own run {own_txt}"
+                f"{lib}")
+            times[row + tag] = ms
+        del x, r
+    return times
+
+
+def glue_probe(smi, root):
+    """``--glue``: RMSNorm and RMSNorm+residual of the package at
+    ``root``: ``check_fused`` at the decode and phase 8's shapes and
+    ``check_rms_widths``, in f32 and bf16, the launch floor, then
+    ``glue_times``."""
+    log(f"glue probe of {root}: kernels against their plain versions")
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape in ((8, 1), (TRAIN_B, TRAIN_S)):
+            check_fused(dtype, shape)
+        check_rms_widths(dtype)
+    timer = Timer()
+    floor = launch_floor(timer)
+    log(f"  launch floor, an empty kernel: {floor} ms; on {smi}")
+    log("glue A/B times, ms: " + json.dumps(glue_times(timer, floor)))
+
+
 def wrapper_host_cost(smi, calls=500, rounds=5):
     """Host microseconds a call of the decode wrappers and RoPE's forward
     take at the decode shapes (median of ``rounds`` x ``calls`` calls): what
@@ -7095,7 +7241,7 @@ def main() -> int:
         return 1
     args = sys.argv[1:]
     here = os.path.dirname(os.path.abspath(__file__))
-    if args[:1] in (["--flash-ab"], ["--decode-ab"],
+    if args[:1] in (["--flash-ab"], ["--decode-ab"], ["--glue-ab"],
                     ["--engine-ab"]) and len(args) == 2:
         other, mode = os.path.abspath(args[1]), args[0][:-3]
         for root in (other, here, here, other):
@@ -7104,7 +7250,7 @@ def main() -> int:
                             mode, root], check=True, timeout=900)
         return 0
     root = os.path.abspath(args[1]) if args[:1] in (["--flash"], [
-        "--decode"], ["--engine"]) and len(args) == 2 else here
+        "--decode"], ["--glue"], ["--engine"]) and len(args) == 2 else here
     sys.path.insert(0, root)
     import ray_tpu_torch  # noqa: F401 — fails outside a checkout
 
@@ -7160,8 +7306,9 @@ def main() -> int:
         spec_ab(smi)
         log(f"total {time.perf_counter() - t_start:.1f} s on {smi}")
         return 0
-    if args[:1] in (["--flash"], ["--decode"]):
-        (flash_probe if args[0] == "--flash" else decode_probe)(smi, root)
+    if args[:1] in (["--flash"], ["--decode"], ["--glue"]):
+        {"--flash": flash_probe, "--decode": decode_probe,
+         "--glue": glue_probe}[args[0]](smi, root)
         log(f"total {time.perf_counter() - t_start:.1f} s on {smi}")
         return 0
     if args[:1] == ["--engine"]:

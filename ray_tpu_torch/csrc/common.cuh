@@ -36,6 +36,18 @@ struct Vec16<float> {
   __device__ __forceinline__ static void store(float* p, const float* in) {
     *reinterpret_cast<float4*>(p) = make_float4(in[0], in[1], in[2], in[3]);
   }
+  // The 16 bytes as they lie in memory, and back: kernels that hold a
+  // row in registers keep it packed (4 registers a vector in either type).
+  __device__ __forceinline__ static void widen(const uint4 v, float* out) {
+    out[0] = __uint_as_float(v.x);
+    out[1] = __uint_as_float(v.y);
+    out[2] = __uint_as_float(v.z);
+    out[3] = __uint_as_float(v.w);
+  }
+  __device__ __forceinline__ static uint4 pack(const float* in) {
+    return make_uint4(__float_as_uint(in[0]), __float_as_uint(in[1]),
+                      __float_as_uint(in[2]), __float_as_uint(in[3]));
+  }
 };
 
 template <>
@@ -59,8 +71,8 @@ struct Vec16<__nv_bfloat16> {
                                                      float* out) {
     widen(*reinterpret_cast<const uint4*>(p), out);
   }
-  __device__ __forceinline__ static void store(__nv_bfloat16* p,
-                                               const float* in) {
+  // Round 8 f32 values to bf16 (to nearest even, as torch's cast).
+  __device__ __forceinline__ static uint4 pack(const float* in) {
     uint32_t w[4];
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -69,7 +81,11 @@ struct Vec16<__nv_bfloat16> {
           __bfloat16_as_ushort(__float2bfloat16(in[2 * i + 1]));
       w[i] = lo | (hi << 16);
     }
-    *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
+    return make_uint4(w[0], w[1], w[2], w[3]);
+  }
+  __device__ __forceinline__ static void store(__nv_bfloat16* p,
+                                               const float* in) {
+    *reinterpret_cast<uint4*>(p) = pack(in);
   }
 };
 

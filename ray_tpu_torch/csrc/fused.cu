@@ -13,12 +13,19 @@
 // per byte of device memory, so the design goal is the TPU kernels' own:
 // one pass over the operands, no intermediate written back.
 //
-//   * RMSNorm: one CTA per row; the row is read with 16-byte loads, the
-//     f32 sum of squares is reduced over the CTA, and the second pass
-//     re-reads the row from L1/L2 (a 4096-wide bf16 row is 8 KB) to
-//     scale and store it. The residual form adds x + r in the storage
-//     dtype first (as the unfused `x = x + attn` does), writes that sum,
-//     and normalises it.
+//   * RMSNorm: one pass over device memory with the row in registers.
+//     A row's threads load all of it, of r and of scale with 16-byte
+//     loads before anything else, so the cold scale row's latency
+//     overlaps the row's; each thread keeps its vectors packed (4
+//     registers each) until it stores. The residual form rounds u = x + r
+//     once to the storage dtype (as the unfused `x = x + attn` does) and
+//     stores it before the reduction, so that store overlaps it. The f32
+//     sum of squares is reduced with warp shuffles and, for a row wider
+//     than a warp, one exchange of the warps' partials in shared memory
+//     (one barrier). Threads a row and vectors a thread are template
+//     arguments picked from the width (dispatch_rms); a width outside
+//     that table takes the looping variant of the same kernel, which
+//     reads the row a second time from L1/L2.
 //   * RoPE: one thread per (token, head group, chunk of W = 8
 //     frequencies), every load of a call in flight at once. A thread makes
 //     its 16-byte loads of the x1 chunk and the matching x2 chunk of each of
@@ -45,63 +52,139 @@ namespace {
 
 using rtt::Vec16;
 
-__device__ __forceinline__ float block_sum(float v, float* scratch) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, off);
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  if (lane == 0) scratch[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    const int nw = blockDim.x >> 5;
-    v = lane < nw ? scratch[lane] : 0.f;
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      v += __shfl_xor_sync(0xffffffffu, v, off);
-    if (lane == 0) scratch[0] = v;
-  }
-  __syncthreads();
-  return scratch[0];
+// One 16-byte vector as it lies in memory, and back.
+template <typename T>
+__device__ __forceinline__ uint4 ld16(const T* p) {
+  return __ldg(reinterpret_cast<const uint4*>(p));
 }
 
-// x, r [N, d]; scale [d]; out, sum_out [N, d]. RES selects the residual
-// form (r and sum_out are ignored without it).
-template <typename T, bool RES>
-__global__ void rms_kernel(const T* __restrict__ x, const T* __restrict__ r,
-                           const T* __restrict__ scale, T* __restrict__ out,
-                           T* __restrict__ sum_out, int d, float eps) {
-  constexpr int VEC = Vec16<T>::N;
-  __shared__ float scratch[32];
-  const size_t off = (size_t)blockIdx.x * d;
-  float ss = 0.f;
-  for (int c = threadIdx.x * VEC; c < d; c += blockDim.x * VEC) {
-    float xv[VEC];
-    Vec16<T>::load(x + off + c, xv);
-    if (RES) {
-      float rv[VEC];
-      Vec16<T>::load(r + off + c, rv);
+template <typename T>
+__device__ __forceinline__ void st16(T* p, const uint4 v) {
+  *reinterpret_cast<uint4*>(p) = v;
+}
+
+// The sum of v over the TPR threads of each row of a CTA. A row's threads
+// are consecutive: TPR-aligned lanes of one warp (TPR <= 32) or whole
+// warps. Xor shuffles inside the warp; a row wider than a warp then
+// exchanges its warps' partial sums once through shared memory (one
+// barrier). Every thread of a row ends with the same bits.
+template <int TPR, int ROWS>
+__device__ __forceinline__ float row_sum(float v) {
+  constexpr int LANES = TPR < 32 ? TPR : 32;
 #pragma unroll
-      for (int j = 0; j < VEC; ++j) xv[j] = rtt::round_to<T>(xv[j] + rv[j]);
-      Vec16<T>::store(sum_out + off + c, xv);
-    }
+  for (int off = LANES / 2; off > 0; off >>= 1)
+    v += __shfl_xor_sync(0xffffffffu, v, off);
+  if constexpr (TPR > 32) {
+    constexpr int WPR = TPR / 32;
+    __shared__ float part[ROWS * WPR];
+    const int warp = threadIdx.x >> 5;
+    if ((threadIdx.x & 31) == 0) part[warp] = v;
+    __syncthreads();
+    const float* mine = part + warp / WPR * WPR;
+    v = 0.f;
 #pragma unroll
-    for (int j = 0; j < VEC; ++j) ss = fmaf(xv[j], xv[j], ss);
+    for (int w = 0; w < WPR; ++w) v += mine[w];
   }
-  const float inv = rsqrtf(block_sum(ss, scratch) / (float)d + eps);
-  for (int c = threadIdx.x * VEC; c < d; c += blockDim.x * VEC) {
-    float xv[VEC], sv[VEC], yv[VEC];
-    Vec16<T>::load(x + off + c, xv);
-    if (RES) {
-      float rv[VEC];
-      Vec16<T>::load(r + off + c, rv);
+  return v;
+}
+
+// x, r [n, d]; scale [d]; out, sum_out [n, d]. RES selects the residual
+// form (r and sum_out are ignored without it). ROWS rows a CTA, TPR
+// threads a row.
+//
+// V > 0: d == V * TPR * (16 / sizeof(T)). Each thread loads its V 16-byte
+// vectors of the row (thread t the vectors t, t + TPR, ..., so a warp's
+// loads are contiguous), of r, and of scale, all before the reduction,
+// and keeps them packed in registers until its stores: one pass over
+// device memory. The residual form stores u = x + r (rounded once to T)
+// before the reduction. Rows past n (the last CTA) load row n - 1 and
+// store nothing.
+//
+// V == 0: any d that is a multiple of 16 bytes; one row a CTA, each thread
+// looping over the row's vectors twice (the second pass reads x, or u,
+// again from L1/L2).
+template <typename T, bool RES, int V, int TPR, int ROWS>
+__global__ void __launch_bounds__(TPR * ROWS)
+    rms_kernel(const T* __restrict__ x, const T* __restrict__ r,
+               const T* __restrict__ scale, T* __restrict__ out,
+               T* __restrict__ sum_out, int n, int d, float eps) {
+  using V16 = Vec16<T>;
+  constexpr int VEC = V16::N;
+  static_assert((TPR & (TPR - 1)) == 0 && TPR * ROWS % 32 == 0,
+                "a row's threads must tile whole warps");
+  if constexpr (V == 0) {
+    static_assert(ROWS == 1, "the general variant takes one row a CTA");
+    const size_t off = (size_t)blockIdx.x * d;
+    float ss = 0.f;
+    for (int c = threadIdx.x * VEC; c < d; c += TPR * VEC) {
+      uint4 u = ld16(x + off + c);
+      float a[VEC];
+      if constexpr (RES) {
+        float b[VEC];
+        V16::widen(u, a);
+        V16::widen(ld16(r + off + c), b);
 #pragma unroll
-      for (int j = 0; j < VEC; ++j) xv[j] = rtt::round_to<T>(xv[j] + rv[j]);
+        for (int e = 0; e < VEC; ++e) a[e] += b[e];
+        u = V16::pack(a);
+        st16(sum_out + off + c, u);
+      }
+      V16::widen(u, a);
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) ss = fmaf(a[e], a[e], ss);
     }
-    Vec16<T>::load(scale + c, sv);
+    const float inv = rsqrtf(row_sum<TPR, 1>(ss) / (float)d + eps);
+    for (int c = threadIdx.x * VEC; c < d; c += TPR * VEC) {
+      // u was stored by this thread: a plain load sees it.
+      const uint4 u = RES ? *reinterpret_cast<const uint4*>(sum_out + off + c)
+                          : ld16(x + off + c);
+      float a[VEC], sv[VEC];
+      V16::widen(u, a);
+      V16::load(scale + c, sv);
 #pragma unroll
-    for (int j = 0; j < VEC; ++j) yv[j] = (xv[j] * inv) * (1.f + sv[j]);
-    Vec16<T>::store(out + off + c, yv);
+      for (int e = 0; e < VEC; ++e) a[e] = (a[e] * inv) * (1.f + sv[e]);
+      st16(out + off + c, V16::pack(a));
+    }
+  } else {
+    constexpr int D = V * TPR * VEC;
+    const int t = threadIdx.x % TPR;
+    const int row = blockIdx.x * ROWS + threadIdx.x / TPR;
+    const size_t at = (size_t)(row < n ? row : n - 1) * D + t * VEC;
+    uint4 xv[V], sv[V];
+    [[maybe_unused]] uint4 rv[RES ? V : 1];
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      sv[j] = ld16(scale + (j * TPR + t) * VEC);
+      xv[j] = ld16(x + at + j * TPR * VEC);
+      if constexpr (RES) rv[j] = ld16(r + at + j * TPR * VEC);
+    }
+    float ss = 0.f;
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      float a[VEC];
+      V16::widen(xv[j], a);
+      if constexpr (RES) {
+        float b[VEC];
+        V16::widen(rv[j], b);
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) a[e] += b[e];
+        xv[j] = V16::pack(a);  // u, rounded once to T
+        V16::widen(xv[j], a);
+        if (row < n) st16(sum_out + at + j * TPR * VEC, xv[j]);
+      }
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) ss = fmaf(a[e], a[e], ss);
+    }
+    const float inv = rsqrtf(row_sum<TPR, ROWS>(ss) / (float)D + eps);
+    if (row >= n) return;
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      float a[VEC], s[VEC];
+      V16::widen(xv[j], a);
+      V16::widen(sv[j], s);
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) a[e] = (a[e] * inv) * (1.f + s[e]);
+      st16(out + at + j * TPR * VEC, V16::pack(a));
+    }
   }
 }
 
@@ -212,18 +295,58 @@ __global__ void swiglu_kernel(const T* __restrict__ gate,
         silu_mul(rtt::to_f32(gate[i]), rtt::to_f32(up[i])));
 }
 
-int rms_threads(int d, int vec) {
-  const int want = ((d / vec + 31) / 32) * 32;
-  return want < 32 ? 32 : (want > 256 ? 256 : want);
+struct RmsArgs {
+  const void *x, *r, *scale;
+  void *out, *sum_out;
+  int n, d;
+  float eps;
+  cudaStream_t s;
+};
+
+template <typename T, bool RES, int V, int TPR, int ROWS>
+void launch_rms(const RmsArgs& a) {
+  rms_kernel<T, RES, V, TPR, ROWS>
+      <<<(a.n + ROWS - 1) / ROWS, TPR * ROWS, 0, a.s>>>(
+          static_cast<const T*>(a.x), static_cast<const T*>(a.r),
+          static_cast<const T*>(a.scale), static_cast<T*>(a.out),
+          static_cast<T*>(a.sum_out), a.n, a.d, a.eps);
 }
 
+// Up to this many rows (about two an SM) a wide row takes one vector a
+// thread, beyond it two.
+constexpr int kFewRows = 256;
+
+// The variant by the row's count of 16-byte vectors, nv = d / (16 /
+// sizeof(T)), and the count of rows. Register-resident at the widths the
+// models run: Llama-3-8B's 4096 (nv 512 in bf16, 1024 in f32; bf16 8192
+// has f32 4096's nv), Llama-3.2-1B's 2048 (256, 512) and the tiny test
+// config's 64 (8, 16). A wide row takes one CTA; of 1 to 16 vectors a
+// thread (nv / V threads a row), one was the fastest up to about 256 rows
+// (the latency of a few rows: more threads start the loads and run the
+// epilogue sooner) and two beyond (rows enough to fill the card: fewer,
+// fuller threads), or within a few per cent of the fastest; f32 4096
+// takes two at every count. Narrow rows take one vector a thread and 128
+// threads a CTA, several rows to a warp, no barrier. Any other width
+// loops.
 template <typename T, bool RES>
-void launch_rms(const void* x, const void* r, const void* scale, void* out,
-                void* sum_out, int n, int d, float eps, cudaStream_t s) {
-  rms_kernel<T, RES><<<n, rms_threads(d, Vec16<T>::N), 0, s>>>(
-      static_cast<const T*>(x), static_cast<const T*>(r),
-      static_cast<const T*>(scale), static_cast<T*>(out),
-      static_cast<T*>(sum_out), d, eps);
+void dispatch_rms(const RmsArgs& a) {
+  const bool few = a.n <= kFewRows;
+  switch (a.d / Vec16<T>::N) {
+    case 8:
+      return launch_rms<T, RES, 1, 8, 16>(a);
+    case 16:
+      return launch_rms<T, RES, 1, 16, 8>(a);
+    case 256:
+      return few ? launch_rms<T, RES, 1, 256, 1>(a)
+                 : launch_rms<T, RES, 2, 128, 1>(a);
+    case 512:
+      return few ? launch_rms<T, RES, 1, 512, 1>(a)
+                 : launch_rms<T, RES, 2, 256, 1>(a);
+    case 1024:
+      return launch_rms<T, RES, 2, 512, 1>(a);
+    default:
+      return launch_rms<T, RES, 0, 256, 1>(a);
+  }
 }
 
 }  // namespace
@@ -235,12 +358,12 @@ void launch_rms(const void* x, const void* r, const void* scale, void* out,
 extern "C" int rtt_rms_norm(const void* x, const void* scale, void* out,
                             int n, int d, float eps, int dtype,
                             void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const RmsArgs a{x, nullptr, scale, out, nullptr, n, d, eps,
+                  static_cast<cudaStream_t>(stream)};
   if (dtype == rtt::kF32)
-    launch_rms<float, false>(x, nullptr, scale, out, nullptr, n, d, eps, s);
+    dispatch_rms<float, false>(a);
   else if (dtype == rtt::kBF16)
-    launch_rms<__nv_bfloat16, false>(x, nullptr, scale, out, nullptr, n, d,
-                                     eps, s);
+    dispatch_rms<__nv_bfloat16, false>(a);
   else
     return -1;
   return static_cast<int>(cudaGetLastError());
@@ -250,11 +373,12 @@ extern "C" int rtt_rms_norm_residual(const void* x, const void* r,
                                      const void* scale, void* out,
                                      void* sum_out, int n, int d, float eps,
                                      int dtype, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const RmsArgs a{x, r, scale, out, sum_out, n, d, eps,
+                  static_cast<cudaStream_t>(stream)};
   if (dtype == rtt::kF32)
-    launch_rms<float, true>(x, r, scale, out, sum_out, n, d, eps, s);
+    dispatch_rms<float, true>(a);
   else if (dtype == rtt::kBF16)
-    launch_rms<__nv_bfloat16, true>(x, r, scale, out, sum_out, n, d, eps, s);
+    dispatch_rms<__nv_bfloat16, true>(a);
   else
     return -1;
   return static_cast<int>(cudaGetLastError());

@@ -233,9 +233,16 @@ def test_fused_ops_refuse_what_they_cannot_run(card):
         fused_swiglu(x.float().requires_grad_(), x)
 
 
+# Rows of the widths the kernel holds in registers (64, 2048, 4096 and, in
+# bf16, 8192), of one it does not (4104, the looping variant), at 1 and 8
+# rows (one vector a thread at the wide widths) and 2049 (two, and the
+# last CTA of several rows a CTA part full).
+RMS_SHAPES = [(8, 1, 4096), (1, 64, 4096), (3, 5, 64), (2, 1, 2048)] + [
+    (1, n, d) for d in (64, 2048, 4096, 8192, 4104) for n in (1, 8, 2049)]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(8, 1, 4096), (1, 64, 4096), (3, 5, 64),
-                                   (2, 1, 2048)])
+@pytest.mark.parametrize("shape", RMS_SHAPES)
 def test_rms_norm_kernels(card, dtype, shape):
     from ray_tpu_torch.ops import (fused_rms_norm, fused_rms_norm_residual,
                                    rms_norm)

@@ -39,7 +39,10 @@ def _f32(x):
 # --------------------------------------------------------------- RMSNorm
 
 
-@pytest.mark.parametrize("shape", [(2, 8, 64), (1, 5, 48), (3, 1, 128)])
+# (2, 3, 2048) and (1, 4, 4096): Llama-3.2-1B's and Llama-3-8B's widths,
+# which the card's kernel holds in registers.
+@pytest.mark.parametrize("shape", [(2, 8, 64), (1, 5, 48), (3, 1, 128),
+                                   (2, 3, 2048), (1, 4, 4096)])
 def test_rms_norm_matches_jax_kernel(shape):
     x, tx = _pair(_np(0, shape))
     s, ts = _pair(_np(1, shape[-1:], 0.2))
@@ -58,6 +61,18 @@ def test_rms_norm_residual_matches_jax_kernel():
     x, tx = _pair(_np(2, (2, 8, 64)))
     r, tr = _pair(_np(3, (2, 8, 64)))
     s, ts = _pair(_np(4, (64,), 0.2))
+    y, u = jops.fused_rms_norm_residual(x, r, s, 1e-5, interpret=True)
+    ty, tu = tops.fused_rms_norm_residual(tx, tr, ts, 1e-5)
+    # f32: test_fused_ops.py:42-46.
+    np.testing.assert_allclose(_f32(tu), _f32(u), rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(_f32(ty), _f32(y), rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("d", [2048, 4096])
+def test_rms_norm_residual_matches_jax_kernel_at_model_widths(d):
+    x, tx = _pair(_np(8, (2, 3, d)))
+    r, tr = _pair(_np(9, (2, 3, d)))
+    s, ts = _pair(_np(10, (d,), 0.2))
     y, u = jops.fused_rms_norm_residual(x, r, s, 1e-5, interpret=True)
     ty, tu = tops.fused_rms_norm_residual(tx, tr, ts, 1e-5)
     # f32: test_fused_ops.py:42-46.
